@@ -1,0 +1,80 @@
+"""Splatting decoder: render Gaussians into target views.
+
+Port of my_depthsplat_tpu/models/decoder.py. The (batch, view) axes are
+flattened and rendered by one batched ``render`` call; the tensors' device
+picks the kernels (CUDA) or their plain versions (CPU).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+from torch import Tensor
+
+from ..gaussians.types import Gaussians
+from ..render import DepthRenderingMode, render, render_depth
+from ..utils.shapes import assert_shapes, check_gaussians
+
+
+class DecoderOutput(NamedTuple):
+    color: Tensor  # (B, V, H, W, 3)
+    depth: Tensor | None  # (B, V, H, W)
+    # () int32 — tile instances lost to a layout budget. The port allocates
+    # dynamically, so this is 0 by construction; it stays for the API.
+    num_dropped: Tensor | None = None
+
+
+@dataclass(frozen=True)
+class DecoderSplattingCfg:
+    background_color: tuple[float, float, float] = (0.0, 0.0, 0.0)
+
+
+def decode_splatting(
+    cfg: DecoderSplattingCfg,
+    gaussians: Gaussians,
+    extrinsics: Tensor,  # (B, V, 4, 4) target views
+    intrinsics: Tensor,  # (B, V, 3, 3)
+    near: Tensor,  # (B, V)
+    far: Tensor,  # (B, V)
+    image_shape: tuple[int, int],
+    depth_mode: DepthRenderingMode | None = None,
+) -> DecoderOutput:
+    dims = check_gaussians(gaussians)
+    assert_shapes(
+        {
+            "target.extrinsics": (extrinsics, ("B", "V", 4, 4)),
+            "target.intrinsics": (intrinsics, ("B", "V", 3, 3)),
+            "target.near": (near, ("B", "V")),
+            "target.far": (far, ("B", "V")),
+        },
+        dims,
+    )
+    b, v = extrinsics.shape[:2]
+
+    def bv(x: Tensor) -> Tensor:
+        return x.reshape(b * v, *x.shape[2:])
+
+    def rep(x: Tensor) -> Tensor:
+        return torch.repeat_interleave(x, v, dim=0)
+
+    bg = torch.tensor(cfg.background_color, dtype=torch.float32, device=extrinsics.device)
+    color = render(
+        bv(extrinsics), bv(intrinsics), bv(near), bv(far), image_shape,
+        bg.expand(b * v, 3).contiguous(),
+        rep(gaussians.means), rep(gaussians.covariances),
+        rep(gaussians.harmonics), rep(gaussians.opacities),
+    )
+    depth = None
+    if depth_mode is not None:
+        depth = render_depth(
+            bv(extrinsics), bv(intrinsics), bv(near), bv(far), image_shape,
+            rep(gaussians.means), rep(gaussians.covariances), rep(gaussians.opacities),
+            mode=depth_mode,
+        ).reshape(b, v, *image_shape)
+    return DecoderOutput(
+        color.reshape(b, v, *color.shape[1:]),
+        depth,
+        torch.zeros((), dtype=torch.int32, device=extrinsics.device),
+    )
