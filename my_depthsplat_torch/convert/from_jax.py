@@ -116,6 +116,40 @@ def encoder_state_dict(p: Mapping) -> dict[str, np.ndarray]:
     return sd
 
 
+# lpips VGG16 conv indices per stage (torchvision ``vgg16().features``).
+_VGG_SLICES = ((0, 2), (5, 7), (10, 12, 14), (17, 19, 21), (24, 26, 28))
+
+
+def lpips_state_dict(p: Mapping) -> dict[str, np.ndarray]:
+    """train.lpips_net.LPIPS flax params -> the ``lpips`` package's
+    state-dict keys (the inverse of the JAX package's convert_lpips)."""
+    sd: dict[str, np.ndarray] = {}
+    for si, conv_ids in enumerate(_VGG_SLICES):
+        for ci, idx in enumerate(conv_ids):
+            _put(sd, f"net.slice{si + 1}.{idx}", _conv(p["vgg"][f"conv{si}_{ci}"]))
+    for i in range(len(_VGG_SLICES)):
+        w = np.asarray(p[f"lin{i}"])  # (C, 1)
+        sd[f"lin{i}.model.1.weight"] = w.reshape(1, w.shape[0], 1, 1)
+    return sd
+
+
+def _load_strict(module: nn.Module, sd: Mapping[str, np.ndarray]) -> nn.Module:
+    ref = next(module.parameters())
+    module.load_state_dict(
+        {
+            k: torch.as_tensor(np.ascontiguousarray(v), dtype=ref.dtype, device=ref.device)
+            for k, v in sd.items()
+        },
+        strict=True,
+    )
+    return module
+
+
+def load_flax_lpips(module: nn.Module, params: Mapping) -> nn.Module:
+    """Load a flax LPIPS params tree into the port's LPIPS net, strictly."""
+    return _load_strict(module, lpips_state_dict(params["params"] if "params" in params else params))
+
+
 def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
     """Load a flax params tree into ``module`` (an EncoderDepthSplat,
     PromptDA, DinoViT or PromptDPTHead of this package), strictly: every
@@ -134,12 +168,4 @@ def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
             break
     else:
         raise TypeError(f"no flax mapping for {type(module).__name__}")
-    ref = next(module.parameters())
-    module.load_state_dict(
-        {
-            k: torch.as_tensor(np.ascontiguousarray(v), dtype=ref.dtype, device=ref.device)
-            for k, v in sd.items()
-        },
-        strict=True,
-    )
-    return module
+    return _load_strict(module, sd)

@@ -21,8 +21,9 @@
 // done. The CTA leaves early once __syncthreads_count says every pixel is
 // done.
 //
-// Bound on the H100: the instance x pixel evaluations (~25 float operations
-// each, against 67 TFLOP/s of non-tensor float32) or the bytes (36 bytes of
+// Bound on the H100: the instance x pixel evaluations up to n_contrib (~12
+// float operations for the gate of each, ~13 more for each that passes both
+// gates, against 67 TFLOP/s of non-tensor float32) or the bytes (36 bytes of
 // gaussian row + 4 bytes of id per instance read, 20 bytes per pixel
 // written), whichever is larger for the scene. Design: each instance row is
 // read from device memory once per tile into shared memory and then

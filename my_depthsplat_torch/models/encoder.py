@@ -36,6 +36,9 @@ class EncoderDepthSplatCfg:
     gaussian_regressor_channels: int = 64
     init_sh_input_img: bool = True
     monodepth_vit_type: str = "vits"
+    # Depth-only pre-training (the depth loss in place of the render loss):
+    # not ported yet; train.make_train_step refuses it.
+    train_depth_only: bool = False
 
 
 class _HeadFinalConv(Conv):

@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNEL_SOURCES = ("expand", "composite_fwd")
+KERNEL_SOURCES = ("expand", "composite_fwd", "composite_bwd", "scatter_reduce")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

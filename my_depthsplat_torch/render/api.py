@@ -2,8 +2,9 @@
 
 Port of my_depthsplat_tpu/render/api.py (``render``, ``render_depth``).
 There is no backend switch: the tensors' device decides. CUDA tensors go
-through the kernels (expand.cu, composite_fwd.cu); CPU tensors through their
-plain PyTorch versions, which autograd can differentiate.
+through the kernels (expand.cu, composite_fwd.cu and, in the backward,
+composite_bwd.cu and scatter_reduce.cu); CPU tensors through their plain
+PyTorch versions. Both are differentiable.
 """
 
 from __future__ import annotations

@@ -9,7 +9,10 @@ allocation is dynamic, so nothing is ever dropped.
 
 ``expand_tiles`` launches csrc/expand.cu for CUDA tensors and runs
 ``expand_plain`` for CPU tensors. Both emit instances in the same order
-(gaussian-major, rect row-major).
+(gaussian-major, rect row-major), so gaussian ``i``'s instances are the
+contiguous range ``[offset[i], offset[i] + counts[i])`` of the unsorted
+output; both return ``offset`` and ``counts`` for the gradient reduction
+(render/pallas_raster.py:scatter_reduce).
 """
 
 from __future__ import annotations
@@ -68,9 +71,10 @@ def expand_plain(
     g_per_view: int,
     grid_x: int,
     n_tiles: int,
-) -> tuple[Tensor, Tensor]:
+) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """Vectorised over (gaussian, candidate tile): returns unsorted int64
-    keys and int32 gaussian ids of the surviving instances."""
+    keys and int32 gaussian ids of the surviving instances, and each
+    gaussian's first instance (N,) int64 and instance count (N,) int32."""
     dev = xy.device
     rw = (rect[:, 2] - rect[:, 0]).long()
     rh = (rect[:, 3] - rect[:, 1]).long()
@@ -93,7 +97,8 @@ def expand_plain(
     ok = (qmin <= thr[g]) | ~pd[g]
     tile = torch.div(g, g_per_view, rounding_mode="floor") * n_tiles + ty * grid_x + tx
     keys = (tile << 32) | slot[g]
-    return keys[ok], g[ok].int()
+    counts = torch.bincount(g[ok], minlength=n)
+    return keys[ok], g[ok].int(), torch.cumsum(counts, 0) - counts, counts.int()
 
 
 def _lib() -> ctypes.CDLL:
@@ -151,12 +156,13 @@ def _expand_cuda(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_ti
     counts = count_pass(xy, conic, opacity, rect, valid, g_per_view, grid_x, n_tiles)
     ends = torch.cumsum(counts, 0, dtype=torch.int64)
     total = int(ends[-1])  # host sync: the outputs are sized by the count pass
+    offset = ends - counts
     keys, gid = write_pass(
-        xy, conic, opacity, rect, valid, slot, ends - counts, total,
+        xy, conic, opacity, rect, valid, slot, offset, total,
         g_per_view, grid_x, n_tiles,
     )
     expand_tiles.launches += 1
-    return keys, gid
+    return keys, gid, offset, counts
 
 
 def expand_tiles(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles):
@@ -165,10 +171,8 @@ def expand_tiles(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_ti
     (one per call: the count and write passes together)."""
     if xy.is_cuda:
         if xy.shape[0] == 0:
-            return (
-                torch.empty(0, dtype=torch.int64, device=xy.device),
-                torch.empty(0, dtype=torch.int32, device=xy.device),
-            )
+            empty = lambda dtype: torch.empty(0, dtype=dtype, device=xy.device)  # noqa: E731
+            return empty(torch.int64), empty(torch.int32), empty(torch.int64), empty(torch.int32)
         return _expand_cuda(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles)
     return expand_plain(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles)
 

@@ -10,7 +10,10 @@ Ports the *semantics* of my_depthsplat_tpu/render/instances.py
    slot`` with the gaussian's flat index;
 3. ``torch.sort`` of the keys gives every tile's instances as one contiguous
    run in depth order; per-tile start and count come from
-   ``torch.searchsorted`` on the tile boundaries.
+   ``torch.searchsorted`` on the tile boundaries. The sort's permutation and
+   kernel A's per-gaussian ranges are kept: the backward writes instance
+   gradients back in kernel A's gaussian-major order, where each gaussian's
+   rows are contiguous.
 
 The u16 bitcast gathers, tier caps, ``max_tiles_per_gaussian``,
 ``instance_budget``, int32 key packing and 128-lane slack of the TPU layout
@@ -34,6 +37,9 @@ class TileInstances(NamedTuple):
     starts: Tensor  # (B*T,) int32 run starts into gaussian_id
     counts: Tensor  # (B*T,) int32 run lengths
     grid_hw: tuple[int, int]  # (grid_y, grid_x)
+    perm: Tensor  # (L,) int64 sorted position -> position in kernel A's output
+    offset: Tensor  # (N,) int64 first unsorted position of each gaussian
+    per_gaussian: Tensor  # (N,) int32 instances of each gaussian
 
 
 def tile_grid(image_shape: tuple[int, int]) -> tuple[int, int]:
@@ -72,7 +78,7 @@ def build_tile_instances(sg: ScreenGaussians, image_shape: tuple[int, int]) -> T
     b = sg.depth.shape[0]
     grid_y, grid_x = tile_grid(image_shape)
     n_tiles = grid_y * grid_x
-    keys, gid = expand_tiles(*expand_inputs(sg, image_shape))
+    keys, gid, offset, per_gaussian = expand_tiles(*expand_inputs(sg, image_shape))
     sorted_keys, perm = torch.sort(keys, stable=True)
     bounds = torch.searchsorted(
         sorted_keys,
@@ -83,4 +89,7 @@ def build_tile_instances(sg: ScreenGaussians, image_shape: tuple[int, int]) -> T
         starts=bounds[:-1].int(),
         counts=(bounds[1:] - bounds[:-1]).int(),
         grid_hw=(grid_y, grid_x),
+        perm=perm,
+        offset=offset,
+        per_gaussian=per_gaussian,
     )

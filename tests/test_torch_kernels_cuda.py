@@ -7,19 +7,28 @@ a GPU machine with
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
 
 (``--noconftest``: tests/conftest.py sets up JAX, which this file does not
-use). chip_smoke.py makes the same comparisons at the serving path's full
-shapes.
+use). chip_smoke.py makes the same comparisons at the full shapes of the serving
+and training paths.
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
+from my_depthsplat_torch.render import instances as inst_mod
+from my_depthsplat_torch.render import pallas_raster as raster_mod
 from my_depthsplat_torch.render.expand import expand_plain, expand_tiles
 from my_depthsplat_torch.render.instances import build_tile_instances, expand_inputs
 from my_depthsplat_torch.render.pallas_raster import (
+    composite_bwd,
+    composite_bwd_plain,
+    composite_fwd,
     composite_plain,
     composite_tiles,
+    scatter_reduce,
+    scatter_reduce_plain,
     screen_rows,
 )
 from my_depthsplat_torch.render.projection import project_gaussians
@@ -56,12 +65,11 @@ def _screen(card, seed, shape=(40, 56), b=2, g=400):
 def test_kernels_match_plain_versions(card, seed):
     sg, bg, shape = _screen(card, seed)
     flat = expand_inputs(sg, shape)
-    keys_k, gid_k = expand_tiles(*flat)
-    keys_p, gid_p = expand_plain(*flat)
-    assert torch.equal(keys_k, keys_p) and torch.equal(gid_k, gid_p)
+    for got, want in zip(expand_tiles(*flat), expand_plain(*flat)):
+        assert torch.equal(got, want)
     inst = build_tile_instances(sg, shape)
     args = (screen_rows(sg), inst.gaussian_id, inst.starts, inst.counts, bg, shape)
-    img_k, t_k, n_k = composite_tiles(*args)
+    img_k, t_k, n_k = composite_fwd(*args)
     img_p, t_p, n_p = composite_plain(*args)
     torch.cuda.synchronize()
     # the plain cumprod multiplies in another order than the kernel's
@@ -71,9 +79,65 @@ def test_kernels_match_plain_versions(card, seed):
     assert (n_k == n_p).float().mean().item() >= 0.999
 
 
-def test_composite_refuses_inputs_that_require_grad(card):
+@pytest.mark.parametrize("seed", [0, 1])
+def test_backward_kernels_match_plain_versions(card, seed):
+    """Kernel C vs composite_bwd_plain on kernel B's T_final and n_contrib:
+    1e-4 of the largest row entry (the plain version rebuilds T with one
+    cumulative product per tile, the kernel by sequential divisions). Kernel
+    D vs index_add_: 1e-5 of the largest entry (another order of float32
+    additions). Both kernels are bit-identical across two runs."""
+    sg, bg, shape = _screen(card, seed)
+    inst = build_tile_instances(sg, shape)
+    rows = screen_rows(sg)
+    _, t_f, n_c = composite_fwd(rows, inst.gaussian_id, inst.starts, inst.counts, bg, shape)
+    g_img = torch.randn(2, *shape, 3, generator=torch.Generator().manual_seed(seed)).to(card)
+    bargs = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, bg, t_f, n_c, g_img, shape)
+    before = (composite_bwd.launches, scatter_reduce.launches)
+    d_k, d_again, d_p = composite_bwd(*bargs), composite_bwd(*bargs), composite_bwd_plain(*bargs)
+    dargs = (d_k, inst.offset, inst.per_gaussian)
+    r_k, r_again, r_p = scatter_reduce(*dargs), scatter_reduce(*dargs), scatter_reduce_plain(*dargs)
+    torch.cuda.synchronize()
+    assert (composite_bwd.launches, scatter_reduce.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(d_k, d_again) and torch.equal(r_k, r_again)
+    assert (d_k - d_p).abs().max().item() <= 1e-4 * d_p.abs().max().item()
+    assert (r_k - r_p).abs().max().item() <= 1e-5 * r_p.abs().max().item()
+
+
+def test_composite_function_backward_matches_plain_backward(card):
+    """The autograd Function through kernels B, C and D vs the same Function
+    through the plain versions, gradients w.r.t. the screen rows and the
+    background: 1e-4 of each gradient's largest entry."""
     sg, bg, shape = _screen(card, 2)
     inst = build_tile_instances(sg, shape)
-    rows = screen_rows(sg).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no_grad"):
-        composite_tiles(rows, inst.gaussian_id, inst.starts, inst.counts, bg, shape)
+    wts = torch.randn(2, *shape, 3, generator=torch.Generator().manual_seed(5)).to(card)
+
+    def grads():
+        rows = screen_rows(sg).requires_grad_(True)
+        b = bg.clone().requires_grad_(True)
+        (composite_tiles(rows, inst, b, shape)[0] * wts).sum().backward()
+        return rows.grad, b.grad
+
+    got = grads()
+    with mock.patch.object(inst_mod, "expand_tiles", expand_plain), \
+            mock.patch.object(raster_mod, "composite_fwd", composite_plain), \
+            mock.patch.object(raster_mod, "composite_bwd", composite_bwd_plain), \
+            mock.patch.object(raster_mod, "scatter_reduce", scatter_reduce_plain):
+        want = grads()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def test_wrappers_refuse_wrong_arguments(card):
+    """A CUDA wrapper raises on what its kernel does not take."""
+    sg, bg, shape = _screen(card, 3)
+    inst = build_tile_instances(sg, shape)
+    rows = screen_rows(sg)
+    _, t_f, n_c = composite_fwd(rows, inst.gaussian_id, inst.starts, inst.counts, bg, shape)
+    g_img = torch.zeros(2, *shape, 3, device=card)
+    with pytest.raises(ValueError, match="dst"):
+        composite_bwd(
+            rows, inst.gaussian_id, inst.perm.int(), inst.starts, inst.counts, bg, t_f, n_c, g_img, shape
+        )
+    with pytest.raises(ValueError, match="d_inst"):
+        scatter_reduce(torch.zeros(4, 8, device=card), inst.offset, inst.per_gaussian)

@@ -129,11 +129,14 @@ def test_expand_wrapper_uses_plain_on_cpu():
     _, sg = _both_projections(args, shape)
     flat = expand_inputs(sg, shape)
     before = expand_tiles.launches
-    keys_w, gid_w = expand_tiles(*flat)
-    keys_p, gid_p = expand_plain(*flat)
+    got = expand_tiles(*flat)
+    want = expand_plain(*flat)
     assert expand_tiles.launches == before
-    assert torch.equal(keys_w, keys_p) and torch.equal(gid_w, gid_p)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    keys_p, gid_p, offset_p, per_gaussian_p = want
     assert keys_p.dtype == torch.int64 and gid_p.dtype == torch.int32
+    assert offset_p.dtype == torch.int64 and per_gaussian_p.dtype == torch.int32
+    assert int(per_gaussian_p.sum()) == keys_p.numel()
 
 
 @pytest.mark.parametrize(
