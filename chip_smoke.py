@@ -47,13 +47,41 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    tolerances of phases 5-7, at the shapes the training path gives them:
    the 56-view binning of the training batch (4,128,768 gaussians, about
    10.7 M instances) under the trained model;
-11. timings (CUDA events) of each kernel's device passes alone, of its
+11. serving path of configs/re10k_720p_fast.yaml at full width (slice 3): the
+   UniMatch encoder (ViT-B, two scales, 128 candidates, float32) on 12
+   seeded context views at 512x960, then decode_splatting of 2 target views
+   at 512x960 from 5,898,240 gaussians through the depth-grouped route, for
+   3 requests after one warm-up, counters 0 just before and read just after
+   (kernel A and the chained composite must each have launched once per
+   depth group and target view: 23 x 2 x 3); before the first decode,
+   kernel A's count pass says how many instances a view makes; encoder time
+   by part from one more pass with synchronising hooks;
+12. kernel A vs its plain version at the shapes the grouped route gives it:
+   every depth group of one served view (2^18 rank-ordered gaussians, slots
+   counted from the group's first rank, a 32x60 tile grid, tens of tiles
+   per gaussian) and of the dense stack, keys, ids, offsets and counts
+   identical; the chained composite (csrc/composite_fwd.cu, CHAINED) vs
+   composite_chained_plain on one served view, group by group from the
+   kernel's true incoming state (every group if the plain version's time
+   allows, else the first, a middle, the last and every group that a pixel
+   enters still live), and on a dense synthetic
+   stack (2^20 gaussians, 4 groups) where most pixels stop in the first
+   group: rgb and T within kernel B's dense limits (6e-3 max, 1e-5 mean),
+   the group-local n_contrib equal on >= 99.9% of pixels, the stopped flag
+   equal wherever the plain p_raw is not within 1e-6 of the threshold; the
+   grouped route vs the flat route on one full-size view (<= 1e-6, exact
+   expected), with both routes' decode time and peak memory;
+13. timings (CUDA events) of each kernel's device passes alone, of its
    plain version on the card, and its bound: A and B at the served scene's
    shapes (4 views), C and D at one batch element's (4 views) and at the
-   training batch's (56 views); index_add_ is D's library time. The
+   training batch's (56 views), the chained composite summed over the 23
+   launches of one served 512x960 view; index_add_ is D's library time. The
    operations in B's and C's bounds are counted from this run's data: every
    (instance, pixel) pair up to the pixel's last contributor costs the gate,
-   and only the pairs that pass both gates (counted here) cost the rest.
+   and only the pairs that pass both gates (counted here) cost the rest. The
+   chained composite's bytes are counted the same way, launch by launch: only
+   the instances a tile can need before all its pixels have stopped, 44 B of
+   state for a pixel still live on entry, 8 B for one that has stopped.
 
 The line before the card line is a JSON object {"kernels": [...]}; the card
 line is nvidia-smi's name and power limit; the last line is
@@ -92,6 +120,12 @@ SHAPE = (192, 192)
 N_SCENES = 3
 TRAIN_BATCH = 14  # configs/arkit_promptda.yaml data_loader.batch_size
 TRAIN_STEPS = 3
+# configs/re10k_720p_fast.yaml: 12 context views at 512x960, batch 1
+RE10K_SHAPE = (512, 960)
+RE10K_CONTEXT, RE10K_TARGET = 12, 2
+RE10K_REQUESTS = 3
+# more instances than this in one view and the decode is not attempted
+MAX_INSTANCES_PER_VIEW = 300_000_000
 
 
 def fail(msg: str) -> None:
@@ -190,6 +224,412 @@ def random_gaussians(torch, seed, b, g, dev, dense):
     return t(means), t(cov), t(sh), t(opac)
 
 
+def gated_hits(torch, rows, inst, n_c):
+    """The (instance, pixel) pairs, up to each pixel's last contributor, that
+    pass both gates: the pairs for which the composite does more than
+    evaluate the gate. ``n_c`` (B, H, W) with whole tiles."""
+    from my_depthsplat_torch.render.camera import ALPHA_MAX, ALPHA_MIN, TILE_X, TILE_Y
+
+    dev = rows.device
+    gy, gx = inst.grid_hw
+    npix = TILE_Y * TILE_X
+    nc_t = n_c.reshape(-1, gy, TILE_Y, gx, TILE_X).transpose(2, 3).reshape(-1, npix)
+    counts = inst.counts.long()
+    tile_of = torch.repeat_interleave(torch.arange(counts.numel(), device=dev), counts)
+    pos = torch.arange(tile_of.numel(), device=dev) - inst.starts.long()[tile_of] + 1
+    live = (pos <= nc_t.amax(dim=1)[tile_of]).nonzero().squeeze(1)
+    p = torch.arange(npix, device=dev)
+    col, row = (p % TILE_X).float()[None], (p // TILE_X).float()[None]
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    for idx in live.split(1 << 18):
+        d = rows[inst.gaussian_id[idx].long()]  # (n, 9)
+        tile = tile_of[idx]
+        ty, tx = (tile % (gy * gx)) // gx, tile % gx
+        dx = (tx * TILE_X).float()[:, None] + col - d[:, 0:1]
+        dy = (ty * TILE_Y).float()[:, None] + row - d[:, 1:2]
+        power = -0.5 * (d[:, 2:3] * dx * dx + d[:, 4:5] * dy * dy) - d[:, 3:4] * dx * dy
+        alpha = torch.clamp(d[:, 5:6] * torch.exp(power), max=ALPHA_MAX)
+        hits += ((power <= 0.0) & (alpha >= ALPHA_MIN) & (pos[idx][:, None] <= nc_t[tile])).sum()
+    return int(hits)
+
+
+def re10k_views(torch, rng, v, dev):
+    """Cameras strung along a line (a walk through a room), each turned a
+    little, looking down +z (c2w); normalized 16:9 intrinsics; near 0.5, far
+    100 as configs/re10k_720p_fast.yaml. No two are equally far from a third."""
+    import numpy as np
+
+    extr = np.tile(np.eye(4, dtype=np.float32), (1, v, 1, 1))
+    ang = rng.uniform(-0.06, 0.06, (1, v))
+    extr[..., 0, 0] = np.cos(ang)
+    extr[..., 0, 2] = np.sin(ang)
+    extr[..., 2, 0] = -np.sin(ang)
+    extr[..., 2, 2] = np.cos(ang)
+    extr[..., 0, 3] = np.sort(rng.uniform(-0.6, 0.6, (1, v)), axis=-1)
+    extr[..., 1, 3] = rng.uniform(-0.05, 0.05, (1, v))
+    extr[..., 2, 3] = rng.uniform(-0.1, 0.1, (1, v))
+    intr = np.tile(np.array([[0.5, 0, 0.5], [0, 0.889, 0.5], [0, 0, 1]], np.float32), (1, v, 1, 1))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    return {
+        "extrinsics": t(extr), "intrinsics": t(intr),
+        "near": t(np.full((1, v), 0.5, np.float32)), "far": t(np.full((1, v), 100.0, np.float32)),
+    }
+
+
+def serve_re10k(torch, dev, card, reset_counters, read_counters):
+    """Phases 11-12 and the chained composite's timing: returns the launch
+    counts of the serving run and the chained kernel's entry for the
+    ``kernels`` line."""
+    import numpy as np
+
+    from my_depthsplat_torch.geometry import get_fov
+    from my_depthsplat_torch.models import (
+        DecoderSplattingCfg,
+        EncoderDepthSplat,
+        EncoderDepthSplatCfg,
+        decode_splatting,
+    )
+    from my_depthsplat_torch.models import unimatch as unimatch_mod
+    from my_depthsplat_torch.render import pallas_raster as raster_mod
+    from my_depthsplat_torch.render.camera import TILE_X, TILE_Y, scale_invariant_normalization
+    from my_depthsplat_torch.render.expand import count_pass, expand_plain, expand_tiles
+    from my_depthsplat_torch.render.instances import (
+        build_tile_instances_grouped,
+        expand_inputs,
+        grouped_expand_inputs,
+    )
+    from my_depthsplat_torch.render.pallas_raster import (
+        ChainState,
+        composite_chained,
+        composite_chained_plain,
+        initial_chain_state,
+        screen_rows,
+    )
+    from my_depthsplat_torch.render.projection import project_gaussians
+
+    shape = RE10K_SHAPE
+    h, w = shape
+    n_groups = -(-(RE10K_CONTEXT * h * w) // raster_mod._CHAIN_GROUP_SLOTS)
+    # configs/re10k_720p_fast.yaml, encoder section. Its compute_dtype and
+    # sweep_gather_dtype (bfloat16) are the JAX package's precision policy,
+    # which the port does not have: float32 throughout.
+    cfg = EncoderDepthSplatCfg(
+        depth_branch="unimatch", num_scales=2, upsample_factor=4, lowest_feature_resolution=8,
+        num_depth_candidates=128, costvolume_unet_feat_dim=128, monodepth_vit_type="vitb",
+    )
+    encoder = EncoderDepthSplat(cfg, device=dev, seed=0).eval()
+    dec_cfg = DecoderSplattingCfg()
+    n_params = sum(p.numel() for p in encoder.parameters())
+    requests = []
+    for r in range(RE10K_REQUESTS):
+        rng = np.random.default_rng(300 + r)
+        ctx = re10k_views(torch, rng, RE10K_CONTEXT, dev)
+        ctx["image"] = torch.from_numpy(
+            rng.uniform(0, 1, (1, RE10K_CONTEXT, h, w, 3)).astype(np.float32)
+        ).to(dev)
+        requests.append((ctx, re10k_views(torch, rng, RE10K_TARGET, dev)))
+
+    def decode(gaussians, tgt, views=slice(None)):
+        return decode_splatting(
+            dec_cfg, gaussians, *(tgt[k][:, views] for k in ("extrinsics", "intrinsics", "near", "far")), shape
+        )
+
+    def project(gaussians, tgt, view):
+        e, _, _, m, c = scale_invariant_normalization(
+            tgt["extrinsics"][:, view], tgt["near"][:, view], tgt["far"][:, view],
+            gaussians.means, gaussians.covariances,
+        )
+        fov = get_fov(tgt["intrinsics"][:, view])
+        return project_gaussians(
+            e, m, c, gaussians.harmonics, gaussians.opacities,
+            torch.tan(0.5 * fov[:, 0]), torch.tan(0.5 * fov[:, 1]), shape, True,
+        )
+
+    def lap(fn):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t_a) * 1e3
+
+    with torch.no_grad():
+        # warm-up (cuDNN autotune) and the instance count before any decode
+        out = encoder(requests[0][0])
+        sg = project(out["gaussians"], requests[0][1], 0)
+        xy, conic, op, rect, valid, _, gpv, gx, nt = expand_inputs(sg, shape)
+        n_inst = int(count_pass(xy, conic, op, rect, valid, gpv, gx, nt).sum(dtype=torch.int64))
+        n_gauss = out["gaussians"].means.shape[1]
+        print(
+            f"re10k_720p_fast: encoder {n_params / 1e6:.1f} M parameters; {n_gauss} gaussians, "
+            f"{n_inst} instances in target view 0 ({n_inst / n_gauss:.2f} per gaussian)"
+        )
+        check(n_gauss == RE10K_CONTEXT * h * w == 5_898_240, f"expected 5898240 gaussians, got {n_gauss}")
+        check(
+            n_inst <= MAX_INSTANCES_PER_VIEW,
+            f"{n_inst} instances in one view: the seeded scene is too heavy to decode",
+        )
+        decode(out["gaussians"], requests[0][1])
+        del out, sg, xy, conic, op, rect, valid
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        served = []
+        for ctx, tgt in requests:
+            out, enc_ms = lap(lambda: encoder(ctx))
+            dec, dec_ms = lap(lambda: decode(out["gaussians"], tgt))
+            served.append((out, dec, enc_ms, dec_ms))
+        launches = read_counters()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        want = n_groups * RE10K_TARGET * RE10K_REQUESTS
+        print(f"re10k_720p_fast serving: {RE10K_REQUESTS} requests, launches {launches}")
+        for k in ("expand", "composite_fwd_chained"):
+            check(launches[k] == want, f"{k}: {launches[k]} launches on the serving path, expected {want}")
+        for i, (out, dec, _, _) in enumerate(served):
+            img = dec.color
+            check(tuple(img.shape) == (1, RE10K_TARGET, h, w, 3), f"request {i}: image shape {tuple(img.shape)}")
+            check(bool(torch.isfinite(img).all()), f"request {i}: non-finite image")
+            check(float(img.std()) > 1e-3, f"request {i}: constant image")
+            check(float(img.min()) >= 0.0 and float(img.max()) <= 1.0, f"request {i}: image outside [0, 1]")
+            d = out["depths"]
+            check(tuple(d.shape) == (1, RE10K_CONTEXT, h, w), f"request {i}: depth shape {tuple(d.shape)}")
+            check(bool(torch.isfinite(d).all()), f"request {i}: non-finite depth")
+            check(float(d.min()) >= 0.5 - 1e-4 and float(d.max()) <= 100.0 + 1e-2, f"request {i}: depth outside [near, far]")
+        enc_ms = statistics.median(r[2] for r in served)
+        dec_ms = statistics.median(r[3] for r in served)
+        print(
+            f"re10k_720p_fast serving: encoder {enc_ms:.1f} ms, decode of {RE10K_TARGET} views {dec_ms:.1f} ms "
+            f"(median of {RE10K_REQUESTS} requests), peak memory {peak_gib:.2f} GiB on {card}"
+        )
+        gaussians = served[0][0]["gaussians"]
+        tgt0 = requests[0][1]
+        del served, out, dec
+
+        # encoder time by part: one more pass with synchronising hooks
+        parts: dict[str, float] = {}
+
+        def timed(name, fn):
+            def run(*a, **k):
+                result, ms = lap(lambda: fn(*a, **k))
+                parts[name] = parts.get(name, 0.0) + ms
+                return result
+            return run
+
+        dp = encoder.depth_predictor
+        hooked = (
+            ("cnn", dp.backbone), ("transformer", dp.transformer), ("vit", dp.pretrained),
+            ("pyramids", dp.mv_pyramid), ("pyramids", dp.mono_pyramid), ("unets", dp.regressor[0]),
+            ("unets", dp.regressor[1]), ("upsampler", dp.upsampler),
+            ("regressor/head", encoder.gaussian_regressor), ("regressor/head", encoder.gaussian_head),
+        )
+        with contextlib.ExitStack() as stack:
+            for name, mod in hooked:
+                stack.enter_context(mock.patch.object(mod, "forward", timed(name, mod.forward)))
+            stack.enter_context(
+                mock.patch.object(
+                    unimatch_mod, "plane_sweep_correlation",
+                    timed("cost volumes", unimatch_mod.plane_sweep_correlation),
+                )
+            )
+            _, whole = lap(lambda: encoder(requests[0][0]))
+        parts["other"] = whole - sum(parts.values())
+        print(
+            f"re10k_720p_fast encoder by part (host clock around synchronised parts, one pass, {whole:.1f} ms): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f" ms on {card}"
+        )
+        del encoder
+        torch.cuda.empty_cache()
+
+        # ---- the chained composite vs its plain version, group by group
+        def per_tile(x):
+            """(1, H, W) -> (tiles, 256); the image is whole tiles."""
+            return x.reshape(h // TILE_Y, TILE_Y, w // TILE_X, TILE_X).transpose(1, 2).reshape(-1, TILE_Y * TILE_X)
+
+        def needed_bytes(inst, live_in, live_out, n_k):
+            """The bytes one group's composite must move on this run's data
+            -> (all of them, the state's share). A tile whose pixels had all
+            stopped before needs none of its instances; one whose pixels have
+            all stopped by the end needs them up to the one after its last
+            contributor (the earliest a stop can fall); any other needs its
+            whole run. Per needed instance 4 B of id, per gaussian they
+            reference 36 B of row; starts and counts; per pixel live on entry
+            20 B of state read and 24 B (state, n_contrib) written, per
+            stopped pixel 4 B read (p_raw) and 4 B written (n_contrib)."""
+            counts = inst.counts.long()
+            last = per_tile(n_k).amax(dim=1).long()
+            need = torch.where(
+                per_tile(live_out).any(dim=1), counts,
+                torch.where(per_tile(live_in).any(dim=1), torch.minimum(counts, last + 1), torch.zeros_like(counts)),
+            )
+            tile_of = torch.repeat_interleave(torch.arange(counts.numel(), device=dev), counts)
+            pos = torch.arange(tile_of.numel(), device=dev) - inst.starts.long()[tile_of]
+            n_ref = torch.unique(inst.gaussian_id[pos < need[tile_of]]).numel()
+            n_live = int(live_in.sum())
+            state_bytes = n_live * 44 + (h * w - n_live) * 8
+            return n_ref * 36 + int(need.sum()) * 4 + counts.numel() * 8 + state_bytes, state_bytes
+
+        def compare_chained(label, sg, pick):
+            """One view, depth group by depth group. Kernel A against its
+            plain version on every group's inputs as the grouped layout slices
+            them: keys, ids, offsets and counts identical. The chained kernel
+            threaded over the groups; for the groups ``pick`` chooses, held
+            against the plain version from the kernel's incoming state.
+            Returns what the bound needs."""
+            slots = raster_mod._CHAIN_GROUP_SLOTS
+            order, groups = build_tile_instances_grouped(sg, shape, slots)
+            a_err = 0
+            for k, args in enumerate(grouped_expand_inputs(sg, shape, slots)[1]):
+                out_k, out_p = expand_tiles(*args), expand_plain(*args)
+                check(
+                    out_k[0].shape == out_p[0].shape,
+                    f"{label}, group {k}: kernel A emits {out_k[0].numel()} instances, plain {out_p[0].numel()}",
+                )
+                for what, x, y in zip(("keys", "ids", "offset", "per_gaussian"), out_k, out_p):
+                    if x.numel():
+                        a_err = max(a_err, (x.long() - y.long()).abs().max().item())
+                    check(torch.equal(x, y), f"{label}, group {k}: kernel A {what} differ")
+                check(
+                    int(out_k[3].sum(dtype=torch.int64)) == groups[k].gaussian_id.numel(),
+                    f"{label}, group {k}: the layout holds another number of instances than kernel A emits",
+                )
+            per_gaussian = sum(inst.gaussian_id.numel() for inst in groups) / order.numel()
+            print(
+                f"{label}: kernel A vs plain on each of {len(groups)} depth groups ({slots} gaussians, "
+                f"{h // TILE_Y}x{w // TILE_X} tiles, {per_gaussian:.1f} instances per gaussian): max abs difference {a_err}"
+            )
+            rows = screen_rows(sg)[order]
+            state = initial_chain_state(1, shape, dev)
+            stats = {
+                "err": 0.0, "a_err": a_err, "plain_ms": 0.0, "plain_groups": [], "evals": 0, "hits": 0,
+                "bytes": 0, "state_bytes": 0, "stopped": [],
+            }
+            chosen = None
+            for k, inst in enumerate(groups):
+                args = (rows, inst.gaussian_id, inst.starts, inst.counts)
+                incoming = ChainState(*(t.clone() for t in state))  # the kernel updates the state in place
+                state, n_k = composite_chained(*args, state, shape)
+                # beyond the picked groups, every group that a pixel enters live (30 s of plain time at most)
+                if chosen is None or k in chosen or (bool((incoming.p_raw >= 1e-4).any()) and stats["plain_ms"] < 30_000):
+                    (want_s, n_p), ms = lap(lambda: composite_chained_plain(*args, incoming, shape))
+                    if chosen is None:
+                        chosen = pick(ms, len(groups))
+                    di, dt = (state.rgb - want_s.rgb).abs(), (state.t - want_s.t).abs()
+                    same_n = (n_k == n_p).float().mean().item()
+                    clear = (want_s.p_raw - 1e-4).abs() > 1e-6
+                    same_flag = torch.equal((state.p_raw >= 1e-4)[clear], (want_s.p_raw >= 1e-4)[clear])
+                    print(
+                        f"{label}, group {k}: {inst.gaussian_id.numel()} instances; rgb max {di.max().item():.3e} "
+                        f"mean {di.mean().item():.3e}; T max {dt.max().item():.3e}; n_contrib equal "
+                        f"{same_n * 100:.4f}%; stopped flag equal: {same_flag}; plain {ms:.1f} ms"
+                    )
+                    for what, dd in (("rgb", di), ("T", dt)):
+                        check(dd.max().item() <= 6e-3 and dd.mean().item() <= 1e-5, f"{label}, group {k}: chained kernel {what} disagrees")
+                    check(same_n >= 0.999, f"{label}, group {k}: chained kernel n_contrib agrees on only {same_n:.5f}")
+                    check(same_flag, f"{label}, group {k}: chained kernel's stopped flag disagrees")
+                    stats["err"] = max(stats["err"], di.max().item())
+                    stats["plain_ms"] += ms
+                    stats["plain_groups"].append(k)
+                stats["evals"] += n_k.long().sum().item()
+                stats["hits"] += gated_hits(torch, rows, inst, n_k)
+                nbytes, state_bytes = needed_bytes(inst, incoming.p_raw >= 1e-4, state.p_raw >= 1e-4, n_k)
+                stats["bytes"] += nbytes
+                stats["state_bytes"] += state_bytes
+                stats["stopped"].append(round((state.p_raw < 1e-4).float().mean().item(), 4))
+            check(bool(torch.isfinite(state.rgb).all()), f"{label}: non-finite colour")
+            return rows, groups, stats
+
+        def pick_groups(first_ms, n):
+            """Every group if the plain version's time allows (~30 s)."""
+            return set(range(n)) if first_ms * n <= 30_000 else {0, n // 2, n - 1}
+
+        sg0 = project(gaussians, tgt0, 0)
+        rows0, groups0, served_stats = compare_chained("served view 0", sg0, pick_groups)
+        check(len(groups0) == n_groups == 23, f"{len(groups0)} depth groups, expected 23")
+        print(f"served view 0: share of pixels stopped after each group {served_stats['stopped']}")
+        del sg0
+
+        rng = np.random.default_rng(41)
+        n_dense = 1 << 20
+        z = rng.uniform(2.0, 8.0, (1, n_dense))
+        means = np.stack([rng.uniform(-1.0, 1.0, (1, n_dense)) * z, rng.uniform(-0.56, 0.56, (1, n_dense)) * z, z], -1)
+        scales = rng.uniform(0.01, 0.08, (1, n_dense, 3))
+        rot = np.linalg.qr(rng.normal(size=(1, n_dense, 3, 3)))[0]
+        cov = (rot * scales[..., None, :] ** 2) @ np.swapaxes(rot, -1, -2)
+        t32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)  # noqa: E731
+        sg_dense = project_gaussians(
+            torch.eye(4, device=dev)[None], t32(means), t32(cov), t32(rng.normal(size=(1, n_dense, 3, 9)) * 0.3),
+            t32(rng.uniform(0.3, 0.95, (1, n_dense))), torch.ones(1, device=dev), torch.full((1,), 0.5625, device=dev),
+            shape, True,
+        )
+        _, _, dense_stats = compare_chained("dense synthetic stack", sg_dense, lambda ms, n: set(range(n)))
+        print(f"dense synthetic stack: share of pixels stopped after each group {dense_stats['stopped']}")
+        check(dense_stats["stopped"][-2] > 0.5, "dense synthetic stack: most pixels should stop before the last group")
+        del sg_dense, means, cov
+
+        # ---- the chained kernel alone: one event pair per launch, summed over the view
+        def chained_pass():
+            state = initial_chain_state(1, shape, dev)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(100_000_000)  # the host enqueues everything ahead of the device
+            pairs = []
+            for inst in groups0:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                composite_chained(rows0, inst.gaussian_id, inst.starts, inst.counts, state, shape)
+                end.record()
+                pairs.append((start, end))
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in pairs]
+
+        chained_pass()
+        per_group = [statistics.median(col) for col in zip(*(chained_pass() for _ in range(5)))]
+        c_ms = sum(per_group)
+        c_ms_plain_groups = sum(per_group[k] for k in served_stats["plain_groups"])
+        n_inst0 = sum(inst.gaussian_id.numel() for inst in groups0)
+        c_bound, c_by = bound(
+            served_stats["bytes"], served_stats["evals"] * OPS_PER_GATE + served_stats["hits"] * OPS_PER_FWD_HIT
+        )
+        state_ms = served_stats["state_bytes"] / PEAK_BYTES_PER_S * 1e3
+        print(
+            f"chained composite, one served view: {c_ms:.4f} ms device over {n_groups} launches "
+            f"(slowest group {max(per_group):.4f}, fastest {min(per_group):.4f}); plain {served_stats['plain_ms']:.1f} ms "
+            f"over groups {served_stats['plain_groups']} (kernel on those: {c_ms_plain_groups:.4f} ms); bound "
+            f"{c_bound:.4f} ms by {c_by} ({served_stats['bytes']} bytes needed, {served_stats['bytes'] / PEAK_BYTES_PER_S * 1e3:.4f} ms, "
+            f"of which the state traffic {state_ms:.4f} ms; {n_inst0} instances, "
+            f"{served_stats['evals']} evaluations to the last contributor, {served_stats['hits']} of them gated hits) on {card}"
+        )
+        del rows0, groups0
+
+        # ---- the grouped route vs the flat route on one full-size view
+        def route(min_g):
+            with mock.patch.object(raster_mod, "_CHAIN_MIN_G", min_g):
+                decode(gaussians, tgt0, slice(0, 1))  # warm-up
+                torch.cuda.reset_peak_memory_stats()
+                runs = [lap(lambda: decode(gaussians, tgt0, slice(0, 1))) for _ in range(3)]
+            return runs[0][0].color, statistics.median(ms for _, ms in runs), torch.cuda.max_memory_allocated() / 2**30
+
+        img_g, grouped_ms, grouped_gib = route(raster_mod._CHAIN_MIN_G)
+        img_f, flat_ms, flat_gib = route(1 << 62)
+        route_diff = (img_g - img_f).abs().max().item()
+        print(
+            f"grouped vs flat route, one 512x960 view of {n_gauss} gaussians: max difference {route_diff:.3e} "
+            f"(exact: {route_diff == 0.0}); decode grouped {grouped_ms:.1f} ms, peak {grouped_gib:.2f} GiB "
+            f"(the gaussians included); flat {flat_ms:.1f} ms, peak {flat_gib:.2f} GiB on {card}"
+        )
+        check(route_diff <= 1e-6, "the grouped route disagrees with the flat route")
+
+    entry = {
+        "name": "composite_fwd_chained", "route": "cuda", "source": "my_depthsplat_torch/csrc/composite_fwd.cu",
+        "replaces": "my_depthsplat_tpu/render/pallas_raster.py:172",
+        "launches": launches["composite_fwd_chained"],
+        "max_abs_err": max(served_stats["err"], dense_stats["err"]), "ms": c_ms,
+        "plain_ms": served_stats["plain_ms"], "bound_ms": c_bound, "bound_by": c_by, "library_ms": None,
+        "launches_per_view": n_groups, "plain_groups": served_stats["plain_groups"],
+        "ms_plain_groups": c_ms_plain_groups, "state_traffic_ms": state_ms,
+        "evaluations": served_stats["evals"], "gated_hits": served_stats["hits"], "bytes_needed": served_stats["bytes"],
+    }
+    return launches, entry, max(served_stats["a_err"], dense_stats["a_err"])
+
+
 def main() -> int:
     import torch
 
@@ -223,18 +663,13 @@ def main() -> int:
     )
     from my_depthsplat_torch.render import instances as inst_mod
     from my_depthsplat_torch.render import pallas_raster as raster_mod
-    from my_depthsplat_torch.render.camera import (
-        ALPHA_MAX,
-        ALPHA_MIN,
-        TILE_X,
-        TILE_Y,
-        scale_invariant_normalization,
-    )
+    from my_depthsplat_torch.render.camera import scale_invariant_normalization
     from my_depthsplat_torch.render.expand import count_pass, expand_plain, expand_tiles, write_pass
     from my_depthsplat_torch.render.instances import build_tile_instances, expand_inputs
     from my_depthsplat_torch.render.pallas_raster import (
         composite_bwd,
         composite_bwd_plain,
+        composite_chained,
         composite_fwd,
         composite_plain,
         composite_tiles,
@@ -259,6 +694,7 @@ def main() -> int:
     counters = {
         "expand": expand_tiles, "composite_fwd": composite_tiles,
         "composite_bwd": composite_bwd, "scatter_reduce": scatter_reduce,
+        "composite_fwd_chained": composite_chained,
     }
 
     def reset_counters():
@@ -493,8 +929,8 @@ def main() -> int:
     steps = [timed_step() for _ in range(TRAIN_STEPS)]
     train_launches = read_counters()
     print(f"training: {TRAIN_STEPS} steps after 1 warm-up, launches {train_launches}")
-    for k, n in train_launches.items():
-        check(n >= TRAIN_STEPS, f"{k} launched {n} times in {TRAIN_STEPS} training steps")
+    for k in ("expand", "composite_fwd", "composite_bwd", "scatter_reduce"):
+        check(train_launches[k] >= TRAIN_STEPS, f"{k} launched {train_launches[k]} times in {TRAIN_STEPS} training steps")
     for i, (logs, ms) in enumerate([(warm_logs, float("nan")), *steps]):
         print(f"training step {i}: {ms:.1f} ms " + " ".join(f"{k}={v:.6g}" for k, v in sorted(logs.items())))
         check(all(np.isfinite(v) for v in logs.values()), f"training step {i}: non-finite log")
@@ -584,28 +1020,6 @@ def main() -> int:
         a_ops = area * OPS_PER_CANDIDATE
         b_bytes = rows.numel() * 4 + inst_n * 4 + inst.starts.numel() * 8 + N_TARGET * 12 + N_TARGET * h * w * 20
 
-        def gated_hits(rows, inst, n_c):
-            """The (instance, pixel) pairs, up to each pixel's last
-            contributor, that pass both gates: the pairs for which the
-            composite does more than evaluate the gate."""
-            gy, gx = inst.grid_hw
-            nc_t = n_c.reshape(-1, gy, TILE_Y, gx, TILE_X).transpose(2, 3).reshape(-1, TILE_Y * TILE_X)
-            p = torch.arange(TILE_Y * TILE_X, device=dev)
-            col, row = (p % TILE_X).float()[:, None], (p // TILE_X).float()[:, None]
-            live = torch.minimum(nc_t.amax(dim=1), inst.counts).tolist()
-            hits = torch.zeros((), dtype=torch.int64, device=dev)
-            for tile, (start, n_live) in enumerate(zip(inst.starts.tolist(), live)):
-                if n_live == 0:
-                    continue
-                ty, tx = divmod(tile % (gy * gx), gx)
-                d = rows[inst.gaussian_id[start : start + n_live].long()]
-                dx, dy = tx * TILE_X + col - d[None, :, 0], ty * TILE_Y + row - d[None, :, 1]
-                power = -0.5 * (d[:, 2] * dx * dx + d[:, 4] * dy * dy) - d[:, 3] * dx * dy
-                alpha = torch.clamp(d[:, 5] * torch.exp(power), max=ALPHA_MAX)
-                pos = torch.arange(1, n_live + 1, device=dev)
-                hits += ((power <= 0.0) & (alpha >= ALPHA_MIN) & (pos[None] <= nc_t[tile][:, None])).sum()
-            return int(hits)
-
         def time_backward(label, sg, reps):
             """Kernels C and D, their plain versions and index_add_ on one binning."""
             v = sg.depth.shape[0]
@@ -624,7 +1038,7 @@ def main() -> int:
             d_plain = cuda_ms(torch, lambda: scatter_reduce_plain(*dargs), reps, True)
             d_library = cuda_ms(torch, lambda: d_inst.new_zeros(n_g, 9).index_add_(0, ids, d_inst), reps, True)
             evals = n_c.long().sum().item()  # up to each pixel's last contributor
-            hits = gated_hits(rows, inst, n_c)
+            hits = gated_hits(torch, rows, inst, n_c)
             n_ref = int((inst.per_gaussian > 0).sum())  # gaussians with an instance
             # C: rows of the referenced gaussians, sorted ids, destinations,
             # starts/counts, background, T_final + n_contrib + cotangent per
@@ -667,6 +1081,11 @@ def main() -> int:
         f"(plain {b_plain:.4f} ms), bound {b_bound:.4f} ms by {b_by} "
         f"({inst_n} instances, {evals} evaluations to the last contributor, {hits} of them gated hits) on {card}"
     )
+    # ---- slice 3: serving re10k_720p_fast at full width, the chained composite
+    torch.cuda.empty_cache()
+    re10k_launches, chained_entry, a_err_grouped = serve_re10k(torch, dev, card, reset_counters, read_counters)
+    errs["expand"] = max(errs["expand"], a_err_grouped)
+
     # A and B: times at the served scene's shapes, launches from the serving
     # run. C and D: times at the training batch's shapes, launches from the
     # training run; "one_element" holds their times at one batch element's.
@@ -676,7 +1095,7 @@ def main() -> int:
             "replaces": "my_depthsplat_tpu/render/expand.py:70", "launches": launches["expand"],
             "max_abs_err": errs["expand"], "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
             "bound_by": a_by, "library_ms": None, "wrapper_ms": a_wrapper,
-            "launches_training": train_launches["expand"],
+            "launches_training": train_launches["expand"], "launches_re10k": re10k_launches["expand"],
         },
         {
             "name": "composite_fwd", "route": "cuda", "source": "my_depthsplat_torch/csrc/composite_fwd.cu",
@@ -699,6 +1118,7 @@ def main() -> int:
             "max_rel_err": rel_errs["scatter_reduce"], **bwd_batch["scatter_reduce"],
             "one_element": bwd_one["scatter_reduce"],
         },
+        chained_entry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,15 +1,18 @@
 """flax parameter trees -> the port's modules.
 
-The JAX package's ``EncoderDepthSplat(promptda)`` keeps its weights as a
-flax tree; ``load_flax_params`` carries such a tree (nested dicts of numpy
-arrays, with or without the top-level ``"params"`` key) into the matching
-port module. Layouts: flax conv kernels (kh, kw, in, out) -> torch
+The JAX package's ``EncoderDepthSplat`` (either depth branch) keeps its
+weights as a flax tree; ``load_flax_params`` carries such a tree (nested
+dicts of numpy arrays, with or without the top-level ``"params"`` key) into
+the matching port module. Layouts: flax conv kernels (kh, kw, in, out) -> torch
 (out, in, kh, kw); dense kernels (in, out) -> (out, in); flax transposed-conv
 kernels are the spatial flip of torch's (torch's op is the conv gradient);
 the ViT qkv kernel keeps its [q | k | v] x heads column order, so it only
-transposes. The names on the port side are the reference's torch state-dict
-keys, the ones my_depthsplat_tpu/convert/torch_weights.py:convert_promptda
-and convert_prompt_dpt read (this module keeps its own copy of that map).
+transposes; the UNet attention's qkv goes from the JAX package's part-major
+channel order ([q: heads][k: heads][v: heads]) back to the reference's
+head-major one. The names on the port side are the reference's torch
+state-dict keys, the ones the converters of
+my_depthsplat_tpu/convert/torch_weights.py read (this module keeps its own
+copy of that map, inverted).
 """
 
 from __future__ import annotations
@@ -34,7 +37,10 @@ def _deconv(p: Mapping) -> dict[str, np.ndarray]:
 
 
 def _dense(p: Mapping) -> dict[str, np.ndarray]:
-    return {"weight": np.asarray(p["kernel"]).T, "bias": np.asarray(p["bias"])}
+    out = {"weight": np.asarray(p["kernel"]).T}
+    if "bias" in p:
+        out["bias"] = np.asarray(p["bias"])
+    return out
 
 
 def _ln(p: Mapping) -> dict[str, np.ndarray]:
@@ -46,7 +52,7 @@ def _put(sd: dict, prefix: str, leaves: dict[str, np.ndarray]) -> None:
         sd[f"{prefix}.{k}"] = v
 
 
-def vit_state_dict(p: Mapping) -> dict[str, np.ndarray]:
+def vit_state_dict(p: Mapping, module: nn.Module | None = None) -> dict[str, np.ndarray]:
     """models.vit.DinoViT flax params -> DinoViT state dict."""
     sd: dict[str, np.ndarray] = {
         "cls_token": np.asarray(p["cls_token"]),
@@ -69,8 +75,8 @@ def vit_state_dict(p: Mapping) -> dict[str, np.ndarray]:
     return sd
 
 
-def prompt_dpt_state_dict(p: Mapping) -> dict[str, np.ndarray]:
-    """models.dpt.PromptDPTHead flax params -> PromptDPTHead state dict."""
+def _dpt_trunk_state_dict(p: Mapping) -> dict[str, np.ndarray]:
+    """What both DPT heads share: stem, layer_rn convs and refinenets."""
     sd: dict[str, np.ndarray] = {}
     stem = p["stem"]
     for i in range(4):
@@ -86,15 +92,127 @@ def prompt_dpt_state_dict(p: Mapping) -> dict[str, np.ndarray]:
                 for c in ("conv1", "conv2"):
                     _put(sd, f"{pre}.{torch_name}.{c}", _conv(ref[flax_name][c]["Conv_0"]))
         for k, idx in (("depth_conv1", 0), ("depth_conv2", 2), ("depth_conv3", 4)):
-            _put(sd, f"{pre}.resConfUnit_depth.{idx}", _conv(ref[k]["Conv_0"]))
+            if k in ref:
+                _put(sd, f"{pre}.resConfUnit_depth.{idx}", _conv(ref[k]["Conv_0"]))
         _put(sd, f"{pre}.out_conv", _conv(ref["out_conv"]["Conv_0"]))
+    return sd
+
+
+def prompt_dpt_state_dict(p: Mapping, module: nn.Module | None = None) -> dict[str, np.ndarray]:
+    """models.dpt.PromptDPTHead flax params -> PromptDPTHead state dict."""
+    sd = _dpt_trunk_state_dict(p)
     _put(sd, "scratch.output_conv1", _conv(p["out_conv1"]["Conv_0"]))
     _put(sd, "scratch.output_conv2.0", _conv(p["out_conv2_0"]["Conv_0"]))
     _put(sd, "scratch.output_conv2.2", _conv(p["out_conv2_1"]["Conv_0"]))
     return sd
 
 
-def promptda_state_dict(p: Mapping) -> dict[str, np.ndarray]:
+def dpt_upsampler_state_dict(p: Mapping, module: nn.Module | None = None) -> dict[str, np.ndarray]:
+    """models.dpt.DPTUpsamplerHead flax params -> DPTUpsamplerHead state dict."""
+    sd = _dpt_trunk_state_dict(p)
+    for i in range(3):
+        _put(sd, f"concat_projects.{i}", _conv(p[f"concat_project{i}"]["Conv_0"]))
+    for i in range(3):
+        _put(sd, f"scratch.output_conv.{2 * i}", _conv(p[f"head{i}"]["Conv_0"]))
+    return sd
+
+
+def cnn_backbone_state_dict(p: Mapping, module: nn.Module | None = None) -> dict[str, np.ndarray]:
+    """models.backbone.CNNEncoder flax params -> CNNEncoder state dict."""
+    sd: dict[str, np.ndarray] = {}
+    _put(sd, "conv1", _conv(p["Conv_0"]["Conv_0"]))
+    _put(sd, "conv2", _conv(p["Conv_1"]["Conv_0"]))
+    for i in range(6):
+        blk, pre = p[f"ResidualBlock_{i}"], f"layer{i // 2 + 1}.{i % 2}"
+        _put(sd, f"{pre}.conv1", _conv(blk["Conv_0"]["Conv_0"]))
+        _put(sd, f"{pre}.conv2", _conv(blk["Conv_1"]["Conv_0"]))
+        if "Conv_2" in blk:
+            _put(sd, f"{pre}.downsample.0", _conv(blk["Conv_2"]["Conv_0"]))
+    return sd
+
+
+def mv_transformer_state_dict(p: Mapping, module: nn.Module | None = None) -> dict[str, np.ndarray]:
+    """models.mv_transformer.MultiViewFeatureTransformer flax params -> state dict."""
+    sd: dict[str, np.ndarray] = {}
+    i = 0
+    while f"layer_{i}" in p:
+        for name in ("self_attn", "cross_attn_ffn"):
+            layer, pre = p[f"layer_{i}"][name], f"layers.{i}.{name}"
+            for proj in ("q_proj", "k_proj", "v_proj", "merge"):
+                _put(sd, f"{pre}.{proj}", _dense(layer[proj]["Dense_0"]))
+            _put(sd, f"{pre}.norm1", _ln(layer["norm1"]))
+            if "mlp_0" in layer:
+                _put(sd, f"{pre}.mlp.0", _dense(layer["mlp_0"]["Dense_0"]))
+                _put(sd, f"{pre}.mlp.2", _dense(layer["mlp_1"]["Dense_0"]))
+                _put(sd, f"{pre}.norm2", _ln(layer["norm2"]))
+        i += 1
+    return sd
+
+
+def vit_fpn_state_dict(p: Mapping, module: nn.Module | None = None) -> dict[str, np.ndarray]:
+    """models.vit_fpn.ViTFeaturePyramid flax params (scales 1 and 2) -> state dict."""
+    sd: dict[str, np.ndarray] = {}
+    if "s1_up0" in p:
+        _put(sd, "stages.1.0", _deconv(p["s1_up0"]["ConvTranspose_0"]))
+        _put(sd, "stages.1.2", _conv(p["s1_conv"]["Conv_0"]))
+    return sd
+
+
+def ldm_unet_state_dict(p: Mapping, module: nn.Module) -> dict[str, np.ndarray]:
+    """models.ldm_unet.UNetModel flax params -> UNetModel state dict, found by
+    walking ``module``'s blocks in the order the JAX module names them."""
+    from ..models.ldm_unet import AttentionBlock, Downsample, ResBlock, Upsample
+
+    sd: dict[str, np.ndarray] = {}
+
+    def res(pre: str, q: Mapping) -> None:
+        _put(sd, f"{pre}.in_layers.0", _ln(q["in_norm"]["GroupNorm_0"]))
+        _put(sd, f"{pre}.in_layers.2", _conv(q["in_conv"]["Conv_0"]))
+        _put(sd, f"{pre}.out_layers.0", _ln(q["out_norm"]["GroupNorm_0"]))
+        _put(sd, f"{pre}.out_layers.3", _conv(q["out_conv"]["Conv_0"]))
+        if "skip" in q:
+            _put(sd, f"{pre}.skip_connection", _conv(q["skip"]["Conv_0"]))
+
+    def attn(pre: str, q: Mapping, heads: int) -> None:
+        _put(sd, f"{pre}.norm", _ln(q["norm"]["GroupNorm_0"]))
+        qkv = _conv(q["qkv"]["Conv_0"])  # (3C, C, 1, 1), part-major rows
+        w, b = qkv["weight"][..., 0], qkv["bias"]
+        ch = w.shape[0] // (3 * heads)
+        sd[f"{pre}.qkv.weight"] = w.reshape(3, heads, ch, *w.shape[1:]).swapaxes(0, 1).reshape(w.shape)
+        sd[f"{pre}.qkv.bias"] = b.reshape(3, heads, ch).swapaxes(0, 1).reshape(-1)
+        proj = _conv(q["proj_out"]["Conv_0"])
+        sd[f"{pre}.proj_out.weight"] = proj["weight"][..., 0]
+        sd[f"{pre}.proj_out.bias"] = proj["bias"]
+
+    def walk(blocks, prefix: str, stem: str, first: int = 0) -> None:
+        blk = level = 0
+        for i, block in enumerate(blocks, start=first):
+            for j, layer in enumerate(block):
+                pre = f"{prefix}.{i}.{j}"
+                if isinstance(layer, ResBlock):
+                    res(pre, p[f"{stem}_res{blk}"])
+                elif isinstance(layer, AttentionBlock):
+                    attn(pre, p[f"{stem}_attn{blk}"], layer.num_heads)
+                elif isinstance(layer, Downsample):
+                    _put(sd, f"{pre}.op", _conv(p[f"down{level}"]["Conv_0"]))
+                    level += 1
+                elif isinstance(layer, Upsample):  # named by level, walked high -> low
+                    _put(sd, f"{pre}.conv", _conv(p[f"up{n_up - level}"]["Conv_0"]))
+                    level += 1
+            blk += isinstance(block[0], ResBlock)
+
+    n_up = sum(isinstance(layer, Upsample) for block in module.output_blocks for layer in block)
+    _put(sd, "input_blocks.0.0", _conv(p["conv_in"]["Conv_0"]))
+    walk(list(module.input_blocks)[1:], "input_blocks", "in", first=1)
+    res("middle_block.0", p["mid_res0"])
+    res("middle_block.2", p["mid_res1"])
+    walk(module.output_blocks, "output_blocks", "out")
+    _put(sd, "out.0", _ln(p["out_norm"]["GroupNorm_0"]))
+    _put(sd, "out.2", _conv(p["out_conv"]["Conv_0"]))
+    return sd
+
+
+def promptda_state_dict(p: Mapping, module: nn.Module | None = None) -> dict[str, np.ndarray]:
     """models.promptda.PromptDA flax params -> PromptDA state dict."""
     sd = {f"pretrained.{k}": v for k, v in vit_state_dict(p["pretrained"]).items()}
     sd.update(
@@ -103,12 +221,41 @@ def promptda_state_dict(p: Mapping) -> dict[str, np.ndarray]:
     return sd
 
 
-def encoder_state_dict(p: Mapping) -> dict[str, np.ndarray]:
-    """EncoderDepthSplat(promptda) flax params -> EncoderDepthSplat state dict."""
-    sd = {
-        f"depth_predictor.{k}": v
-        for k, v in promptda_state_dict(p["depth_predictor"]).items()
-    }
+def unimatch_state_dict(p: Mapping, module: nn.Module) -> dict[str, np.ndarray]:
+    """models.unimatch.MultiViewUniMatch flax params -> state dict."""
+    sd: dict[str, np.ndarray] = {}
+
+    def sub(prefix: str, leaves: Mapping[str, np.ndarray]) -> None:
+        sd.update({f"{prefix}.{k}": v for k, v in leaves.items()})
+
+    sub("backbone", cnn_backbone_state_dict(p["backbone"]))
+    sub("transformer", mv_transformer_state_dict(p["transformer"]))
+    sub("pretrained", vit_state_dict(p["pretrained"]))
+    sub("upsampler", dpt_upsampler_state_dict(p["upsampler"]))
+    for name in ("mv_pyramid", "mono_pyramid"):
+        if name in p:
+            sub(name, vit_fpn_state_dict(p[name]))
+    for i in range(module.num_scales):
+        _put(sd, f"regressor.{i}.0", _conv(p[f"regressor{i}_in"]["Conv_0"]))
+        _put(sd, f"regressor.{i}.1", _ln(p[f"regressor{i}_gn"]))
+        sub(f"regressor.{i}.3", ldm_unet_state_dict(p[f"regressor{i}_unet"], module.regressor[i][3]))
+        _put(sd, f"regressor.{i}.4", _conv(p[f"regressor{i}_out"]["Conv_0"]))
+        _put(sd, f"regressor_residual.{i}", _conv(p[f"regressor{i}_residual"]["Conv_0"]))
+        _put(sd, f"depth_head.{i}.0", _conv(p[f"depth_head{i}_0"]["Conv_0"]))
+        _put(sd, f"depth_head.{i}.2", _conv(p[f"depth_head{i}_1"]["Conv_0"]))
+    return sd
+
+
+def encoder_state_dict(p: Mapping, module: nn.Module | None = None) -> dict[str, np.ndarray]:
+    """EncoderDepthSplat flax params (either depth branch) -> state dict.
+    The UniMatch tree needs ``module``, whose UNets say how it is laid out."""
+    if "depth_head" in p["depth_predictor"]:  # the PromptDA tree
+        depth = promptda_state_dict(p["depth_predictor"])
+    else:
+        depth = unimatch_state_dict(p["depth_predictor"], module.depth_predictor)
+    sd = {f"depth_predictor.{k}": v for k, v in depth.items()}
+    if "feature_proj" in p:
+        _put(sd, "feature_proj", _conv(p["feature_proj"]["Conv_0"]))
     _put(sd, "gaussian_regressor.0", _conv(p["regressor0"]["Conv_0"]))
     _put(sd, "gaussian_regressor.2", _conv(p["regressor1"]["Conv_0"]))
     _put(sd, "gaussian_head.0", _conv(p["head0"]["Conv_0"]))
@@ -150,22 +297,38 @@ def load_flax_lpips(module: nn.Module, params: Mapping) -> nn.Module:
     return _load_strict(module, lpips_state_dict(params["params"] if "params" in params else params))
 
 
+def _n_leaves(tree: Mapping) -> int:
+    return sum(_n_leaves(v) if isinstance(v, Mapping) else 1 for v in tree.values())
+
+
 def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
-    """Load a flax params tree into ``module`` (an EncoderDepthSplat,
-    PromptDA, DinoViT or PromptDPTHead of this package), strictly: every
-    port parameter must be covered and every converted leaf used."""
-    from ..models import DinoViT, EncoderDepthSplat, PromptDA, PromptDPTHead
+    """Load a flax params tree into ``module`` (one of this package's
+    modules that the JAX package has a counterpart of), strictly: every
+    port parameter must be covered, and every leaf of the tree used (each
+    leaf becomes exactly one tensor)."""
+    from .. import models
 
     p = params["params"] if "params" in params else params
     for cls, fn in (
-        (EncoderDepthSplat, encoder_state_dict),
-        (PromptDA, promptda_state_dict),
-        (DinoViT, vit_state_dict),
-        (PromptDPTHead, prompt_dpt_state_dict),
+        (models.EncoderDepthSplat, encoder_state_dict),
+        (models.PromptDA, promptda_state_dict),
+        (models.MultiViewUniMatch, unimatch_state_dict),
+        (models.DinoViT, vit_state_dict),
+        (models.PromptDPTHead, prompt_dpt_state_dict),
+        (models.DPTUpsamplerHead, dpt_upsampler_state_dict),
+        (models.CNNEncoder, cnn_backbone_state_dict),
+        (models.MultiViewFeatureTransformer, mv_transformer_state_dict),
+        (models.ViTFeaturePyramid, vit_fpn_state_dict),
+        (models.UNetModel, ldm_unet_state_dict),
     ):
         if isinstance(module, cls):
-            sd = fn(p)
+            sd = fn(p, module)
             break
     else:
         raise TypeError(f"no flax mapping for {type(module).__name__}")
+    if len(sd) != _n_leaves(p):
+        raise ValueError(
+            f"{type(module).__name__}: the flax tree has {_n_leaves(p)} leaves, "
+            f"{len(sd)} of them have a place in the module"
+        )
     return _load_strict(module, sd)

@@ -1,11 +1,24 @@
 """DepthSplat encoder: depth branch -> per-pixel Gaussian parameters.
 
-Port of my_depthsplat_tpu/models/encoder.py, the ``depth_branch="promptda"``
-arm: PromptDA depth + full-resolution ViT features feed the gaussian
-regressor and head (reference encoder_depthsplat.py:200-273); the raw head
-output becomes gaussians through the adapter, along pixel rays shifted by a
-learned sub-pixel offset. Submodule names follow the reference checkpoint
-(``depth_predictor``, ``gaussian_regressor.{0,2}``, ``gaussian_head.{0,2}``).
+Port of my_depthsplat_tpu/models/encoder.py with both depth branches behind
+``depth_branch``:
+
+- ``"promptda"``: PromptDA depth + full-resolution ViT features;
+- ``"unimatch"``: the published multi-view branch (models/unimatch.py); its
+  1/8-resolution ViT features are projected to 64 channels by a 1x1 conv
+  when they are wider, and upsampled to full resolution. With more than 3
+  context views each view is matched against its 2 nearest cameras.
+
+Depth, image and features feed the gaussian regressor and head (reference
+encoder_depthsplat.py:200-273); the raw head output becomes gaussians
+through the adapter, along pixel rays shifted by a learned sub-pixel offset.
+Submodule names follow the reference checkpoint (``depth_predictor``,
+``gaussian_regressor.{0,2}``, ``gaussian_head.{0,2}``).
+
+Everything runs in float32. The JAX package's precision policy
+(``compute_dtype`` / ``sweep_gather_dtype: bfloat16``, which
+configs/re10k_720p_fast.yaml turns on) is not ported: the configuration has
+no such fields here, and ROADMAP.md queues them.
 """
 
 from __future__ import annotations
@@ -21,9 +34,11 @@ from torch import Tensor
 from ..gaussians import GaussianAdapterCfg, adapt_gaussians, d_in
 from ..geometry import sample_image_grid
 from ..utils.device import resolve_device
+from ..ops import resize_bilinear
 from ..utils.shapes import check_views
 from .layers import Conv, init_params
 from .promptda import PromptDA
+from .unimatch import MultiViewUniMatch
 from .vit import VIT_CONFIGS
 
 
@@ -39,6 +54,29 @@ class EncoderDepthSplatCfg:
     # Depth-only pre-training (the depth loss in place of the render loss):
     # not ported yet; train.make_train_step refuses it.
     train_depth_only: bool = False
+    # the UniMatch branch
+    num_scales: int = 1
+    upsample_factor: int = 4
+    lowest_feature_resolution: int = 4
+    num_depth_candidates: int = 128
+    costvolume_unet_feat_dim: int = 128
+    costvolume_unet_attn_res: tuple[int, ...] = ()
+
+
+# What every configuration of the reference leaves at its default; they become
+# fields of the configuration when a ported configuration sets them.
+FEATURE_PROJ_CHANNELS = 64  # ViT features wider than this are 1x1-projected to it
+LOCAL_MV_MATCH = 2  # with more than 3 views, each matches its 2 nearest cameras
+ATTN_SPLITS = 2  # window splits per side in the multi-view transformer
+
+
+def knn_view_indices(extrinsics: Tensor, k: int) -> Tensor:
+    """(B, V, 4, 4) c2w -> (B, V, k+1) int64 indices of the nearest cameras,
+    the view itself first (reference encoder_depthsplat.py:144-153). Ties
+    order by index, as a stable sort leaves them."""
+    xyz = extrinsics[..., :3, 3]
+    d = (xyz[:, :, None] - xyz[:, None, :]).norm(dim=-1)
+    return torch.argsort(d, dim=-1, stable=True)[..., : k + 1]
 
 
 class _HeadFinalConv(Conv):
@@ -69,17 +107,29 @@ class EncoderDepthSplat(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        if cfg.depth_branch != "promptda":
-            raise NotImplementedError(
-                f"depth_branch={cfg.depth_branch!r}: the UniMatch branch is queued "
-                "in ROADMAP.md (module queue, after slice 3); only 'promptda' is ported"
-            )
+        if cfg.depth_branch not in ("promptda", "unimatch"):
+            raise ValueError(f"depth_branch={cfg.depth_branch!r}: 'promptda' or 'unimatch'")
         dev = resolve_device(device)
         self.cfg = cfg
         embed = VIT_CONFIGS[cfg.monodepth_vit_type].embed_dim
         ch = cfg.gaussian_regressor_channels
         n_params = d_in(cfg.gaussian_adapter) + 3  # + opacity + offset_xy
-        self.depth_predictor = PromptDA(cfg.monodepth_vit_type)
+        self.feature_proj = None
+        if cfg.depth_branch == "promptda":
+            self.depth_predictor = PromptDA(cfg.monodepth_vit_type)
+        else:
+            self.depth_predictor = MultiViewUniMatch(
+                num_scales=cfg.num_scales,
+                upsample_factor=cfg.upsample_factor,
+                lowest_feature_resolution=cfg.lowest_feature_resolution,
+                num_depth_candidates=cfg.num_depth_candidates,
+                vit_type=cfg.monodepth_vit_type,
+                unet_channels=cfg.costvolume_unet_feat_dim,
+                unet_attn_resolutions=tuple(cfg.costvolume_unet_attn_res),
+            )
+            if embed > FEATURE_PROJ_CHANNELS:
+                self.feature_proj = Conv(embed, FEATURE_PROJ_CHANNELS, 1, padding=0)
+                embed = FEATURE_PROJ_CHANNELS
         self.gaussian_regressor = nn.Sequential(
             Conv(3 + 1 + embed, ch, 3), nn.GELU(), Conv(ch, ch, 3)
         )
@@ -97,15 +147,27 @@ class EncoderDepthSplat(nn.Module):
     def forward(self, context: dict[str, Tensor]) -> dict[str, Any]:
         """context: image (B,V,H,W,3), intrinsics (B,V,3,3) normalized,
         extrinsics (B,V,4,4) c2w, near/far (B,V), depth (B,V,hp,wp) LiDAR
-        prompt. Returns {"gaussians": Gaussians (B, V*H*W, ...),
+        prompt (the PromptDA branch only). Returns {"gaussians": Gaussians (B, V*H*W, ...),
         "per_view": PerViewGaussians, "depths": (B, V, H, W)}."""
         cfg = self.cfg
         check_views(context, "context")
         images = context["image"]
         b, v, h, w, _ = images.shape
 
-        results = self.depth_predictor(images, context["depth"])
-        features = results["features_mono_intermediate"][-1]  # (BV, C, H, W)
+        if cfg.depth_branch == "promptda":
+            results = self.depth_predictor(images, context["depth"])
+            features = results["features_mono_intermediate"][-1]  # (BV, C, H, W)
+        else:
+            nn_idx = knn_view_indices(context["extrinsics"], LOCAL_MV_MATCH) if v > 3 else None
+            results = self.depth_predictor(
+                images, context["intrinsics"], context["extrinsics"],
+                1.0 / context["far"], 1.0 / context["near"],
+                attn_splits=ATTN_SPLITS, nn_idx=nn_idx,
+            )
+            features = results["features_mono_intermediate"][-1]  # (BV, C, H/8, W/8)
+            if self.feature_proj is not None:
+                features = self.feature_proj(features)
+            features = resize_bilinear(features, (h, w), align_corners=True)
         depth = results["depth_preds"][-1]  # (B, V, H, W)
 
         img = images.reshape(b * v, h, w, 3).permute(0, 3, 1, 2)

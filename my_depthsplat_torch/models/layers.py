@@ -57,6 +57,22 @@ class Dense(nn.Linear):
         self.zero_init = zero_init
 
 
+class ViewGroupNorm(nn.GroupNorm):
+    """GroupNorm on (B*V, C, H, W) whose statistics span the V views of a
+    batch element: the JAX package applies flax's GroupNorm to
+    (B, V, H, W, C) arrays, which reduces over every axis but the first."""
+
+    def __init__(self, num_groups: int, channels: int):
+        super().__init__(min(num_groups, channels), channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, views: int) -> torch.Tensor:
+        bv, c, h, w = x.shape
+        b = bv // views
+        y = x.reshape(b, views, c, h * w).transpose(1, 2).reshape(b, c, views * h * w)
+        y = super().forward(y)
+        return y.reshape(b, c, views, h * w).transpose(1, 2).reshape(bv, c, h, w)
+
+
 def LayerNorm(channels: int, eps: float = 1e-5) -> nn.LayerNorm:
     return nn.LayerNorm(channels, eps=eps)
 
@@ -85,7 +101,7 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator)
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise every parameter of ``module`` deterministically."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             if getattr(m, "zero_init", False):
                 m.weight.zero_()
             elif isinstance(m, nn.ConvTranspose2d):  # weight (in, out, kh, kw)
@@ -95,7 +111,7 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 lecun_normal_(m.weight, m.weight[0].numel(), generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         if hasattr(m, "init_extra"):

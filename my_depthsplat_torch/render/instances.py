@@ -1,7 +1,8 @@
 """Tile binning: depth order, expansion, one key sort, per-tile runs.
 
 Ports the *semantics* of my_depthsplat_tpu/render/instances.py
-(``build_tile_instances_batched``), not its TPU layout:
+(``build_tile_instances_batched`` and, for views with millions of
+gaussians, ``build_tile_instances_grouped``), not its TPU layout:
 
 1. gaussians get a depth rank (``slot``) from one stable sort over the flat
    ``b * G + g`` index (ties break as instances.py:181-185 breaks them);
@@ -56,40 +57,104 @@ def depth_slots(depth: Tensor) -> Tensor:
     return slot
 
 
-def expand_inputs(sg: ScreenGaussians, image_shape: tuple[int, int]) -> tuple:
-    """The argument tuple of ``expand_tiles`` / ``expand_plain`` for a batch
-    of screen gaussians (flat b*G+g order, contiguous)."""
-    g = sg.depth.shape[1]
-    grid_y, grid_x = tile_grid(image_shape)
+def _cull_fields(sg: ScreenGaussians) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """What kernel A reads of every gaussian, flat b*G+g order, contiguous."""
     return (
         sg.xy.detach().reshape(-1, 2).contiguous(),
         sg.conic.detach().reshape(-1, 3).contiguous(),
         sg.opacity.detach().reshape(-1).contiguous(),
         torch.cat([sg.rect_min, sg.rect_max], dim=-1).reshape(-1, 4).contiguous(),
         sg.valid.reshape(-1).contiguous(),
-        depth_slots(sg.depth.detach()),
-        g,
-        grid_x,
+    )
+
+
+def expand_inputs(sg: ScreenGaussians, image_shape: tuple[int, int]) -> tuple:
+    """The argument tuple of ``expand_tiles`` / ``expand_plain`` for a batch
+    of screen gaussians."""
+    grid_y, grid_x = tile_grid(image_shape)
+    return (
+        *_cull_fields(sg), depth_slots(sg.depth.detach()), sg.depth.shape[1], grid_x,
         grid_y * grid_x,
+    )
+
+
+def _sorted_runs(
+    keys: Tensor, gid: Tensor, offset: Tensor, per_gaussian: Tensor,
+    n_runs: int, grid_hw: tuple[int, int],
+) -> TileInstances:
+    """Kernel A's output -> per-tile runs: one stable key sort, then the
+    run boundaries of the ``n_runs`` (view, tile) ids by ``searchsorted``."""
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    bounds = torch.searchsorted(
+        sorted_keys, torch.arange(n_runs + 1, dtype=torch.int64, device=keys.device) << 32
+    )
+    return TileInstances(
+        gaussian_id=gid[perm],
+        starts=bounds[:-1].int(),
+        counts=(bounds[1:] - bounds[:-1]).int(),
+        grid_hw=grid_hw,
+        perm=perm,
+        offset=offset,
+        per_gaussian=per_gaussian,
     )
 
 
 def build_tile_instances(sg: ScreenGaussians, image_shape: tuple[int, int]) -> TileInstances:
     b = sg.depth.shape[0]
     grid_y, grid_x = tile_grid(image_shape)
-    n_tiles = grid_y * grid_x
-    keys, gid, offset, per_gaussian = expand_tiles(*expand_inputs(sg, image_shape))
-    sorted_keys, perm = torch.sort(keys, stable=True)
-    bounds = torch.searchsorted(
-        sorted_keys,
-        torch.arange(b * n_tiles + 1, dtype=torch.int64, device=keys.device) << 32,
+    return _sorted_runs(
+        *expand_tiles(*expand_inputs(sg, image_shape)), b * grid_y * grid_x, (grid_y, grid_x)
     )
-    return TileInstances(
-        gaussian_id=gid[perm],
-        starts=bounds[:-1].int(),
-        counts=(bounds[1:] - bounds[:-1]).int(),
-        grid_hw=(grid_y, grid_x),
-        perm=perm,
-        offset=offset,
-        per_gaussian=per_gaussian,
-    )
+
+
+def grouped_expand_inputs(
+    sg: ScreenGaussians,  # one view: fields (1, G, ...)
+    image_shape: tuple[int, int],
+    group_slots: int,
+) -> tuple[Tensor, list[tuple]]:
+    """One stable depth sort of the view's gaussians (culled ones have depth
+    +inf and sort last), cut into contiguous groups of ``group_slots`` depth
+    ranks. Returns ``order`` (G,) int64, the gaussian at each depth rank, and
+    per group the argument tuple of ``expand_tiles`` / ``expand_plain``:
+    slices of the rank-ordered cull fields, slots counted from the group's
+    first rank."""
+    if sg.depth.shape[0] != 1:
+        raise ValueError("the grouped layout takes one view at a time")
+    g = sg.depth.shape[1]
+    grid_y, grid_x = tile_grid(image_shape)
+    order = torch.sort(sg.depth.detach().reshape(-1), stable=True).indices
+    fields = [t[order] for t in _cull_fields(sg)]
+    slot = torch.arange(min(group_slots, g), dtype=torch.int64, device=order.device)
+    per_group = []
+    for g0 in range(0, g, group_slots):
+        n = min(group_slots, g - g0)
+        per_group.append((*(t[g0 : g0 + n] for t in fields), slot[:n], n, grid_x, grid_y * grid_x))
+    return order, per_group
+
+
+def build_tile_instances_grouped(
+    sg: ScreenGaussians,  # one view: fields (1, G, ...)
+    image_shape: tuple[int, int],
+    group_slots: int,
+) -> tuple[Tensor, list[TileInstances]]:
+    """The depth-grouped layout of one view (the semantics of the
+    reference's ``build_tile_instances_grouped``): every depth group of
+    ``grouped_expand_inputs`` gets its own expansion (kernel A) and key sort
+    over the same tile grid. Groups partition the depth order, so a tile's
+    runs, group after group, concatenate to its run in the flat layout.
+
+    Returns ``order`` (G,) int64, the gaussian at each depth rank, and one
+    ``TileInstances`` per group whose ids index rank space (``rows[order]``):
+    a group reads the contiguous rows ``[k * group_slots, (k + 1) *
+    group_slots)``."""
+    order, per_group = grouped_expand_inputs(sg, image_shape, group_slots)
+    grid_hw = tile_grid(image_shape)
+    groups = []
+    for k, args in enumerate(per_group):
+        keys, gid, offset, per_gaussian = expand_tiles(*args)
+        groups.append(
+            _sorted_runs(
+                keys, gid + k * group_slots, offset, per_gaussian, grid_hw[0] * grid_hw[1], grid_hw
+            )
+        )
+    return order, groups

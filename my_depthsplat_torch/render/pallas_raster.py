@@ -1,6 +1,9 @@
-"""Tile composite (kernels B, C, D) and the tile render.
+"""Tile composite (kernels B, C, D and the chained forward) and the tile render.
 
-Port of my_depthsplat_tpu/render/pallas_raster.py, flat path.
+Port of my_depthsplat_tpu/render/pallas_raster.py: the flat path, and the
+forward of the depth-grouped path for views with millions of gaussians
+(``composite_chained``: one depth group composited onto a carried per-pixel
+state; ``composite_chained_plain`` beside it).
 ``composite_tiles`` is one ``torch.autograd.Function`` for both devices:
 
 - forward: ``composite_fwd`` launches csrc/composite_fwd.cu (kernel B) for
@@ -23,6 +26,7 @@ for module. With CUDA tensors every wrapper launches its kernel or raises;
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 from torch import Tensor
@@ -38,7 +42,12 @@ from .camera import (
     TRANSMITTANCE_EPS,
     scale_invariant_normalization,
 )
-from .instances import TileInstances, build_tile_instances, tile_grid
+from .instances import (
+    TileInstances,
+    build_tile_instances,
+    build_tile_instances_grouped,
+    tile_grid,
+)
 from .projection import ScreenGaussians, project_gaussians
 
 _NPIX = TILE_X * TILE_Y
@@ -51,34 +60,47 @@ def screen_rows(sg: ScreenGaussians) -> Tensor:
     return rows.reshape(-1, 9).contiguous()
 
 
-def composite_plain(
+class ChainState(NamedTuple):
+    """What the chained composite carries from one depth group to the next."""
+
+    rgb: Tensor  # (B, H, W, 3) colour composited so far, no background
+    t: Tensor  # (B, H, W) transmittance after the last included instance
+    p_raw: Tensor  # (B, H, W) running product; < 1e-4 once the pixel has stopped
+
+
+def initial_chain_state(b: int, image_shape: tuple[int, int], device) -> ChainState:
+    h, w = image_shape
+    one = torch.ones(b, h, w, dtype=torch.float32, device=device)
+    return ChainState(torch.zeros(b, h, w, 3, dtype=torch.float32, device=device), one, one.clone())
+
+
+def composite_chained_plain(
     rows: Tensor,  # (N, 9)
     gid: Tensor,  # (L,) int32
     starts: Tensor,  # (B*T,) int32
     counts: Tensor,  # (B*T,) int32
-    background: Tensor,  # (B, 3)
+    state: ChainState,
     image_shape: tuple[int, int],
-) -> tuple[Tensor, Tensor, Tensor]:
-    """Per-tile loop; inside a tile, a cumulative product over the run
-    reproduces the sticky stop (an instance is included while the product
-    up to and including it stays >= 1e-4). Returns image (B, H, W, 3),
-    T_final (B, H, W), n_contrib (B, H, W) int32."""
+) -> tuple[ChainState, Tensor]:
+    """Per-tile loop resumed from ``state``; inside a tile, a cumulative
+    product seeded with the carried ``p_raw`` reproduces the sticky stop (an
+    instance is included while the product up to and including it stays
+    >= 1e-4; a pixel whose carried ``p_raw`` is already below never includes
+    again). Returns the new state (new tensors) and n_contrib (B, H, W)
+    int32, the 1-based position in this call's run of the last contributor.
+    No background: the caller adds ``t * background`` after the last group."""
     h, w = image_shape
-    b = background.shape[0]
+    b = state.t.shape[0]
     gy, gx = tile_grid(image_shape)
     dev = rows.device
     p = torch.arange(_NPIX, device=dev)
     col, row = p % TILE_X, p // TILE_X
-    starts_l, counts_l = starts.tolist(), counts.tolist()
-    zero_rgb = rows.new_zeros(_NPIX, 3)
-    one_t = rows.new_ones(_NPIX)
-    zero_n = torch.zeros(_NPIX, dtype=torch.int32, device=dev)
-    rgbs, ts, ns = [], [], []
-    for tile, (start, count) in enumerate(zip(starts_l, counts_l)):
+    rgb_t = _tile_major(state.rgb, image_shape)  # zero padding: p_raw 0 = stopped
+    t_t = _tile_major(state.t, image_shape)
+    p_t = _tile_major(state.p_raw, image_shape)
+    n_t = torch.zeros_like(p_t, dtype=torch.int32)
+    for tile, (start, count) in enumerate(zip(starts.tolist(), counts.tolist())):
         if count == 0:
-            rgbs.append(zero_rgb)
-            ts.append(one_t)
-            ns.append(zero_n)
             continue
         ty, tx = divmod(tile % (gy * gx), gx)
         d = rows[gid[start : start + count].long()]  # (n, 9)
@@ -91,22 +113,38 @@ def composite_plain(
         alpha = torch.minimum(op * torch.exp(power), torch.full_like(power, ALPHA_MAX))
         gate = (power <= 0.0) & (alpha >= ALPHA_MIN)
         a = torch.where(gate, alpha, torch.zeros_like(alpha))
-        cp = torch.cumprod(1.0 - a, dim=1)
-        p_prev = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
-        include = cp >= TRANSMITTANCE_EPS
+        p0, t0 = p_t[tile][:, None], t_t[tile][:, None]
+        cp = torch.cumprod(torch.cat([p0, 1.0 - a], dim=1), dim=1)
+        p_prev, cp = cp[:, :-1], cp[:, 1:]
+        include = (cp >= TRANSMITTANCE_EPS) & (p0 >= TRANSMITTANCE_EPS)
         weight = torch.where(include, a * p_prev, torch.zeros_like(a))
-        rgbs.append((weight[:, :, None] * d[None, :, 6:9]).sum(dim=1))
-        ts.append(torch.where(include, cp, torch.ones_like(cp)).amin(dim=1))
+        rgb_t[tile] += (weight[:, :, None] * d[None, :, 6:9]).sum(dim=1)
+        t_t[tile] = torch.where(include, cp, t0).amin(dim=1)
+        p_t[tile] = cp[:, -1]
         pos = torch.arange(1, count + 1, dtype=torch.int32, device=dev)
-        ns.append(torch.where(weight > 0.0, pos, 0).amax(dim=1).int())
-    rgb = torch.stack(rgbs).reshape(b, gy, gx, TILE_Y, TILE_X, 3)
-    t = torch.stack(ts).reshape(b, gy, gx, TILE_Y, TILE_X)
-    n = torch.stack(ns).reshape(b, gy, gx, TILE_Y, TILE_X)
-    rgb = rgb + t[..., None] * background[:, None, None, None, None, :]
-    return tuple(
-        x.transpose(2, 3).reshape(b, gy * TILE_Y, gx * TILE_X, *x.shape[5:])[:, :h, :w]
-        for x in (rgb, t, n)
-    )
+        n_t[tile] = torch.where(weight > 0.0, pos, 0).amax(dim=1).int()
+
+    def untile(x: Tensor) -> Tensor:
+        x = x.reshape(b, gy, gx, TILE_Y, TILE_X, *x.shape[2:]).transpose(2, 3)
+        return x.reshape(b, gy * TILE_Y, gx * TILE_X, *x.shape[5:])[:, :h, :w].contiguous()
+
+    return ChainState(untile(rgb_t), untile(t_t), untile(p_t)), untile(n_t)
+
+
+def composite_plain(
+    rows: Tensor,  # (N, 9)
+    gid: Tensor,  # (L,) int32
+    starts: Tensor,  # (B*T,) int32
+    counts: Tensor,  # (B*T,) int32
+    background: Tensor,  # (B, 3)
+    image_shape: tuple[int, int],
+) -> tuple[Tensor, Tensor, Tensor]:
+    """The chained plain composite from the initial state, plus the
+    background. Returns image (B, H, W, 3), T_final (B, H, W), n_contrib
+    (B, H, W) int32."""
+    state = initial_chain_state(background.shape[0], image_shape, rows.device)
+    (rgb, t, _), n = composite_chained_plain(rows, gid, starts, counts, state, image_shape)
+    return rgb + t[..., None] * background[:, None, None, :], t, n
 
 
 def _tile_major(x: Tensor, image_shape: tuple[int, int]) -> Tensor:
@@ -245,6 +283,49 @@ def composite_fwd(rows, gid, starts, counts, background, image_shape):
     return composite_plain(rows, gid, starts, counts, background, image_shape)
 
 
+def _composite_chained_cuda(rows, gid, starts, counts, state, image_shape):
+    h, w = image_shape
+    b = state.t.shape[0]
+    gy, gx = tile_grid(image_shape)
+    for name, t, dtype, shape in (
+        ("rows", rows, torch.float32, (rows.shape[0], 9)),
+        ("gid", gid, torch.int32, (gid.shape[0],)),
+        ("starts", starts, torch.int32, (b * gy * gx,)),
+        ("counts", counts, torch.int32, (b * gy * gx,)),
+        ("state.rgb", state.rgb, torch.float32, (b, h, w, 3)),
+        ("state.t", state.t, torch.float32, (b, h, w)),
+        ("state.p_raw", state.p_raw, torch.float32, (b, h, w)),
+    ):
+        cuda_lib.check_tensor(name, t, dtype, shape)
+    lib = cuda_lib.load("composite_fwd")
+    lib.composite_fwd_chained.restype = ctypes.c_int
+    lib.composite_fwd_chained.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+    n_contrib = torch.empty(b, h, w, dtype=torch.int32, device=rows.device)
+    cuda_lib.check(
+        lib.composite_fwd_chained(
+            *(ptr(t) for t in (rows, gid, starts, counts)), b, gy, gx, h, w,
+            *(ptr(t) for t in state), ptr(n_contrib), cuda_lib.stream(rows),
+        ),
+        "composite_fwd_chained",
+    )
+    composite_chained.launches += 1
+    return state, n_contrib
+
+
+def composite_chained(rows, gid, starts, counts, state, image_shape):
+    """One depth group composited onto ``state`` -> (state, n_contrib of this
+    group). On either device the state's tensors are updated in place and
+    handed back: the chained kernel (csrc/composite_fwd.cu, CHAINED) writes
+    them for CUDA tensors; for CPU tensors ``composite_chained_plain``
+    computes the new state, which is copied into them. No autograd graph."""
+    if rows.is_cuda:
+        return _composite_chained_cuda(rows, gid, starts, counts, state, image_shape)
+    new, n_contrib = composite_chained_plain(rows, gid, starts, counts, state, image_shape)
+    for old, fresh in zip(state, new):
+        old.copy_(fresh)
+    return state, n_contrib
+
+
 def _composite_bwd_cuda(
     rows, gid, dst, starts, counts, background, t_final, n_contrib, g_img, image_shape
 ):
@@ -357,8 +438,33 @@ def composite_tiles(
 
 
 composite_tiles.launches = 0
+composite_chained.launches = 0
 composite_bwd.launches = 0
 scatter_reduce.launches = 0
+
+
+# Above this many gaussians per view the render composites depth group by
+# depth group (reference pallas_raster.py:672-684): each group's keys are
+# expanded and sorted on their own, so the transient key and id arrays hold
+# one group's instances at a time, and a group's rows stay in the card's L2
+# cache.
+_CHAIN_MIN_G = 1 << 21
+_CHAIN_GROUP_SLOTS = 1 << 18
+
+
+def _render_grouped(sg: ScreenGaussians, background: Tensor, image_shape: tuple[int, int]) -> Tensor:
+    """One view (B = 1) through the depth-grouped layout (reference
+    _render_grouped_impl :687): the chained composite over the groups,
+    nearest first, from the state (rgb 0, T 1, p_raw 1), then the background
+    once. Forward only."""
+    order, groups = build_tile_instances_grouped(sg, image_shape, _CHAIN_GROUP_SLOTS)
+    rows = screen_rows(sg)[order]  # slot order: a group's rows are contiguous
+    state = initial_chain_state(1, image_shape, rows.device)
+    for inst in groups:
+        state, _ = composite_chained(
+            rows, inst.gaussian_id, inst.starts, inst.counts, state, image_shape
+        )
+    return state.rgb + state.t[..., None] * background[:, None, None, :]
 
 
 def render_pallas(
@@ -375,8 +481,10 @@ def render_pallas(
     scale_invariant: bool = True,
     use_sh: bool = True,
 ) -> Tensor:
-    """Batched tile render -> (B, H, W, 3), every view in one composite
-    launch."""
+    """Batched tile render -> (B, H, W, 3). Below ``_CHAIN_MIN_G`` gaussians
+    per view every view goes through one composite launch (differentiable);
+    from there on each view is projected and composited on its own, depth
+    group by depth group (forward only)."""
     if scale_invariant:
         extrinsics, near, far, gaussian_means, gaussian_covariances = (
             scale_invariant_normalization(
@@ -384,13 +492,29 @@ def render_pallas(
             )
         )
     fovs = get_fov(intrinsics)
-    sg = project_gaussians(
+    tan_x, tan_y = torch.tan(0.5 * fovs[:, 0]), torch.tan(0.5 * fovs[:, 1])
+    scene = (
         extrinsics, gaussian_means, gaussian_covariances, gaussian_sh_coefficients,
-        gaussian_opacities, torch.tan(0.5 * fovs[:, 0]), torch.tan(0.5 * fovs[:, 1]),
-        image_shape, use_sh,
+        gaussian_opacities, tan_x, tan_y,
     )
+    background_color = background_color.contiguous()
+    if gaussian_means.shape[1] >= _CHAIN_MIN_G:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (*scene, background_color)):
+            raise NotImplementedError(
+                f"render of {gaussian_means.shape[1]} gaussians per view takes the depth-grouped "
+                "route, which is forward only: its backward (the chained composite backward) is "
+                "slice 4 in ROADMAP.md. Call it under torch.no_grad()"
+            )
+        return torch.cat(
+            [
+                _render_grouped(
+                    project_gaussians(*(x[i : i + 1] for x in scene), image_shape, use_sh),
+                    background_color[i : i + 1], image_shape,
+                )
+                for i in range(extrinsics.shape[0])
+            ]
+        )
+    sg = project_gaussians(*scene, image_shape, use_sh)
     inst = build_tile_instances(sg, image_shape)
-    image, _, _ = composite_tiles(
-        screen_rows(sg), inst, background_color.contiguous(), image_shape
-    )
+    image, _, _ = composite_tiles(screen_rows(sg), inst, background_color, image_shape)
     return image

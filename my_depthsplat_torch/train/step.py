@@ -66,6 +66,11 @@ def make_train_step(
             "encoder.train_depth_only: the depth-only loss is queued in ROADMAP.md "
             "(module queue); only the render loss is ported"
         )
+    if cfg.encoder.depth_branch == "unimatch":
+        raise NotImplementedError(
+            "training the UniMatch branch (its intermediate depth predictions and their "
+            "supervision) is slice 4 in ROADMAP.md; the branch is ported for serving"
+        )
     dev = resolve_device(device)
 
     def init_fn(seed: int = 0) -> TrainState:

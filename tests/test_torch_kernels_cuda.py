@@ -20,13 +20,21 @@ import torch
 from my_depthsplat_torch.render import instances as inst_mod
 from my_depthsplat_torch.render import pallas_raster as raster_mod
 from my_depthsplat_torch.render.expand import expand_plain, expand_tiles
-from my_depthsplat_torch.render.instances import build_tile_instances, expand_inputs
+from my_depthsplat_torch.render.instances import (
+    build_tile_instances,
+    build_tile_instances_grouped,
+    expand_inputs,
+)
 from my_depthsplat_torch.render.pallas_raster import (
+    ChainState,
     composite_bwd,
     composite_bwd_plain,
+    composite_chained,
+    composite_chained_plain,
     composite_fwd,
     composite_plain,
     composite_tiles,
+    initial_chain_state,
     scatter_reduce,
     scatter_reduce_plain,
     screen_rows,
@@ -44,12 +52,12 @@ def card():
     return torch.device("cuda")
 
 
-def _screen(card, seed, shape=(40, 56), b=2, g=400):
+def _screen(card, seed, shape=(40, 56), b=2, g=400, max_scale=0.15):
     """Seeded screen gaussians for identity cameras with fx = fy = 1."""
     rng = np.random.default_rng(seed)
     z = rng.uniform(2.0, 8.0, (b, g))
     means = np.stack([rng.uniform(-0.5, 0.5, (b, g)) * z, rng.uniform(-0.5, 0.5, (b, g)) * z, z], -1)
-    scales = rng.uniform(0.02, 0.15, (b, g, 3))
+    scales = rng.uniform(0.02, max_scale, (b, g, 3))
     rot = np.linalg.qr(rng.normal(size=(b, g, 3, 3)))[0]
     cov = (rot * scales[..., None, :] ** 2) @ np.swapaxes(rot, -1, -2)
     sh = rng.normal(size=(b, g, 3, 9)) * 0.3
@@ -128,6 +136,69 @@ def test_composite_function_backward_matches_plain_backward(card):
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chained_kernel_matches_plain_version(card, seed):
+    """The chained kernel threaded over the depth groups of one dense view
+    (deep stacks: many pixels stop in an early group) vs
+    ``composite_chained_plain`` given the kernel's incoming state: rgb and T
+    within 1e-4 (the plain cumprod multiplies in another order), the local
+    n_contrib equal on >= 99.9 % of pixels, the stopped flag equal wherever
+    the plain p_raw is not within 1e-6 of the threshold."""
+    sg, _, shape = _screen(card, seed, b=1, g=1500, max_scale=0.35)
+    order, groups = build_tile_instances_grouped(sg, shape, 128)
+    assert len(groups) == 12
+    rows = screen_rows(sg)[order]
+    state = initial_chain_state(1, shape, card)
+    before = composite_chained.launches
+    stopped = 0.0
+    for inst in groups:
+        args = (rows, inst.gaussian_id, inst.starts, inst.counts)
+        want, n_want = composite_chained_plain(*args, state, shape)
+        passed = ChainState(*(t.clone() for t in state))
+        got, n_got = composite_chained(*args, passed, shape)
+        torch.cuda.synchronize()
+        assert all(a is b for a, b in zip(got, passed))  # updated in place, as for CPU tensors
+        assert (got.rgb - want.rgb).abs().max().item() <= 1e-4
+        assert (got.t - want.t).abs().max().item() <= 1e-4
+        assert (n_got == n_want).float().mean().item() >= 0.999
+        clear = (want.p_raw - 1e-4).abs() > 1e-6
+        assert torch.equal((got.p_raw >= 1e-4)[clear], (want.p_raw >= 1e-4)[clear])
+        state = got
+        stopped = (state.p_raw < 1e-4).float().mean().item()
+    assert composite_chained.launches == before + len(groups)
+    assert stopped > 0.5  # the stack is deep enough to exercise the carried stop
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_grouped_render_equals_flat_render(card, b, monkeypatch):
+    """The same views through the depth-grouped route (constants patched so
+    that 700 gaussians make 6 groups) and through the flat route: each pixel
+    performs the same operations in the same order, so <= 1e-6."""
+    rng = np.random.default_rng(3)
+    g = 700
+    z = rng.uniform(2.0, 8.0, (b, g))
+    means = np.stack([rng.uniform(-0.5, 0.5, (b, g)) * z, rng.uniform(-0.5, 0.5, (b, g)) * z, z], -1)
+    scales = rng.uniform(0.03, 0.3, (b, g, 3))
+    rot = np.linalg.qr(rng.normal(size=(b, g, 3, 3)))[0]
+    cov = (rot * scales[..., None, :] ** 2) @ np.swapaxes(rot, -1, -2)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(card)  # noqa: E731
+    args = (
+        t(np.tile(np.eye(4), (b, 1, 1))),
+        t(np.tile(np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]]), (b, 1, 1))),
+        torch.full((b,), 0.5, device=card), torch.full((b,), 100.0, device=card), (40, 56),
+        t(rng.uniform(0, 1, (b, 3))), t(means), t(cov), t(rng.normal(size=(b, g, 3, 9)) * 0.3),
+        t(rng.uniform(0.3, 0.95, (b, g))),
+    )
+    flat = raster_mod.render_pallas(*args)
+    monkeypatch.setattr(raster_mod, "_CHAIN_MIN_G", 1)
+    monkeypatch.setattr(raster_mod, "_CHAIN_GROUP_SLOTS", 128)
+    before = composite_chained.launches
+    grouped = raster_mod.render_pallas(*args)
+    torch.cuda.synchronize()
+    assert composite_chained.launches == before + b * 6
+    assert (grouped - flat).abs().max().item() <= 1e-6
+
+
 def test_wrappers_refuse_wrong_arguments(card):
     """A CUDA wrapper raises on what its kernel does not take."""
     sg, bg, shape = _screen(card, 3)
@@ -141,3 +212,9 @@ def test_wrappers_refuse_wrong_arguments(card):
         )
     with pytest.raises(ValueError, match="d_inst"):
         scatter_reduce(torch.zeros(4, 8, device=card), inst.offset, inst.per_gaussian)
+    state = initial_chain_state(2, shape, card)
+    with pytest.raises(ValueError, match="state.p_raw"):
+        composite_chained(
+            rows, inst.gaussian_id, inst.starts, inst.counts,
+            state._replace(p_raw=state.p_raw.double()), shape,
+        )

@@ -188,11 +188,29 @@ def test_no_jax_imports_in_source():
 
 
 def test_entry_point_without_device_raises_without_card(monkeypatch):
+    """Both depth branches' constructors default to the card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        EncoderDepthSplat(EncoderDepthSplatCfg())
+    for branch in ("promptda", "unimatch"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            EncoderDepthSplat(EncoderDepthSplatCfg(depth_branch=branch))
 
 
-def test_unimatch_branch_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EncoderDepthSplat(EncoderDepthSplatCfg(depth_branch="unimatch"), device="cpu")
+def test_unimatch_branch_names_the_roadmap(monkeypatch):
+    """The UniMatch branch builds; what the port still refuses around it
+    names its ROADMAP item: training the branch, the depth-only loss, and
+    (tests/test_torch_grouped.py) the grouped render's backward."""
+    from my_depthsplat_torch.train import TrainCfg, make_train_step
+    from test_torch_unimatch_encoder import register_vitt
+
+    cfg = EncoderDepthSplatCfg(
+        depth_branch="unimatch", monodepth_vit_type=register_vitt(monkeypatch),
+        num_depth_candidates=16, costvolume_unet_feat_dim=32,
+    )
+    enc = EncoderDepthSplat(cfg, device="cpu")
+    assert type(enc.depth_predictor).__name__ == "MultiViewUniMatch"
+    with pytest.raises(ValueError, match="depth_branch"):
+        EncoderDepthSplat(EncoderDepthSplatCfg(depth_branch="other"), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 4 in ROADMAP.md"):
+        make_train_step(TrainCfg(encoder=cfg), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_train_step(TrainCfg(encoder=EncoderDepthSplatCfg(train_depth_only=True)), device="cpu")
