@@ -81,7 +81,43 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    and only the pairs that pass both gates (counted here) cost the rest. The
    chained composite's bytes are counted the same way, launch by launch: only
    the instances a tile can need before all its pixels have stopped, 44 B of
-   state for a pixel still live on entry, 8 B for one that has stopped.
+   state for a pixel still live on entry, 8 B for one that has stopped;
+14. training path of configs/re10k_720p_fast.yaml at full width (slice 4):
+   make_train_step with its encoder section (float32), LPIPS 0.05 with
+   seeded random VGG weights, the default optimizer, B = 1 with 2 target
+   views at 512x960. A memory probe first: one step at the configured 12
+   context views, and if that runs out of memory the largest count from 5
+   that fits (bisection; 5 x 491,520 >= 2^21 keeps every view on the
+   grouped route). Then one warm-up and 3 steps, counters 0 just before and
+   read just after: per step and rendered view (two depth predictions x 2
+   targets) n_groups launches of kernel A and of the chained forward in the
+   forward, and of kernel A, the chained backward (csrc/composite_bwd.cu,
+   CHAINED) and kernel D in the backward (the layout is built again there,
+   one group at a time; each group's n_contrib is kept from the forward),
+   none of kernels B and C; loss/intermediate logged, logs and parameters
+   finite, grad_norm > 0, loss falling; then one step taken apart;
+15. the grouped route's backward vs the flat route's on one full-size view
+   of the trained model's gaussians: gradients of sum(image * weights)
+   w.r.t. background, means, covariances, SH and opacities within 1e-4 of
+   each gradient's largest entry; both routes' render forward+backward time
+   and peak memory;
+16. the chained backward vs composite_bwd_chained_plain on that view, group
+   by group farthest first from the kernel's true incoming carry (the
+   nearest, a middle and the farthest group, and every group where a pixel
+   is live, within ~30 s of plain time): rows within 1e-5 of the largest
+   entry, the carry within 1e-5 of its largest entry, bit-identical across
+   two runs; then its device time summed over the view's launches, and its
+   bound from the run's data (~12 operations per evaluation up to the
+   group-local n_contrib and ~38 per gated hit; bytes: 36 B of row written
+   per instance, zeros included, 4 B of id and 8 B of destination per live
+   instance and 36 B per gaussian those reference, 4 B of n_contrib per
+   pixel of a tile with instances, and 12 B of cotangent and 8 + 8 B of
+   carry per pixel with n_contrib > 0);
+17. training path of configs/re10k_small.yaml as it is set (UniMatch ViT-S,
+   one scale, 2 context views and 4 targets at 256x256, B = 8 as 2
+   gradient-accumulation microbatches): one warm-up and 3 steps on the flat
+   route, kernels A-D launched once per microbatch, none of the chained
+   ones, loss falling.
 
 The line before the card line is a JSON object {"kernels": [...]}; the card
 line is nvidia-smi's name and power limit; the last line is
@@ -91,6 +127,7 @@ line is nvidia-smi's name and power limit; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -126,6 +163,12 @@ RE10K_CONTEXT, RE10K_TARGET = 12, 2
 RE10K_REQUESTS = 3
 # more instances than this in one view and the decode is not attempted
 MAX_INSTANCES_PER_VIEW = 300_000_000
+# training re10k_720p_fast: from this many context views every view of 491,520
+# gaussians per view and prediction stays on the grouped route (>= 2^21)
+RE10K_TRAIN_MIN_CONTEXT = 5
+# configs/re10k_small.yaml: B = 8 as 2 microbatches, 2 context + 4 targets at 256x256
+SMALL_SHAPE = (256, 256)
+SMALL_BATCH, SMALL_ACCUM = 8, 2
 
 
 def fail(msg: str) -> None:
@@ -276,22 +319,46 @@ def re10k_views(torch, rng, v, dev):
     }
 
 
+def re10k_encoder_cfg():
+    """configs/re10k_720p_fast.yaml, encoder section. Its compute_dtype and
+    sweep_gather_dtype (bfloat16) are the JAX package's precision policy,
+    which the port does not have: float32 throughout."""
+    from my_depthsplat_torch.models import EncoderDepthSplatCfg
+
+    return EncoderDepthSplatCfg(
+        depth_branch="unimatch", num_scales=2, upsample_factor=4, lowest_feature_resolution=8,
+        num_depth_candidates=128, costvolume_unet_feat_dim=128, monodepth_vit_type="vitb",
+    )
+
+
+def project_view(torch, gaussians, views, view, shape):
+    """Screen gaussians of batch element 0's gaussians in target ``view``,
+    as the render projects them."""
+    from my_depthsplat_torch.geometry import get_fov
+    from my_depthsplat_torch.render.camera import scale_invariant_normalization
+    from my_depthsplat_torch.render.projection import project_gaussians
+
+    e, _, _, m, c = scale_invariant_normalization(
+        views["extrinsics"][:1, view], views["near"][:1, view], views["far"][:1, view],
+        gaussians.means[:1], gaussians.covariances[:1],
+    )
+    fov = get_fov(views["intrinsics"][:1, view])
+    return project_gaussians(
+        e, m, c, gaussians.harmonics[:1], gaussians.opacities[:1],
+        torch.tan(0.5 * fov[:, 0]), torch.tan(0.5 * fov[:, 1]), shape, True,
+    )
+
+
 def serve_re10k(torch, dev, card, reset_counters, read_counters):
     """Phases 11-12 and the chained composite's timing: returns the launch
     counts of the serving run and the chained kernel's entry for the
     ``kernels`` line."""
     import numpy as np
 
-    from my_depthsplat_torch.geometry import get_fov
-    from my_depthsplat_torch.models import (
-        DecoderSplattingCfg,
-        EncoderDepthSplat,
-        EncoderDepthSplatCfg,
-        decode_splatting,
-    )
+    from my_depthsplat_torch.models import DecoderSplattingCfg, EncoderDepthSplat, decode_splatting
     from my_depthsplat_torch.models import unimatch as unimatch_mod
     from my_depthsplat_torch.render import pallas_raster as raster_mod
-    from my_depthsplat_torch.render.camera import TILE_X, TILE_Y, scale_invariant_normalization
+    from my_depthsplat_torch.render.camera import TILE_X, TILE_Y
     from my_depthsplat_torch.render.expand import count_pass, expand_plain, expand_tiles
     from my_depthsplat_torch.render.instances import (
         build_tile_instances_grouped,
@@ -310,14 +377,7 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters):
     shape = RE10K_SHAPE
     h, w = shape
     n_groups = -(-(RE10K_CONTEXT * h * w) // raster_mod._CHAIN_GROUP_SLOTS)
-    # configs/re10k_720p_fast.yaml, encoder section. Its compute_dtype and
-    # sweep_gather_dtype (bfloat16) are the JAX package's precision policy,
-    # which the port does not have: float32 throughout.
-    cfg = EncoderDepthSplatCfg(
-        depth_branch="unimatch", num_scales=2, upsample_factor=4, lowest_feature_resolution=8,
-        num_depth_candidates=128, costvolume_unet_feat_dim=128, monodepth_vit_type="vitb",
-    )
-    encoder = EncoderDepthSplat(cfg, device=dev, seed=0).eval()
+    encoder = EncoderDepthSplat(re10k_encoder_cfg(), device=dev, seed=0).eval()
     dec_cfg = DecoderSplattingCfg()
     n_params = sum(p.numel() for p in encoder.parameters())
     requests = []
@@ -334,17 +394,6 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters):
             dec_cfg, gaussians, *(tgt[k][:, views] for k in ("extrinsics", "intrinsics", "near", "far")), shape
         )
 
-    def project(gaussians, tgt, view):
-        e, _, _, m, c = scale_invariant_normalization(
-            tgt["extrinsics"][:, view], tgt["near"][:, view], tgt["far"][:, view],
-            gaussians.means, gaussians.covariances,
-        )
-        fov = get_fov(tgt["intrinsics"][:, view])
-        return project_gaussians(
-            e, m, c, gaussians.harmonics, gaussians.opacities,
-            torch.tan(0.5 * fov[:, 0]), torch.tan(0.5 * fov[:, 1]), shape, True,
-        )
-
     def lap(fn):
         torch.cuda.synchronize()
         t_a = time.perf_counter()
@@ -355,7 +404,7 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters):
     with torch.no_grad():
         # warm-up (cuDNN autotune) and the instance count before any decode
         out = encoder(requests[0][0])
-        sg = project(out["gaussians"], requests[0][1], 0)
+        sg = project_view(torch, out["gaussians"], requests[0][1], 0, shape)
         xy, conic, op, rect, valid, _, gpv, gx, nt = expand_inputs(sg, shape)
         n_inst = int(count_pass(xy, conic, op, rect, valid, gpv, gx, nt).sum(dtype=torch.int64))
         n_gauss = out["gaussians"].means.shape[1]
@@ -541,7 +590,7 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters):
             """Every group if the plain version's time allows (~30 s)."""
             return set(range(n)) if first_ms * n <= 30_000 else {0, n // 2, n - 1}
 
-        sg0 = project(gaussians, tgt0, 0)
+        sg0 = project_view(torch, gaussians, tgt0, 0, shape)
         rows0, groups0, served_stats = compare_chained("served view 0", sg0, pick_groups)
         check(len(groups0) == n_groups == 23, f"{len(groups0)} depth groups, expected 23")
         print(f"served view 0: share of pixels stopped after each group {served_stats['stopped']}")
@@ -630,6 +679,427 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters):
     return launches, entry, max(served_stats["a_err"], dense_stats["a_err"])
 
 
+def train_re10k(torch, dev, card, reset_counters, read_counters):
+    """Phases 14-16: training of configs/re10k_720p_fast.yaml through the
+    depth-grouped render, the chained backward (row 5) against its plain
+    version, the grouped backward against the flat one, and row 5's timing.
+    Returns the training run's launch counts and row 5's entry for the
+    ``kernels`` line."""
+    import numpy as np
+
+    from my_depthsplat_torch.models import DecoderSplattingCfg, decode_splatting
+    from my_depthsplat_torch.render import pallas_raster as raster_mod
+    from my_depthsplat_torch.render.camera import TILE_X, TILE_Y
+    from my_depthsplat_torch.render.instances import build_tile_instances_grouped
+    from my_depthsplat_torch.render.pallas_raster import (
+        BwdCarry,
+        composite_bwd_chained,
+        composite_bwd_chained_plain,
+        composite_chained,
+        initial_chain_state,
+        render_pallas,
+        screen_rows,
+    )
+    from my_depthsplat_torch.train import (
+        LPIPS,
+        LossCfg,
+        OptimizerCfg,
+        TrainCfg,
+        apply_gradients,
+        compute_losses,
+        make_train_step,
+    )
+
+    shape = RE10K_SHAPE
+    h, w = shape
+    slots = raster_mod._CHAIN_GROUP_SLOTS
+    cams = ("extrinsics", "intrinsics", "near", "far")
+    dec_cfg = DecoderSplattingCfg()
+    # the YAML sets no optimizer: the package's default
+    train_cfg = TrainCfg(
+        encoder=re10k_encoder_cfg(), decoder=dec_cfg,
+        loss=LossCfg(lpips_weight=0.05, lpips_apply_after_step=0), optimizer=OptimizerCfg(),
+    )
+    init_fn, train_step = make_train_step(train_cfg, lpips=LPIPS(seed=1), device=dev)
+
+    def make_batch(v):
+        rng = np.random.default_rng(500)
+        batch = {"context": re10k_views(torch, rng, v, dev), "target": re10k_views(torch, rng, RE10K_TARGET, dev)}
+        for side, n in (("context", v), ("target", RE10K_TARGET)):
+            batch[side]["image"] = torch.from_numpy(rng.uniform(0, 1, (1, n, h, w, 3)).astype(np.float32)).to(dev)
+        return batch
+
+    def lap(fn):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t_a) * 1e3
+
+    # ---- how many context views one step fits in the card's memory: 12 as
+    # configured, else the largest count from 5 (5 x 491,520 >= 2^21 keeps
+    # every view on the grouped route); a step that runs out of memory is
+    # this probe's answer, not a failure
+    probe_state = init_fn(seed=0)
+
+    def peak_of_step(v):
+        batch = make_batch(v)
+        base = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            lap(lambda: train_step(probe_state, batch))
+            peak, why = torch.cuda.max_memory_allocated() / 2**30, ""
+        except torch.cuda.OutOfMemoryError as err:
+            peak, why = None, str(err).split(". Of the allocated")[0]
+        del batch
+        probe_state.optimizer.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(
+            f"re10k_720p_fast training, memory probe: {v} context views -> "
+            + (f"out of memory ({why}; {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated at most)"
+               if peak is None else f"peak {peak:.2f} GiB") + f"; {base:.2f} GiB held before the step on {card}"
+        )
+        return peak
+
+    probes = {RE10K_CONTEXT: peak_of_step(RE10K_CONTEXT)}
+    v = RE10K_CONTEXT
+    if probes[v] is None:
+        lo, hi = RE10K_TRAIN_MIN_CONTEXT - 1, RE10K_CONTEXT  # lo: fits (sentinel); hi: does not
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            probes[mid] = peak_of_step(mid)
+            lo, hi = (mid, hi) if probes[mid] is not None else (lo, mid)
+        v = lo
+        check(v >= RE10K_TRAIN_MIN_CONTEXT, f"no training step from {RE10K_TRAIN_MIN_CONTEXT} context views fits: {probes}")
+    del probe_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_groups = -(-(v * h * w) // slots)
+    views = 2 * RE10K_TARGET  # two depth predictions (two scales) x the target views
+    print(
+        f"training: re10k_720p_fast (UniMatch ViT-B, two scales), B=1, {v} context views (of "
+        f"{RE10K_CONTEXT} configured; probe {probes}) + {RE10K_TARGET} targets at {h}x{w}, "
+        f"{v * h * w} gaussians per prediction, {views} rendered views of {n_groups} depth groups, "
+        f"LPIPS 0.05 (VGG weights random from seed 1), the default optimizer, float32"
+    )
+
+    # ---- the main path: 1 warm-up, 3 counted steps (counters 0 just before, read just after)
+    state, batch = init_fn(seed=0), make_batch(v)
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed_step():
+        logs, ms = lap(lambda: train_step(state, batch))
+        return {k: float(x) for k, x in logs.items()}, ms
+
+    warm_logs, _ = timed_step()
+    reset_counters()
+    steps = [timed_step() for _ in range(TRAIN_STEPS)]
+    launches = read_counters()
+    per_step = {
+        "expand": 2 * views * n_groups, "composite_fwd_chained": views * n_groups,
+        "composite_bwd_chained": views * n_groups, "scatter_reduce": views * n_groups,
+        "composite_fwd": 0, "composite_bwd": 0,
+    }
+    print(f"re10k_720p_fast training: {TRAIN_STEPS} steps after 1 warm-up, launches {launches}")
+    for k, n in per_step.items():
+        check(
+            launches[k] == n * TRAIN_STEPS,
+            f"re10k_720p_fast training: {k} launched {launches[k]} times in {TRAIN_STEPS} steps, "
+            f"expected {n * TRAIN_STEPS} (per step and rendered view: {n_groups} groups of kernel A and the "
+            "chained forward in the forward, and of kernel A, the chained backward and kernel D in the backward)",
+        )
+    for i, (logs, ms) in enumerate([(warm_logs, float("nan")), *steps]):
+        print(f"re10k_720p_fast training step {i}: {ms:.1f} ms " + " ".join(f"{k}={x:.6g}" for k, x in sorted(logs.items())))
+        check("loss/intermediate" in logs, f"re10k_720p_fast training step {i}: no loss/intermediate")
+        check(all(np.isfinite(x) for x in logs.values()), f"re10k_720p_fast training step {i}: non-finite log")
+        check(logs["grad_norm"] > 0, f"re10k_720p_fast training step {i}: zero gradient")
+    check(all(bool(torch.isfinite(x).all()) for x in state.model.parameters()), "re10k_720p_fast: non-finite parameter")
+    first, last = steps[0][0]["loss/total"], steps[-1][0]["loss/total"]
+    check(last < first, f"re10k_720p_fast training: loss/total did not fall ({first:.8g} -> {last:.8g})")
+    step_ms = statistics.median(ms for _, ms in steps)
+    step_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # ---- one step taken apart: forward and backward of the encoder, the
+    # render and the losses, each ending in a synchronisation, then the optimizer
+    held = [torch.cuda.memory_allocated()]
+    out, enc_f = lap(lambda: state.model(batch["context"], training=True))
+    held.append(torch.cuda.memory_allocated())
+    gs = out["gaussians"]
+    leaves = [gs.means, gs.covariances, gs.harmonics, gs.opacities]
+    num = gs.means.shape[0]
+    tgt = {k: torch.cat([batch["target"][k]] * num) for k in cams}
+    dec, dec_f = lap(lambda: decode_splatting(dec_cfg, gs, *(tgt[k] for k in cams), shape))
+    held.append(torch.cuda.memory_allocated())
+    (total, _), loss_f = lap(
+        lambda: compute_losses(train_cfg.loss, dec.color, batch["target"]["image"], state.step, state.lpips)
+    )
+    held.append(torch.cuda.memory_allocated())
+    held = [(b - a) / 2**30 for a, b in zip(held, held[1:])]
+    (g_color,), loss_b = lap(lambda: torch.autograd.grad(total, dec.color))
+    g_leaves, dec_b = lap(lambda: torch.autograd.grad(dec.color, leaves, g_color))
+    _, enc_b = lap(lambda: torch.autograd.backward(leaves, g_leaves))
+    _, opt_ms = lap(lambda: apply_gradients(train_cfg.optimizer, state.optimizer, state.step))
+    state.step += 1
+    del out, gs, leaves, dec, total, g_color, g_leaves
+    print(
+        f"re10k_720p_fast training: step {step_ms:.1f} ms (median of {TRAIN_STEPS}), {v} context views; split: "
+        f"forward {enc_f + dec_f + loss_f:.1f} ms (encoder {enc_f:.1f} + render {dec_f:.1f} + losses {loss_f:.1f}), "
+        f"backward {loss_b + dec_b + enc_b:.1f} ms (losses {loss_b:.1f} + render {dec_b:.1f} + encoder {enc_b:.1f}), "
+        f"optimizer {opt_ms:.1f} ms; loss/total {first:.6f} -> {last:.6f}; peak memory {step_gib:.2f} GiB; held for "
+        f"the backward after the forward of the encoder {held[0]:.2f}, the render {held[1]:.2f}, the losses "
+        f"{held[2]:.2f} GiB on {card}"
+    )
+
+    # a trained-step gaussian set for the comparisons: the serving call
+    with torch.no_grad():
+        gaussians = state.model(batch["context"])["gaussians"]
+    tgt0 = batch["target"]
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the grouped route's backward vs the flat route's, one full-size view
+    rng = np.random.default_rng(600)
+    wts = torch.from_numpy(rng.normal(size=(1, h, w, 3)).astype(np.float32)).to(dev)
+    bg = torch.from_numpy(rng.uniform(0, 1, (1, 3)).astype(np.float32)).to(dev)
+    inputs = (bg, gaussians.means, gaussians.covariances, gaussians.harmonics, gaussians.opacities)
+    view0 = tuple(tgt0[k][:, 0] for k in cams)
+
+    def route(min_g):
+        def run():
+            xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+            (render_pallas(*view0, shape, *xs) * wts).sum().backward()
+            return [x.grad for x in xs]
+
+        with mock.patch.object(raster_mod, "_CHAIN_MIN_G", min_g):
+            run()  # warm-up
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            runs = [lap(run) for _ in range(3)]
+        return runs[0][0], statistics.median(ms for _, ms in runs), torch.cuda.max_memory_allocated() / 2**30
+
+    grads_g, grouped_ms, grouped_gib = route(raster_mod._CHAIN_MIN_G)
+    grads_f, flat_ms, flat_gib = route(1 << 62)
+    route_err = 0.0
+    for name, gg, gf in zip(("background", "means", "covariances", "sh", "opacities"), grads_g, grads_f):
+        rel = (gg - gf).abs().max().item() / max(gf.abs().max().item(), 1e-30)
+        route_err = max(route_err, rel)
+        print(f"grouped vs flat backward, one {h}x{w} view: d/d{name} {rel:.3e} of the largest entry (tolerance 1e-04)")
+        check(bool(torch.isfinite(gg).all()) and gf.abs().max().item() > 0 and rel <= 1e-4, f"grouped backward: d/d{name} disagrees")
+    print(
+        f"grouped vs flat route, render forward+backward of one {h}x{w} view of {gaussians.means.shape[1]} gaussians "
+        f"(median of 3): grouped {grouped_ms:.1f} ms, peak {grouped_gib:.2f} GiB; flat {flat_ms:.1f} ms, peak "
+        f"{flat_gib:.2f} GiB (the gaussians and their gradients included) on {card}"
+    )
+    del grads_g, grads_f
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- row 5 against its plain version, group by group from the kernel's true incoming carry
+    with torch.no_grad():
+        sg = project_view(torch, gaussians, tgt0, 0, shape)
+        order, groups = build_tile_instances_grouped(sg, shape, slots)
+        rows = screen_rows(sg)[order]
+        del sg
+        fwd = initial_chain_state(1, shape, dev)
+        n_contrib = []
+        for inst in groups:
+            fwd, n_k = composite_chained(rows, inst.gaussian_id, inst.starts, inst.counts, fwd, shape)
+            n_contrib.append(n_k)
+        g_img = torch.from_numpy(rng.normal(size=(1, h, w, 3)).astype(np.float32)).to(dev)
+        seeds = BwdCarry(fwd.t.clone(), (g_img * bg[:, None, None, :]).sum(-1) * fwd.t)
+        n = len(groups)
+        check(n == -(-(v * h * w) // slots), f"{n} depth groups in a view of {v * h * w} gaussians")
+
+        def per_tile(x):
+            return x.reshape(h // TILE_Y, TILE_Y, w // TILE_X, TILE_X).transpose(1, 2).reshape(-1, TILE_Y * TILE_X)
+
+        def needed_bytes(inst, n_k):
+            """The bytes one group's chained backward must move on this run's
+            data -> (all of them, the zero rows' share). Per instance 36 B of
+            row written, zeros included; per instance up to its tile's largest
+            n_contrib 4 B of id and 8 B of destination, and 36 B of row per
+            gaussian those reference (a zero row's place needs no
+            destination: zeroing the whole output writes it); starts and
+            counts; per pixel of a tile with instances 4 B of n_contrib; per
+            pixel with n_contrib > 0 12 B of cotangent and 8 B of carry read,
+            8 B written."""
+            counts = inst.counts.long()
+            nc_t = per_tile(n_k)
+            live = torch.minimum(nc_t.amax(dim=1).long(), counts)
+            tile_of = torch.repeat_interleave(torch.arange(counts.numel(), device=dev), counts)
+            pos = torch.arange(tile_of.numel(), device=dev) - inst.starts.long()[tile_of]
+            n_ref = torch.unique(inst.gaussian_id[pos < live[tile_of]]).numel()
+            n_inst, n_live = counts.sum().item(), live.sum().item()
+            pix = int((counts > 0).sum()) * TILE_Y * TILE_X * 4 + int((n_k > 0).sum()) * 28
+            zero_rows = (n_inst - n_live) * 36
+            return n_inst * 36 + n_live * (4 + 8) + n_ref * 36 + counts.numel() * 8 + pix, zero_rows
+
+        stats = {"err": 0.0, "carry_err": 0.0, "plain_ms": 0.0, "plain_groups": [], "evals": 0, "hits": 0,
+                 "bytes": 0, "zero_bytes": 0, "live_groups": []}
+        carry = BwdCarry(*(x.clone() for x in seeds))
+        for k in reversed(range(n)):
+            inst = groups[k]
+            args = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, n_contrib[k], g_img)
+            incoming = BwdCarry(*(x.clone() for x in carry))
+            d_k, carry = composite_bwd_chained(*args, carry, shape)
+            live = bool((n_contrib[k] > 0).any())
+            if live:
+                stats["live_groups"].append(k)
+            if k in (0, n // 2, n - 1) or (live and stats["plain_ms"] < 30_000):
+                d_again, c_again = composite_bwd_chained(*args, BwdCarry(*(x.clone() for x in incoming)), shape)
+                (d_p, c_p), ms = lap(lambda: composite_bwd_chained_plain(*args, incoming, shape))
+                # a group may hold no instance (the farthest ones: culled gaussians sort last)
+                err = (d_k - d_p).abs().max().item() if d_p.numel() else 0.0
+                scale = d_p.abs().max().item() if d_p.numel() else 0.0
+                c_errs = [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(carry, c_p)]
+                same = torch.equal(d_k, d_again) and all(torch.equal(a, b) for a, b in zip(carry, c_again))
+                print(
+                    f"chained backward vs plain, trained view 0, group {k}: {inst.gaussian_id.numel()} instances; rows max "
+                    f"{err:.3e} = {err / max(scale, 1e-30):.3e} of the largest entry; carry ta {c_errs[0][0]:.3e}, g_dot_ra "
+                    f"{c_errs[1][0]:.3e} (of largest {c_errs[1][1]:.3e}); bit-identical across two runs: {same}; plain {ms:.1f} ms"
+                )
+                check(err <= 1e-5 * scale, f"chained backward, group {k}: rows disagree with the plain version")
+                for (e, sc), what in zip(c_errs, ("ta", "g_dot_ra")):
+                    check(e <= 1e-5 * sc, f"chained backward, group {k}: carry {what} disagrees with the plain version")
+                check(same, f"chained backward, group {k}: two runs differ")
+                stats["err"] = max(stats["err"], err)
+                stats["carry_err"] = max(stats["carry_err"], *(e / max(sc, 1e-30) for e, sc in c_errs))
+                stats["plain_ms"] += ms
+                stats["plain_groups"].append(k)
+                del d_again, c_again, d_p, c_p
+            del d_k
+            stats["evals"] += n_contrib[k].long().sum().item()
+            stats["hits"] += gated_hits(torch, rows, inst, n_contrib[k])
+            nbytes, zero_bytes = needed_bytes(inst, n_contrib[k])
+            stats["bytes"] += nbytes
+            stats["zero_bytes"] += zero_bytes
+        check(bool(torch.isfinite(carry.ta).all() and torch.isfinite(carry.g_dot_ra).all()), "chained backward: non-finite carry")
+        # walked back over every group, ta is the transmittance before the
+        # first instance: 1, up to the rounding of a few hundred divisions
+        check((carry.ta - 1.0).abs().max().item() <= 1e-3, "chained backward: ta does not walk back to 1 before the nearest group")
+        missed = sorted(set(stats["live_groups"]) - set(stats["plain_groups"]))
+        print(
+            f"chained backward vs plain, trained view 0: compared groups {sorted(stats['plain_groups'])} of {n}; groups with a "
+            f"live pixel {sorted(stats['live_groups'])} (not compared within the time: {missed})"
+        )
+
+        # ---- row 5 alone: one event pair per launch, summed over the view's walk
+        def bwd_pass():
+            c = BwdCarry(*(x.clone() for x in seeds))
+            torch.cuda.synchronize()
+            torch.cuda._sleep(100_000_000)  # the host enqueues everything ahead of the device
+            pairs = []
+            for k in reversed(range(n)):
+                inst = groups[k]
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                composite_bwd_chained(
+                    rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, n_contrib[k], g_img, c, shape
+                )
+                end.record()
+                pairs.append((start, end))
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in pairs][::-1]  # group order
+
+        bwd_pass()
+        per_group = [statistics.median(col) for col in zip(*(bwd_pass() for _ in range(5)))]
+        r_ms = sum(per_group)
+        r_ms_plain_groups = sum(per_group[k] for k in stats["plain_groups"])
+        n_inst = sum(inst.gaussian_id.numel() for inst in groups)
+        r_bound, r_by = bound(stats["bytes"], stats["evals"] * OPS_PER_GATE + stats["hits"] * OPS_PER_BWD_HIT)
+        zero_ms = stats["zero_bytes"] / PEAK_BYTES_PER_S * 1e3
+        print(
+            f"chained backward (row 5), one trained view: {r_ms:.4f} ms device over {n} launches (slowest group "
+            f"{max(per_group):.4f}, fastest {min(per_group):.4f}; by group {[round(x, 4) for x in per_group]}); plain "
+            f"{stats['plain_ms']:.1f} ms over groups {sorted(stats['plain_groups'])} (kernel on those: {r_ms_plain_groups:.4f} ms); "
+            f"bound {r_bound:.4f} ms by {r_by} ({stats['bytes']} bytes needed, {stats['bytes'] / PEAK_BYTES_PER_S * 1e3:.4f} ms, of "
+            f"which the zero rows past the live ranges {zero_ms:.4f} ms; {n_inst} instances, {stats['evals']} evaluations to "
+            f"the last contributor, {stats['hits']} of them gated hits) on {card}"
+        )
+    entry = {
+        "name": "composite_bwd_chained", "route": "cuda", "source": "my_depthsplat_torch/csrc/composite_bwd.cu",
+        "replaces": "my_depthsplat_tpu/render/pallas_raster.py:342",
+        "launches": launches["composite_bwd_chained"], "max_abs_err": stats["err"], "ms": r_ms,
+        "plain_ms": stats["plain_ms"], "bound_ms": r_bound, "bound_by": r_by, "library_ms": None,
+        "max_rel_err_carry": stats["carry_err"], "launches_per_view": n, "plain_groups": sorted(stats["plain_groups"]),
+        "ms_plain_groups": r_ms_plain_groups, "zero_rows_ms": zero_ms, "evaluations": stats["evals"],
+        "gated_hits": stats["hits"], "bytes_needed": stats["bytes"], "context_views": v,
+        "grouped_vs_flat_grad_rel_err": route_err,
+    }
+    return launches, entry
+
+
+def train_re10k_small(torch, dev, card, reset_counters, read_counters):
+    """Phase 17: training of configs/re10k_small.yaml as it is set: UniMatch
+    ViT-S, one scale, lowest feature resolution 4, 2 context views and 4
+    targets at 256x256, B = 8 as grad_accum = 2 microbatches, MSE + LPIPS
+    0.05, lr 2e-4 / 4e-6 over 150,000 steps; 1 warm-up + 3 counted steps on
+    the flat route. Returns the counted run's launch counts."""
+    import numpy as np
+
+    from my_depthsplat_torch.models import DecoderSplattingCfg, EncoderDepthSplatCfg
+    from my_depthsplat_torch.train import LPIPS, LossCfg, OptimizerCfg, TrainCfg, make_train_step
+
+    h, w = SMALL_SHAPE
+    cfg = EncoderDepthSplatCfg(
+        depth_branch="unimatch", num_scales=1, upsample_factor=4, lowest_feature_resolution=4,
+        num_depth_candidates=128, costvolume_unet_feat_dim=128, monodepth_vit_type="vits",
+    )
+    train_cfg = TrainCfg(
+        encoder=cfg, decoder=DecoderSplattingCfg(),
+        loss=LossCfg(mse_weight=1.0, lpips_weight=0.05, lpips_apply_after_step=0),
+        optimizer=OptimizerCfg(lr=2e-4, lr_monodepth=4e-6, total_steps=150_000), grad_accum=SMALL_ACCUM,
+    )
+    init_fn, train_step = make_train_step(train_cfg, lpips=LPIPS(seed=1), device=dev)
+    state = init_fn(seed=0)
+    rng = np.random.default_rng(700)
+    batch = {"context": look_at_views(torch, rng, SMALL_BATCH, N_CONTEXT, dev), "target": look_at_views(torch, rng, SMALL_BATCH, N_TARGET, dev)}
+    for side, n in (("context", N_CONTEXT), ("target", N_TARGET)):
+        batch[side]["image"] = torch.from_numpy(rng.uniform(0, 1, (SMALL_BATCH, n, h, w, 3)).astype(np.float32)).to(dev)
+    print(
+        f"training: re10k_small (UniMatch ViT-S, one scale), B={SMALL_BATCH} as {SMALL_ACCUM} microbatches, {N_CONTEXT} "
+        f"context + {N_TARGET} target views at {h}x{w}, LPIPS 0.05 (VGG weights random from seed 1), lr 2e-4 / 4e-6"
+    )
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        logs = {k: float(x) for k, x in train_step(state, batch).items()}
+        torch.cuda.synchronize()
+        return logs, (time.perf_counter() - t_a) * 1e3
+
+    warm_logs, _ = timed_step()
+    reset_counters()
+    steps = [timed_step() for _ in range(TRAIN_STEPS)]
+    launches = read_counters()
+    print(f"re10k_small training: {TRAIN_STEPS} steps after 1 warm-up, launches {launches}")
+    want = SMALL_ACCUM * TRAIN_STEPS  # one flat render per microbatch
+    for k in ("expand", "composite_fwd", "composite_bwd", "scatter_reduce"):
+        check(launches[k] == want, f"re10k_small training: {k} launched {launches[k]} times, expected {want}")
+    for k in ("composite_fwd_chained", "composite_bwd_chained"):
+        check(launches[k] == 0, f"re10k_small training: {k} launched on the flat route")
+    for i, (logs, ms) in enumerate([(warm_logs, float("nan")), *steps]):
+        print(f"re10k_small training step {i}: {ms:.1f} ms " + " ".join(f"{k}={x:.6g}" for k, x in sorted(logs.items())))
+        check(all(np.isfinite(x) for x in logs.values()), f"re10k_small training step {i}: non-finite log")
+        check(logs["grad_norm"] > 0, f"re10k_small training step {i}: zero gradient")
+        check("loss/intermediate" not in logs, f"re10k_small training step {i}: one scale stacks no prediction")
+    check(all(bool(torch.isfinite(x).all()) for x in state.model.parameters()), "re10k_small: non-finite parameter")
+    first, last = steps[0][0]["loss/total"], steps[-1][0]["loss/total"]
+    check(last < first, f"re10k_small training: loss/total did not fall ({first:.8g} -> {last:.8g})")
+    print(
+        f"re10k_small training: step {statistics.median(ms for _, ms in steps):.1f} ms (median of {TRAIN_STEPS}), "
+        f"loss/total {first:.6f} -> {last:.6f}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}"
+    )
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -668,6 +1138,7 @@ def main() -> int:
     from my_depthsplat_torch.render.instances import build_tile_instances, expand_inputs
     from my_depthsplat_torch.render.pallas_raster import (
         composite_bwd,
+        composite_bwd_chained,
         composite_bwd_plain,
         composite_chained,
         composite_fwd,
@@ -694,7 +1165,7 @@ def main() -> int:
     counters = {
         "expand": expand_tiles, "composite_fwd": composite_tiles,
         "composite_bwd": composite_bwd, "scatter_reduce": scatter_reduce,
-        "composite_fwd_chained": composite_chained,
+        "composite_fwd_chained": composite_chained, "composite_bwd_chained": composite_bwd_chained,
     }
 
     def reset_counters():
@@ -1086,6 +1557,12 @@ def main() -> int:
     re10k_launches, chained_entry, a_err_grouped = serve_re10k(torch, dev, card, reset_counters, read_counters)
     errs["expand"] = max(errs["expand"], a_err_grouped)
 
+    # ---- slice 4: training re10k_720p_fast through the grouped route, row 5;
+    # training re10k_small on the flat route
+    torch.cuda.empty_cache()
+    re10k_train_launches, row5_entry = train_re10k(torch, dev, card, reset_counters, read_counters)
+    small_launches = train_re10k_small(torch, dev, card, reset_counters, read_counters)
+
     # A and B: times at the served scene's shapes, launches from the serving
     # run. C and D: times at the training batch's shapes, launches from the
     # training run; "one_element" holds their times at one batch element's.
@@ -1096,6 +1573,7 @@ def main() -> int:
             "max_abs_err": errs["expand"], "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
             "bound_by": a_by, "library_ms": None, "wrapper_ms": a_wrapper,
             "launches_training": train_launches["expand"], "launches_re10k": re10k_launches["expand"],
+            "launches_re10k_training": re10k_train_launches["expand"], "launches_re10k_small": small_launches["expand"],
         },
         {
             "name": "composite_fwd", "route": "cuda", "source": "my_depthsplat_torch/csrc/composite_fwd.cu",
@@ -1103,22 +1581,25 @@ def main() -> int:
             "launches": launches["composite_fwd"], "max_abs_err": errs["composite_fwd"], "ms": b_ms,
             "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by, "library_ms": None,
             "wrapper_ms": b_wrapper, "launches_training": train_launches["composite_fwd"],
+            "launches_re10k_small": small_launches["composite_fwd"],
         },
         {
             "name": "composite_bwd", "route": "cuda", "source": "my_depthsplat_torch/csrc/composite_bwd.cu",
             "replaces": "my_depthsplat_tpu/render/pallas_raster.py:322",
             "launches": train_launches["composite_bwd"], "max_abs_err": errs["composite_bwd"],
             "max_rel_err": rel_errs["composite_bwd"], **bwd_batch["composite_bwd"],
-            "one_element": bwd_one["composite_bwd"],
+            "one_element": bwd_one["composite_bwd"], "launches_re10k_small": small_launches["composite_bwd"],
         },
         {
             "name": "scatter_reduce", "route": "cuda", "source": "my_depthsplat_torch/csrc/scatter_reduce.cu",
             "replaces": "scripts/profile_pallas_scatter.py:46",
             "launches": train_launches["scatter_reduce"], "max_abs_err": errs["scatter_reduce"],
             "max_rel_err": rel_errs["scatter_reduce"], **bwd_batch["scatter_reduce"],
-            "one_element": bwd_one["scatter_reduce"],
+            "one_element": bwd_one["scatter_reduce"], "launches_re10k_training": re10k_train_launches["scatter_reduce"],
+            "launches_re10k_small": small_launches["scatter_reduce"],
         },
-        chained_entry,
+        {**chained_entry, "launches_re10k_training": re10k_train_launches["composite_fwd_chained"]},
+        row5_entry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

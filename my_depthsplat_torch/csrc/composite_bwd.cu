@@ -32,11 +32,35 @@
 // land in gaussian-major order for the segmented reduction that follows
 // (scatter_reduce.cu).
 //
+// The same kernel, instantiated with CHAINED, replaces _bwd_kernel's chained
+// mode (carry_in/carry_out; :342-344, :368-377, :521-526), launched once per
+// depth group by _render_grouped_bwd (:752) as it walks a view's groups
+// farthest first. The TPU kernel read and wrote a tile-major (gy, gx, 256, 8)
+// carry block; here the carry is two image-layout arrays that the kernel
+// updates in place: ta (B, H, W), the transmittance after the group's last
+// included instance, and g_dot_ra (B, H, W), g . (colour behind it). The
+// walk is the flat one from the carried ta instead of T_final and from the
+// carried g_dot_ra instead of (g . bg) * T_final, with the group-LOCAL
+// n_contrib (what the chained forward returned for the group) as the
+// positional mask; on exit a pixel's ta is the transmittance before the
+// group's first instance and its g_dot_ra includes the group's colour. A
+// pixel with n_contrib = 0 (stopped in a nearer group, or reached by none of
+// this group's instances) reads neither its cotangent nor its carry, and
+// its carry passes through unwritten. No background, no T_final. Walking
+// the groups farthest first repeats the flat kernel's divisions and
+// additions in the same order, so grouped and flat gradients agree to
+// rounding (~1e-7 of the largest entry measured on the H100): the chained
+// forward's seeds and kernel D's sums per group round differently.
+//
 // Bound on the H100: the instance x pixel evaluations up to n_contrib (~12
 // float operations for the gate of each, ~38 more with the gradient assembly
 // for each that passes both gates, against 67 TFLOP/s of non-tensor float32)
 // or the bytes (36 read per gaussian row, 4 of id + 8 of
-// destination read and 36 written per instance, 20 read per pixel),
+// destination read and 36 written per instance, 20 read per pixel; chained:
+// id and destination read only up to the tile's live range, a zero row's
+// place needing none, 4 of n_contrib per pixel of a tile with instances, and
+// 12 of cotangent + 8 of carry read and 8 written per pixel with n_contrib >
+// 0),
 // whichever is larger for the scene. Design: rows are read once per tile
 // into shared memory and broadcast to the pixels; the reduction never leaves
 // the SM. Simple before fast: no cp.async/TMA pipelining, and the shuffle
@@ -57,17 +81,20 @@ constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr unsigned FULL = 0xffffffffu;
 
+template <bool CHAINED>
 __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
     const float* __restrict__ rows,      // (N, 9) per-gaussian screen rows
     const int* __restrict__ gid,         // (L,) sorted instance -> gaussian
     const int64_t* __restrict__ dst,     // (L,) sorted instance -> output row
     const int* __restrict__ starts,      // (B * gy * gx,)
     const int* __restrict__ counts,      // (B * gy * gx,)
-    const float* __restrict__ bg,        // (B, 3)
-    const float* __restrict__ t_final,   // (B, H, W)
-    const int* __restrict__ n_contrib,   // (B, H, W)
+    const float* __restrict__ bg,        // (B, 3); unused when CHAINED
+    const float* __restrict__ t_final,   // (B, H, W); unused when CHAINED
+    const int* __restrict__ n_contrib,   // (B, H, W); group-local when CHAINED
     const float* __restrict__ g_img,     // (B, H, W, 3) image cotangent
     int gy, int gx, int h, int w,
+    float* __restrict__ ta_carry,        // (B, H, W) in and out; CHAINED only
+    float* __restrict__ gdr_carry,       // (B, H, W) in and out; CHAINED only
     float* __restrict__ d_inst) {        // (L, 9)
     __shared__ float s_row[BATCH * ROWS];
     __shared__ float s_part[NWARP][BATCH * ROWS];
@@ -86,18 +113,26 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
     const int count = counts[tile];
     if (count == 0) return;
 
+    const size_t p = ((size_t)b * h + pyi) * w + pxi;  // meaningful if inside
     int ncon = 0;
     float T = 1.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
-    if (inside) {
-        const size_t p = ((size_t)b * h + pyi) * w + pxi;
-        ncon = n_contrib[p];
-        T = t_final[p];
+    // g . (colour behind the current instance)
+    float gdr = 0.0f;
+    if (inside) ncon = n_contrib[p];
+    // a pixel without a contributor never hits: nothing else of it is read
+    if (ncon > 0) {
         g0 = g_img[3 * p + 0];
         g1 = g_img[3 * p + 1];
         g2 = g_img[3 * p + 2];
+        if (CHAINED) {
+            T = ta_carry[p];
+            gdr = gdr_carry[p];
+        } else {
+            // seeded by the background term
+            T = t_final[p];
+            gdr = (g0 * bg[3 * b + 0] + g1 * bg[3 * b + 1] + g2 * bg[3 * b + 2]) * T;
+        }
     }
-    // g . (colour behind the current instance), seeded by the background term
-    float gdr = (g0 * bg[3 * b + 0] + g1 * bg[3 * b + 1] + g2 * bg[3 * b + 2]) * T;
 
     const int wmax = __reduce_max_sync(FULL, ncon);
     if (lane == 0) s_max[warp] = wmax;
@@ -179,6 +214,10 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
         // the next batch overwrites s_row and s_part
         __syncthreads();
     }
+    if (CHAINED && ncon > 0) {
+        ta_carry[p] = T;
+        gdr_carry[p] = gdr;
+    }
 }
 
 }  // namespace
@@ -189,8 +228,21 @@ extern "C" int composite_bwd(
     const float* g_img, int b, int gy, int gx, int h, int w, float* d_inst,
     void* stream) {
     const dim3 grid(gx, gy, b);
-    composite_bwd_kernel<<<grid, NPIX, 0, (cudaStream_t)stream>>>(
+    composite_bwd_kernel<false><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
         rows, gid, dst, starts, counts, bg, t_final, n_contrib, g_img, gy, gx, h, w,
-        d_inst);
+        nullptr, nullptr, d_inst);
+    return (int)cudaGetLastError();
+}
+
+// One depth group of the reverse walk: resumed from, and written back into,
+// the carry arrays ta and g_dot_ra; n_contrib is the group's own.
+extern "C" int composite_bwd_chained(
+    const float* rows, const int* gid, const int64_t* dst, const int* starts,
+    const int* counts, const int* n_contrib, const float* g_img, int b, int gy,
+    int gx, int h, int w, float* ta, float* g_dot_ra, float* d_inst, void* stream) {
+    const dim3 grid(gx, gy, b);
+    composite_bwd_kernel<true><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
+        rows, gid, dst, starts, counts, nullptr, nullptr, n_contrib, g_img, gy, gx, h, w,
+        ta, g_dot_ra, d_inst);
     return (int)cudaGetLastError();
 }

@@ -12,6 +12,11 @@ Port of my_depthsplat_tpu/models/encoder.py with both depth branches behind
 Depth, image and features feed the gaussian regressor and head (reference
 encoder_depthsplat.py:200-273); the raw head output becomes gaussians
 through the adapter, along pixel rays shifted by a learned sub-pixel offset.
+In training, a UniMatch branch with more than one scale also returns its
+coarser depth predictions: the head's output is placed along each of them
+too, and the gaussians and depths come back stacked on the batch axis,
+intermediate predictions first (B' = B * num_preds), for the intermediate
+losses.
 Submodule names follow the reference checkpoint (``depth_predictor``,
 ``gaussian_regressor.{0,2}``, ``gaussian_head.{0,2}``).
 
@@ -68,6 +73,7 @@ class EncoderDepthSplatCfg:
 FEATURE_PROJ_CHANNELS = 64  # ViT features wider than this are 1x1-projected to it
 LOCAL_MV_MATCH = 2  # with more than 3 views, each matches its 2 nearest cameras
 ATTN_SPLITS = 2  # window splits per side in the multi-view transformer
+SUPERVISE_INTERMEDIATE_DEPTH = True  # training stacks every depth prediction's gaussians
 
 
 def knn_view_indices(extrinsics: Tensor, k: int) -> Tensor:
@@ -144,11 +150,13 @@ class EncoderDepthSplat(nn.Module):
         init_params(self, torch.Generator().manual_seed(seed))
         self.to(dev)
 
-    def forward(self, context: dict[str, Tensor]) -> dict[str, Any]:
+    def forward(self, context: dict[str, Tensor], training: bool = False) -> dict[str, Any]:
         """context: image (B,V,H,W,3), intrinsics (B,V,3,3) normalized,
         extrinsics (B,V,4,4) c2w, near/far (B,V), depth (B,V,hp,wp) LiDAR
-        prompt (the PromptDA branch only). Returns {"gaussians": Gaussians (B, V*H*W, ...),
-        "per_view": PerViewGaussians, "depths": (B, V, H, W)}."""
+        prompt (the PromptDA branch only). Returns {"gaussians": Gaussians (B', V*H*W, ...),
+        "per_view": PerViewGaussians, "depths": (B', V, H, W)}, B' = B * num_preds:
+        ``training`` with a multi-scale UniMatch branch stacks one set per
+        depth prediction, the final one last; else B' = B."""
         cfg = self.cfg
         check_views(context, "context")
         images = context["image"]
@@ -162,13 +170,15 @@ class EncoderDepthSplat(nn.Module):
             results = self.depth_predictor(
                 images, context["intrinsics"], context["extrinsics"],
                 1.0 / context["far"], 1.0 / context["near"],
-                attn_splits=ATTN_SPLITS, nn_idx=nn_idx,
+                attn_splits=ATTN_SPLITS, nn_idx=nn_idx, training=training,
             )
             features = results["features_mono_intermediate"][-1]  # (BV, C, H/8, W/8)
             if self.feature_proj is not None:
                 features = self.feature_proj(features)
             features = resize_bilinear(features, (h, w), align_corners=True)
-        depth = results["depth_preds"][-1]  # (B, V, H, W)
+        depth_preds = results["depth_preds"]  # [(B, V, H, W)], the final one last
+        depth = depth_preds[-1]
+        num = len(depth_preds) if SUPERVISE_INTERMEDIATE_DEPTH else 1
 
         img = images.reshape(b * v, h, w, 3).permute(0, 3, 1, 2)
         x = self.gaussian_regressor(
@@ -178,8 +188,14 @@ class EncoderDepthSplat(nn.Module):
         n_params = g.shape[1]
         raw = g.permute(0, 2, 3, 1).reshape(b, v, h * w, n_params)
 
-        opacities = torch.sigmoid(raw[..., 0]).reshape(b, v, h * w, 1, 1)
-        raw = raw[..., 1:].reshape(b, v, h * w, 1, -1)  # one surface
+        def rep(x: Tensor) -> Tensor:
+            return torch.cat([x] * num) if num > 1 else x
+
+        depths = torch.cat(depth_preds) if num > 1 else depth  # (B', V, H, W)
+        raw = rep(raw)
+        b_eff = b * num
+        opacities = torch.sigmoid(raw[..., 0]).reshape(b_eff, v, h * w, 1, 1)
+        raw = raw[..., 1:].reshape(b_eff, v, h * w, 1, -1)  # one surface
 
         xy, _ = sample_image_grid((h, w), device=images.device)
         xy = xy.reshape(h * w, 1, 2)
@@ -189,12 +205,12 @@ class EncoderDepthSplat(nn.Module):
 
         gaussians = adapt_gaussians(
             cfg.gaussian_adapter,
-            context["extrinsics"][:, :, None, None, None],
-            context["intrinsics"][:, :, None, None, None],
+            rep(context["extrinsics"])[:, :, None, None, None],
+            rep(context["intrinsics"])[:, :, None, None, None],
             xy_ray[..., None, :],
-            depth.reshape(b, v, h * w, 1, 1),
+            depths.reshape(b_eff, v, h * w, 1, 1),
             opacities,
             raw[..., None, 2:],
-            input_images=images if cfg.init_sh_input_img else None,
+            input_images=rep(images) if cfg.init_sh_input_img else None,
         )
-        return {"gaussians": gaussians.flattened(), "per_view": gaussians, "depths": depth}
+        return {"gaussians": gaussians.flattened(), "per_view": gaussians, "depths": depths}

@@ -1,14 +1,15 @@
 """MultiViewUniMatch depth network (the published DepthSplat depth branch).
 
 Port of my_depthsplat_tpu/models/unimatch.py (reference
-src/model/encoder/unimatch/mv_unimatch.py:18-589), inference only: CNN
-pyramid, position encoding and multi-view transformer on the lowest
-resolution, DINOv2 features resized to 1/8, a coarse-to-fine loop over
-``num_scales`` plane-sweep cost volumes (uniform inverse-depth candidates at
-the first scale, a band around the previous estimate after it) regressed by
-a UNet to a softmax over the candidates, and the learned upsampler's
-residual at full resolution. One depth prediction comes back: the
-intermediate ones exist for training losses only.
+src/model/encoder/unimatch/mv_unimatch.py:18-589): CNN pyramid, position
+encoding and multi-view transformer on the lowest resolution, DINOv2
+features resized to 1/8, a coarse-to-fine loop over ``num_scales``
+plane-sweep cost volumes (uniform inverse-depth candidates at the first
+scale, a band around the previous estimate after it, with no gradient
+through that estimate) regressed by a UNet to a softmax over the candidates,
+and the learned upsampler's residual at full resolution. One depth
+prediction comes back, or with ``training=True`` one per scale: the coarser
+ones feed the intermediate losses.
 
 Inverse-depth convention: ``min_depth`` = 1/far, ``max_depth`` = 1/near, both
 (B, V); candidates ascend from far to near. Inside, views are folded into
@@ -19,8 +20,8 @@ channels-last. Submodule names follow the reference state dict
 ``depth_head.{i}.{0,2}``, ``upsampler``).
 
 Left out, and queued in ROADMAP.md: the mesh-sharded variants (``spmd_*``),
-the window sweep (``sweep_mode="window"``), the bfloat16 gather
-(``sweep_gather_dtype``) and ``training=True``'s extra predictions.
+the window sweep (``sweep_mode="window"``) and the bfloat16 gather
+(``sweep_gather_dtype``).
 """
 
 from __future__ import annotations
@@ -142,9 +143,11 @@ class MultiViewUniMatch(nn.Module):
         max_depth: Tensor,  # (B, V) = 1 / near
         attn_splits: int = 2,
         nn_idx: Tensor | None = None,  # (B, V, k+1), the view itself first
+        training: bool = False,
     ) -> dict[str, Any]:
-        """Returns ``depth_preds`` [(B, V, H, W)] (depth, one prediction),
-        ``match_probs`` [(B*V, D, hs, ws)] per scale and
+        """Returns ``depth_preds`` [(B, V, H, W)] (depth: the final
+        prediction, preceded with ``training`` by each coarser scale's,
+        resized to (H, W)), ``match_probs`` [(B*V, D, hs, ws)] per scale and
         ``features_mono_intermediate`` [(B*V, C, H/8, W/8)] per ViT stage."""
         b, v, h, w, _ = images.shape
         bv = b * v
@@ -192,7 +195,7 @@ class MultiViewUniMatch(nn.Module):
             return x[:, None].expand(bv, m, *x.shape[1:]).reshape(bv * m, *x.shape[1:])
 
         depth = None  # inverse depth (B*V, 1, hs, ws)
-        match_probs = []
+        match_probs, inv_preds = [], []
         for i in range(self.num_scales):
             df = self.upsample_factor * 2 ** (self.num_scales - 1 - i)
             num_d = self.num_depth_candidates // 4**i
@@ -204,7 +207,8 @@ class MultiViewUniMatch(nn.Module):
             if i == 0:
                 cand = (inv_far + lin * (inv_near - inv_far)).expand(bv, num_d, hs, ws)
             else:
-                depth = resize_bilinear(depth, (hs, ws), align_corners=True)
+                # the coarse estimate seeds the candidates, without a gradient
+                depth = resize_bilinear(depth, (hs, ws), align_corners=True).detach()
                 interval = (inv_near - inv_far) / (self.num_depth_candidates - 1) / 2**i
                 lo = torch.maximum(depth - interval * (num_d // 2), inv_far)
                 hi = torch.minimum(depth + interval * (num_d // 2 - 1), inv_near)
@@ -225,12 +229,15 @@ class MultiViewUniMatch(nn.Module):
             prob = torch.softmax(self.depth_head[i](x), dim=1)  # over the candidates
             match_probs.append(prob)
             depth = (prob * cand).sum(dim=1, keepdim=True)
+            if training and i < self.num_scales - 1:
+                inv_preds.append(resize_bilinear(depth, (h, w), align_corners=True))
 
         residual = self.upsampler(mono_intermediate, cnn_all, mv_scales[::-1], depth)
         depth_full = resize_bilinear(depth, (h, w), align_corners=True) + residual
         depth_full = torch.maximum(torch.minimum(depth_full, inv_near), inv_far)
+        inv_preds.append(depth_full)
         return {
-            "depth_preds": [(1.0 / depth_full[:, 0]).reshape(b, v, h, w)],
+            "depth_preds": [(1.0 / d[:, 0]).reshape(b, v, h, w) for d in inv_preds],
             "match_probs": match_probs,
             "features_mono_intermediate": mono_intermediate,
         }

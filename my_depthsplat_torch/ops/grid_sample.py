@@ -11,6 +11,14 @@ ops. Its TPU shaping (16-bit column gathers, feature-major tables, the pair
 scan and the window mode) is not carried over: the source features stay
 pixel-major, so one bilinear tap is one row gather, and the (view, source)
 pairs are processed a few at a time to bound the gathered tensor. NCHW.
+
+The correlation is one ``torch.autograd.Function`` that differentiates the
+two feature maps: its forward keeps no gathered tap (autograd through the
+gathers would keep every tap's (D, H*W, C) rows, 2 GB per pair at the first
+scale of a 512x960 view, 72 GB for the 24 pairs of 12 views), and its
+backward gathers each chunk's taps again. The warp's inputs (candidates,
+pose, intrinsics) get no gradient: the JAX package's callers feed it
+constants and stopped estimates.
 """
 
 from __future__ import annotations
@@ -42,21 +50,14 @@ def _warp_pixel_coords(
     return pixel[:, 0], pixel[:, 1]
 
 
-def plane_sweep_correlation(
-    src: Tensor,  # (N, C, H, W) source-view features
-    ref: Tensor,  # (N, C, H, W) reference-view features
-    intrinsics: Tensor,  # (N, 3, 3) pixel intrinsics
-    pose: Tensor,  # (N, 4, 4) reference camera -> source camera
-    depth: Tensor,  # (N, D, H, W) depth candidates per reference pixel
-    clamp_min_depth: float = 1e-3,
-) -> Tensor:
-    """sum_c ref[p, c] * bilinear(src)[warp_d(p), c] -> (N, D, H, W); not
-    divided by sqrt(C). The (N, D, H, W, C) warped tensor exists only for a
-    chunk of the N pairs at a time, one bilinear tap at a time."""
+def _chunks(src, ref, intrinsics, pose, depth, clamp_min_depth):
+    """Per chunk of pairs: its slice, the source features as pixel-major
+    rows (k*HW, C), the reference rows (k, HW, C), and per bilinear tap the
+    row index (k, D, HW) and the weight (k, D, HW), zero for a tap outside
+    the image."""
     n, d, h, w = depth.shape
     c = src.shape[1]
     step = max(1, SWEEP_CHUNK_BYTES // (4 * d * h * w * c))
-    out = []
     for i in range(0, n, step):
         sl = slice(i, i + step)
         k = src[sl].shape[0]
@@ -67,7 +68,7 @@ def plane_sweep_correlation(
         table = src[sl].flatten(2).transpose(1, 2).reshape(k * h * w, c)  # pixel-major rows
         ref_rows = ref[sl].flatten(2).transpose(1, 2)  # (k, HW, C)
         base = (torch.arange(k, device=src.device) * (h * w))[:, None, None]
-        cost = src.new_zeros(k, d, h * w)
+        taps = []
         for xi, yi, wgt in (
             (x0, y0, wx0 * wy0),
             (x0 + 1.0, y0, wx1 * wy0),
@@ -76,7 +77,62 @@ def plane_sweep_correlation(
         ):
             inb = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
             idx = base + yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
-            vals = table[idx.reshape(-1)].reshape(k, d, h * w, c)
-            cost = cost + torch.einsum("kpc,kdpc->kdp", ref_rows, vals) * (wgt * inb)
-        out.append(cost.reshape(k, d, h, w))
-    return torch.cat(out)
+            taps.append((idx, wgt * inb))
+        yield sl, table, ref_rows, taps
+
+
+class _PlaneSweep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, ref, intrinsics, pose, depth, clamp_min_depth):
+        if any(t.requires_grad for t in (intrinsics, pose, depth)):
+            raise ValueError(
+                "plane_sweep_correlation differentiates the feature maps only: the depth "
+                "candidates, pose and intrinsics must not require grad"
+            )
+        ctx.save_for_backward(src, ref, intrinsics, pose, depth)
+        ctx.clamp_min_depth = clamp_min_depth
+        n, d, h, w = depth.shape
+        c = src.shape[1]
+        out = []
+        for _, table, ref_rows, taps in _chunks(src, ref, intrinsics, pose, depth, clamp_min_depth):
+            k = ref_rows.shape[0]
+            cost = src.new_zeros(k, d, h * w)
+            for idx, wgt in taps:
+                vals = table[idx.reshape(-1)].reshape(k, d, h * w, c)
+                cost = cost + torch.einsum("kpc,kdpc->kdp", ref_rows, vals) * wgt
+            out.append(cost.reshape(k, d, h, w))
+        return torch.cat(out)
+
+    @staticmethod
+    def backward(ctx, g_cost):
+        src, ref, intrinsics, pose, depth = ctx.saved_tensors
+        n, d, h, w = depth.shape
+        c = src.shape[1]
+        g_cost = g_cost.reshape(n, d, h * w)
+        d_src, d_ref = torch.empty_like(src), torch.empty_like(ref)
+        for sl, table, ref_rows, taps in _chunks(src, ref, intrinsics, pose, depth, ctx.clamp_min_depth):
+            k = ref_rows.shape[0]
+            d_table, d_ref_rows = torch.zeros_like(table), torch.zeros_like(ref_rows)
+            for idx, wgt in taps:
+                g = g_cost[sl] * wgt  # (k, D, HW)
+                vals = table[idx.reshape(-1)].reshape(k, d, h * w, c)
+                d_ref_rows += torch.einsum("kdp,kdpc->kpc", g, vals)
+                d_table.index_add_(0, idx.reshape(-1), torch.einsum("kdp,kpc->kdpc", g, ref_rows).reshape(-1, c))
+            d_src[sl] = d_table.reshape(k, h * w, c).transpose(1, 2).reshape(k, c, h, w)
+            d_ref[sl] = d_ref_rows.transpose(1, 2).reshape(k, c, h, w)
+        return d_src, d_ref, None, None, None, None
+
+
+def plane_sweep_correlation(
+    src: Tensor,  # (N, C, H, W) source-view features
+    ref: Tensor,  # (N, C, H, W) reference-view features
+    intrinsics: Tensor,  # (N, 3, 3) pixel intrinsics
+    pose: Tensor,  # (N, 4, 4) reference camera -> source camera
+    depth: Tensor,  # (N, D, H, W) depth candidates per reference pixel
+    clamp_min_depth: float = 1e-3,
+) -> Tensor:
+    """sum_c ref[p, c] * bilinear(src)[warp_d(p), c] -> (N, D, H, W); not
+    divided by sqrt(C). The (N, D, H, W, C) warped tensor exists only for a
+    chunk of the N pairs at a time, one bilinear tap at a time, in the
+    forward and again in the backward."""
+    return _PlaneSweep.apply(src, ref, intrinsics, pose, depth, clamp_min_depth)

@@ -4,9 +4,9 @@ Port of my_depthsplat_tpu/render/api.py (``render``, ``render_depth``).
 There is no backend switch: the tensors' device decides. CUDA tensors go
 through the kernels (expand.cu, composite_fwd.cu and, in the backward,
 composite_bwd.cu and scatter_reduce.cu); CPU tensors through their plain
-PyTorch versions. Both are differentiable, except that views of 2**21
-gaussians or more take the depth-grouped route (pallas_raster.py), which is
-forward only and raises when asked for a gradient.
+PyTorch versions. Both are differentiable; views of 2**21 gaussians or more
+take the depth-grouped route (pallas_raster.py), whose backward walks the
+depth groups farthest first through the chained backward kernel.
 """
 
 from __future__ import annotations

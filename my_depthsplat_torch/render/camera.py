@@ -7,6 +7,7 @@ csrc/expand.cu and csrc/composite_fwd.cu.
 
 from __future__ import annotations
 
+import torch
 from torch import Tensor
 
 TILE_X = 16
@@ -25,8 +26,12 @@ def scale_invariant_normalization(
 ):
     """Rescale the scene by 1/near so near becomes 1 (cuda_splatting.py:63-69)."""
     scale = 1.0 / near
-    extrinsics = extrinsics.clone()
-    extrinsics[..., :3, 3] = extrinsics[..., :3, 3] * scale[..., None]
+    # no write into a slice: with ``near`` requiring grad, the product saves
+    # the translation, which an in-place write would invalidate
+    t = extrinsics[..., :3, 3:] * scale[..., None, None]
+    extrinsics = torch.cat(
+        [torch.cat([extrinsics[..., :3, :3], t], dim=-1), extrinsics[..., 3:, :]], dim=-2
+    )
     covariances = covariances * (scale[..., None, None, None] ** 2)
     means = means * scale[..., None, None]
     return extrinsics, near * scale, far * scale, means, covariances

@@ -132,6 +132,15 @@ def grouped_expand_inputs(
     return order, per_group
 
 
+def group_layout(args: tuple, first_rank: int, image_shape: tuple[int, int]) -> TileInstances:
+    """One depth group's layout from its ``grouped_expand_inputs`` tuple:
+    kernel A and the key sort, ids shifted by the group's first rank so that
+    they index rank space."""
+    grid_hw = tile_grid(image_shape)
+    keys, gid, offset, per_gaussian = expand_tiles(*args)
+    return _sorted_runs(keys, gid + first_rank, offset, per_gaussian, grid_hw[0] * grid_hw[1], grid_hw)
+
+
 def build_tile_instances_grouped(
     sg: ScreenGaussians,  # one view: fields (1, G, ...)
     image_shape: tuple[int, int],
@@ -146,15 +155,7 @@ def build_tile_instances_grouped(
     Returns ``order`` (G,) int64, the gaussian at each depth rank, and one
     ``TileInstances`` per group whose ids index rank space (``rows[order]``):
     a group reads the contiguous rows ``[k * group_slots, (k + 1) *
-    group_slots)``."""
+    group_slots)``. The render builds the same layouts one group at a time
+    (``group_layout``)."""
     order, per_group = grouped_expand_inputs(sg, image_shape, group_slots)
-    grid_hw = tile_grid(image_shape)
-    groups = []
-    for k, args in enumerate(per_group):
-        keys, gid, offset, per_gaussian = expand_tiles(*args)
-        groups.append(
-            _sorted_runs(
-                keys, gid + k * group_slots, offset, per_gaussian, grid_hw[0] * grid_hw[1], grid_hw
-            )
-        )
-    return order, groups
+    return order, [group_layout(args, k * group_slots, image_shape) for k, args in enumerate(per_group)]

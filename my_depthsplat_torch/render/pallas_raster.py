@@ -1,9 +1,11 @@
-"""Tile composite (kernels B, C, D and the chained forward) and the tile render.
+"""Tile composite (kernels B, C, D, the chained forward and the chained
+backward) and the tile render.
 
 Port of my_depthsplat_tpu/render/pallas_raster.py: the flat path, and the
-forward of the depth-grouped path for views with millions of gaussians
+depth-grouped path for views with millions of gaussians
 (``composite_chained``: one depth group composited onto a carried per-pixel
-state; ``composite_chained_plain`` beside it).
+state; ``composite_bwd_chained``: one depth group of the reverse walk,
+threading the carry (ta, g_dot_ra); a plain version beside each).
 ``composite_tiles`` is one ``torch.autograd.Function`` for both devices:
 
 - forward: ``composite_fwd`` launches csrc/composite_fwd.cu (kernel B) for
@@ -14,6 +16,9 @@ state; ``composite_chained_plain`` beside it).
   launches csrc/scatter_reduce.cu (kernel D) or runs ``index_add_``: the
   rows of each gaussian summed; the background's gradient is
   ``sum(g_img * T_final)`` (reference :648-658).
+
+The grouped route is ``_GroupedComposite``, one Function per view (the
+reference's ``_render_grouped`` with its custom VJP, :740-901).
 
 ``render_pallas`` is the reference's ``render_pallas`` (scale-invariant
 normalisation, fovs, projection, binning, composite, untiling to
@@ -45,7 +50,8 @@ from .camera import (
 from .instances import (
     TileInstances,
     build_tile_instances,
-    build_tile_instances_grouped,
+    group_layout,
+    grouped_expand_inputs,
     tile_grid,
 )
 from .projection import ScreenGaussians, project_gaussians
@@ -158,29 +164,41 @@ def _tile_major(x: Tensor, image_shape: tuple[int, int]) -> Tensor:
     return pad.reshape(b * gy * gx, _NPIX, *x.shape[3:])
 
 
-def composite_bwd_plain(
+class BwdCarry(NamedTuple):
+    """What the chained backward carries from one depth group to the nearer
+    one (reference carry_in/carry_out channels 0 and 1)."""
+
+    ta: Tensor  # (B, H, W) transmittance after the group's last included instance
+    g_dot_ra: Tensor  # (B, H, W) g . (colour behind it), the background term included
+
+
+def composite_bwd_chained_plain(
     rows: Tensor,  # (N, 9)
     gid: Tensor,  # (L,) int32 sorted instance -> gaussian
     dst: Tensor,  # (L,) int64 sorted instance -> output row
     starts: Tensor,  # (B*T,) int32
     counts: Tensor,  # (B*T,) int32
-    background: Tensor,  # (B, 3)
-    t_final: Tensor,  # (B, H, W)
-    n_contrib: Tensor,  # (B, H, W) int32
+    n_contrib: Tensor,  # (B, H, W) int32, local to this run of instances
     g_img: Tensor,  # (B, H, W, 3) image cotangent
+    carry: BwdCarry,
     image_shape: tuple[int, int],
-) -> Tensor:
+) -> tuple[Tensor, BwdCarry]:
     """Per-tile loop over the live range (up to the tile's largest
-    n_contrib): T_i by division from T_final, the running colour behind,
-    and the 9 row gradients summed over the tile's pixels (reference
-    :441-503; the 0.99 clamp is ignored in the gradient, as there). Returns
-    (L, 9) with sorted instance l's row at ``dst[l]``."""
+    n_contrib), resumed from ``carry``: T_i by division from the carried ta,
+    the colour behind seeded with the carried g_dot_ra, and the 9 row
+    gradients summed over the tile's pixels (reference :441-503; the 0.99
+    clamp is ignored in the gradient, as there). Returns (L, 9) with sorted
+    instance l's row at ``dst[l]``, and the new carry (new tensors): ta
+    before the run's first instance, g_dot_ra with the run's colour added. A
+    pixel with n_contrib = 0 keeps its carry."""
     gy, gx = tile_grid(image_shape)
     n_tiles = gy * gx
+    b = n_contrib.shape[0]
     dev = rows.device
     p = torch.arange(_NPIX, device=dev)
     col, row = p % TILE_X, p // TILE_X
-    tf_t = _tile_major(t_final, image_shape)
+    ta_t = _tile_major(carry.ta, image_shape)
+    gdr_t = _tile_major(carry.g_dot_ra, image_shape)
     nc_t = _tile_major(n_contrib, image_shape)
     g_t = _tile_major(g_img, image_shape)
     d_sorted = rows.new_zeros(gid.shape[0], 9)
@@ -191,7 +209,6 @@ def composite_bwd_plain(
         ty, tx = divmod(tile % n_tiles, gx)
         d = rows[gid[start : start + live].long()]  # (n, 9)
         g = g_t[tile]  # (256, 3)
-        tf = tf_t[tile][:, None]
         dx = (tx * TILE_X + col).float()[:, None] - d[None, :, 0]
         dy = (ty * TILE_Y + row).float()[:, None] - d[None, :, 1]
         ca, cb, cc, op = d[None, :, 2], d[None, :, 3], d[None, :, 4], d[None, :, 5]
@@ -203,12 +220,12 @@ def composite_bwd_plain(
         zero = torch.zeros_like(alpha)
         a = torch.where(gate, alpha, zero)
         om = torch.clamp(1.0 - a, min=1e-6)
-        t_i = tf / torch.cumprod(om.flip(1), dim=1).flip(1)  # T before instance i
+        t_i = ta_t[tile][:, None] / torch.cumprod(om.flip(1), dim=1).flip(1)  # T before instance i
         wgt = a * t_i
         gc = g @ d[:, 6:9].T  # (256, n) g_p . c_i
         contrib = gc * wgt
         behind = torch.cumsum(contrib.flip(1), dim=1).flip(1) - contrib
-        g_dot_r = (g * background[tile // n_tiles]).sum(1, keepdim=True) * tf + behind
+        g_dot_r = gdr_t[tile][:, None] + behind
         da = torch.where(gate, t_i * gc - g_dot_r / om, zero)
         d_op = torch.where(gate, e * da, zero)
         d_power = torch.where(gate, op * e * da, zero)
@@ -224,8 +241,38 @@ def composite_bwd_plain(
             ],
             dim=1,
         )
+        ta_t[tile] = t_i[:, 0]  # an instance without a hit divides by 1
+        gdr_t[tile] = gdr_t[tile] + contrib.sum(1)
     d_inst = torch.empty_like(d_sorted)
     d_inst[dst] = d_sorted
+
+    def untile(x: Tensor) -> Tensor:
+        h, w = image_shape
+        x = x.reshape(b, gy, gx, TILE_Y, TILE_X).transpose(2, 3)
+        return x.reshape(b, gy * TILE_Y, gx * TILE_X)[:, :h, :w].contiguous()
+
+    return d_inst, BwdCarry(untile(ta_t), untile(gdr_t))
+
+
+def composite_bwd_plain(
+    rows: Tensor,  # (N, 9)
+    gid: Tensor,  # (L,) int32 sorted instance -> gaussian
+    dst: Tensor,  # (L,) int64 sorted instance -> output row
+    starts: Tensor,  # (B*T,) int32
+    counts: Tensor,  # (B*T,) int32
+    background: Tensor,  # (B, 3)
+    t_final: Tensor,  # (B, H, W)
+    n_contrib: Tensor,  # (B, H, W) int32
+    g_img: Tensor,  # (B, H, W, 3) image cotangent
+    image_shape: tuple[int, int],
+) -> Tensor:
+    """The chained plain backward from the seeds of a whole run: ta =
+    T_final and g_dot_ra = (g . bg) * T_final. Returns (L, 9) with sorted
+    instance l's row at ``dst[l]``."""
+    carry = BwdCarry(t_final, (g_img * background[:, None, None, :]).sum(-1) * t_final)
+    d_inst, _ = composite_bwd_chained_plain(
+        rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape
+    )
     return d_inst
 
 
@@ -368,6 +415,63 @@ def composite_bwd(
     )
 
 
+def _composite_bwd_chained_cuda(
+    rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape
+):
+    h, w = image_shape
+    b = n_contrib.shape[0]
+    gy, gx = tile_grid(image_shape)
+    for name, t, dtype, shape in (
+        ("rows", rows, torch.float32, (rows.shape[0], 9)),
+        ("gid", gid, torch.int32, (gid.shape[0],)),
+        ("dst", dst, torch.int64, (gid.shape[0],)),
+        ("starts", starts, torch.int32, (b * gy * gx,)),
+        ("counts", counts, torch.int32, (b * gy * gx,)),
+        ("n_contrib", n_contrib, torch.int32, (b, h, w)),
+        ("g_img", g_img, torch.float32, (b, h, w, 3)),
+        ("carry.ta", carry.ta, torch.float32, (b, h, w)),
+        ("carry.g_dot_ra", carry.g_dot_ra, torch.float32, (b, h, w)),
+    ):
+        cuda_lib.check_tensor(name, t, dtype, shape)
+    lib = cuda_lib.load("composite_bwd")
+    lib.composite_bwd_chained.restype = ctypes.c_int
+    lib.composite_bwd_chained.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    )
+    # the kernel writes every row exactly once (zeros past a tile's live range)
+    d_inst = torch.empty(gid.shape[0], 9, dtype=torch.float32, device=rows.device)
+    cuda_lib.check(
+        lib.composite_bwd_chained(
+            *(ptr(t) for t in (rows, gid, dst, starts, counts, n_contrib, g_img)),
+            b, gy, gx, h, w, ptr(carry.ta), ptr(carry.g_dot_ra), ptr(d_inst),
+            cuda_lib.stream(rows),
+        ),
+        "composite_bwd_chained",
+    )
+    composite_bwd_chained.launches += 1
+    return d_inst, carry
+
+
+def composite_bwd_chained(
+    rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape
+):
+    """One depth group of the reverse walk -> (d_inst (L, 9), carry). On
+    either device the carry's tensors are updated in place and handed back:
+    the chained backward kernel (csrc/composite_bwd.cu, CHAINED) writes them
+    for CUDA tensors; for CPU tensors ``composite_bwd_chained_plain``
+    computes the new carry, which is copied into them."""
+    if rows.is_cuda:
+        return _composite_bwd_chained_cuda(
+            rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape
+        )
+    d_inst, new = composite_bwd_chained_plain(
+        rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape
+    )
+    for old, fresh in zip(carry, new):
+        old.copy_(fresh)
+    return d_inst, carry
+
+
 def _scatter_reduce_cuda(d_inst, offset, per_gaussian):
     n = offset.shape[0]
     for name, t, dtype, shape in (
@@ -440,6 +544,7 @@ def composite_tiles(
 composite_tiles.launches = 0
 composite_chained.launches = 0
 composite_bwd.launches = 0
+composite_bwd_chained.launches = 0
 scatter_reduce.launches = 0
 
 
@@ -452,19 +557,67 @@ _CHAIN_MIN_G = 1 << 21
 _CHAIN_GROUP_SLOTS = 1 << 18
 
 
-def _render_grouped(sg: ScreenGaussians, background: Tensor, image_shape: tuple[int, int]) -> Tensor:
+class _GroupedComposite(torch.autograd.Function):
     """One view (B = 1) through the depth-grouped layout (reference
-    _render_grouped_impl :687): the chained composite over the groups,
-    nearest first, from the state (rgb 0, T 1, p_raw 1), then the background
-    once. Forward only."""
-    order, groups = build_tile_instances_grouped(sg, image_shape, _CHAIN_GROUP_SLOTS)
-    rows = screen_rows(sg)[order]  # slot order: a group's rows are contiguous
-    state = initial_chain_state(1, image_shape, rows.device)
-    for inst in groups:
-        state, _ = composite_chained(
-            rows, inst.gaussian_id, inst.starts, inst.counts, state, image_shape
+    ``_render_grouped`` :740-901). Input: the view's screen rows in depth-rank
+    order; autograd through that gather and the projection returns the
+    gradients to gaussian order.
+
+    Forward: the chained composite over the groups, nearest first, from the
+    state (rgb 0, T 1, p_raw 1), then the background once. Each group's
+    layout (kernel A and the key sort) is built, used and dropped; what is
+    kept for the backward is the inputs, the final T and each group's
+    n_contrib (int32, H x W).
+
+    Backward: the carry seeded with ta = T_final and g_dot_ra = (g . bg) *
+    T_final; the groups walked farthest first, each group's layout built
+    again from the saved inputs, then the chained backward (row gradients
+    per instance) and the segmented sum (kernel D) over the group's own
+    gaussians, which fills the group's contiguous block of rank-order row
+    gradients. At most one group's instances exist at a time, in either
+    direction."""
+
+    @staticmethod
+    def forward(ctx, rows, background, per_group, group_slots, image_shape):
+        state = initial_chain_state(1, image_shape, rows.device)
+        n_contrib = []
+        for k, args in enumerate(per_group):
+            inst = group_layout(args, k * group_slots, image_shape)
+            state, n_k = composite_chained(
+                rows, inst.gaussian_id, inst.starts, inst.counts, state, image_shape
+            )
+            n_contrib.append(n_k)
+        ctx.save_for_backward(rows, background, state.t, *n_contrib)
+        ctx.per_group, ctx.group_slots, ctx.image_shape = per_group, group_slots, image_shape
+        return state.rgb + state.t[..., None] * background[:, None, None, :]
+
+    @staticmethod
+    def backward(ctx, g_img):
+        rows, background, t_final, *n_contrib = ctx.saved_tensors
+        slots, shape = ctx.group_slots, ctx.image_shape
+        g_img = g_img.contiguous()
+        carry = BwdCarry(
+            t_final.clone(), (g_img * background[:, None, None, :]).sum(-1) * t_final
         )
-    return state.rgb + state.t[..., None] * background[:, None, None, :]
+        d_rows = torch.empty_like(rows)
+        for k in reversed(range(len(ctx.per_group))):
+            inst = group_layout(ctx.per_group[k], k * slots, shape)
+            d_inst, carry = composite_bwd_chained(
+                rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, n_contrib[k],
+                g_img, carry, shape,
+            )
+            n = inst.offset.shape[0]
+            d_rows[k * slots : k * slots + n] = scatter_reduce(d_inst, inst.offset, inst.per_gaussian)
+        d_bg = torch.einsum("bhwc,bhw->bc", g_img, t_final)
+        return d_rows, d_bg, None, None, None
+
+
+def _render_grouped(sg: ScreenGaussians, background: Tensor, image_shape: tuple[int, int]) -> Tensor:
+    """One view through ``_GroupedComposite`` -> (1, H, W, 3)."""
+    order, per_group = grouped_expand_inputs(sg, image_shape, _CHAIN_GROUP_SLOTS)
+    return _GroupedComposite.apply(
+        screen_rows(sg)[order], background, per_group, _CHAIN_GROUP_SLOTS, image_shape
+    )
 
 
 def render_pallas(
@@ -481,10 +634,10 @@ def render_pallas(
     scale_invariant: bool = True,
     use_sh: bool = True,
 ) -> Tensor:
-    """Batched tile render -> (B, H, W, 3). Below ``_CHAIN_MIN_G`` gaussians
-    per view every view goes through one composite launch (differentiable);
-    from there on each view is projected and composited on its own, depth
-    group by depth group (forward only)."""
+    """Batched tile render -> (B, H, W, 3), differentiable. Below
+    ``_CHAIN_MIN_G`` gaussians per view every view goes through one composite
+    launch; from there on each view is projected and composited on its own,
+    depth group by depth group."""
     if scale_invariant:
         extrinsics, near, far, gaussian_means, gaussian_covariances = (
             scale_invariant_normalization(
@@ -499,12 +652,6 @@ def render_pallas(
     )
     background_color = background_color.contiguous()
     if gaussian_means.shape[1] >= _CHAIN_MIN_G:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (*scene, background_color)):
-            raise NotImplementedError(
-                f"render of {gaussian_means.shape[1]} gaussians per view takes the depth-grouped "
-                "route, which is forward only: its backward (the chained composite backward) is "
-                "slice 4 in ROADMAP.md. Call it under torch.no_grad()"
-            )
         return torch.cat(
             [
                 _render_grouped(

@@ -5,7 +5,11 @@ model_wrapper.py:165-373). The JAX step is a pure function over an immutable
 TrainState; here the state holds the model and optimizer, and
 ``train_step(state, batch)`` updates them in place and returns the logs.
 The render's backward runs through the composite-backward and
-gradient-reduction kernels for CUDA tensors (render/pallas_raster.py).
+gradient-reduction kernels for CUDA tensors (render/pallas_raster.py), on
+the depth-grouped route through the chained backward. The model runs with
+``training=True``: a multi-scale UniMatch encoder stacks its intermediate
+predictions on the batch axis, the targets are repeated to match, and
+``compute_losses`` weights each intermediate prediction by gamma^k.
 """
 
 from __future__ import annotations
@@ -66,11 +70,6 @@ def make_train_step(
             "encoder.train_depth_only: the depth-only loss is queued in ROADMAP.md "
             "(module queue); only the render loss is ported"
         )
-    if cfg.encoder.depth_branch == "unimatch":
-        raise NotImplementedError(
-            "training the UniMatch branch (its intermediate depth predictions and their "
-            "supervision) is slice 4 in ROADMAP.md; the branch is ported for serving"
-        )
     dev = resolve_device(device)
 
     def init_fn(seed: int = 0) -> TrainState:
@@ -85,7 +84,7 @@ def make_train_step(
         check_views(batch["target"], "batch.target", {"B": dims["B"]})
         target = batch["target"]
         h, w = target["image"].shape[2:4]
-        out = state.model(batch["context"])
+        out = state.model(batch["context"], training=True)
         gaussians = out["gaussians"]
 
         b = target["extrinsics"].shape[0]

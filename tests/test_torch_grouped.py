@@ -222,16 +222,24 @@ def test_grouped_render_goes_through_the_chained_composite(monkeypatch):
 
 
 def test_grouped_render_refuses_gradients(monkeypatch):
-    """Forward only: with an input that requires grad the grouped route
-    raises instead of returning an image that autograd cannot see."""
+    """The grouped route no longer refuses gradients (its backward is
+    tests/test_torch_grouped_grad.py): with every input requiring grad,
+    gradients reach every input the JAX package's grouped VJP differentiates
+    (the cameras, the intrinsics through the fovs, the background and every
+    gaussian field), finite and not all zero; ``near`` too, finite (the
+    render is scale-invariant, so its gradient is rounding), and the render
+    does not read ``far``; under torch.no_grad the image is the same."""
     args, shape = random_scene(b=1, g=200, seed=9)
-    ta = [torch.from_numpy(x) for x in args]
+    ta = [torch.from_numpy(x).requires_grad_(i != 3) for i, x in enumerate(args)]
     patch_groups(monkeypatch, 128)
-    ta[5].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="slice 4 in ROADMAP.md"):
-        render(*ta[:4], shape, ta[4], *ta[5:])
+    img = render(*ta[:4], shape, ta[4], *ta[5:])
+    (img * torch.linspace(-1, 1, img.numel()).reshape(img.shape)).sum().backward()
+    for name, t in zip(("extrinsics", "intrinsics", "background", "means", "covariances", "sh", "opacities"),
+                       (ta[0], ta[1], *ta[4:])):
+        assert t.grad is not None and torch.isfinite(t.grad).all() and t.grad.abs().max() > 0, name
+    assert torch.isfinite(ta[2].grad).all()
     with torch.no_grad():
-        assert torch.isfinite(render(*ta[:4], shape, ta[4], *ta[5:])).all()
+        assert torch.equal(render(*ta[:4], shape, ta[4], *ta[5:]), img.detach())
 
 
 def test_chained_wrapper_uses_plain_on_cpu():

@@ -26,8 +26,11 @@ from my_depthsplat_torch.render.instances import (
     expand_inputs,
 )
 from my_depthsplat_torch.render.pallas_raster import (
+    BwdCarry,
     ChainState,
     composite_bwd,
+    composite_bwd_chained,
+    composite_bwd_chained_plain,
     composite_bwd_plain,
     composite_chained,
     composite_chained_plain,
@@ -199,6 +202,86 @@ def test_grouped_render_equals_flat_render(card, b, monkeypatch):
     assert (grouped - flat).abs().max().item() <= 1e-6
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chained_backward_kernel_matches_plain_version(card, seed):
+    """The chained backward kernel threaded over the depth groups of one
+    dense view, farthest first, from the true carry (seeded with T_final and
+    the background term) vs ``composite_bwd_chained_plain`` given the same
+    incoming carry: rows within 1e-5 of the largest entry (kernel C's
+    limit), the carry within 1e-5 of its largest entry; bit-identical across
+    two runs; the carry it is handed is updated in place."""
+    sg, bg, shape = _screen(card, seed, b=1, g=1500, max_scale=0.35)
+    order, groups = build_tile_instances_grouped(sg, shape, 128)
+    rows = screen_rows(sg)[order]
+    state = initial_chain_state(1, shape, card)
+    n_contrib = []
+    for inst in groups:
+        state, n_k = composite_chained(rows, inst.gaussian_id, inst.starts, inst.counts, state, shape)
+        n_contrib.append(n_k)
+    g_img = torch.randn(1, *shape, 3, generator=torch.Generator().manual_seed(seed)).to(card)
+    carry = BwdCarry(state.t.clone(), (g_img * bg[:, None, None, :]).sum(-1) * state.t)
+    before = composite_bwd_chained.launches
+    for k in reversed(range(len(groups))):
+        inst = groups[k]
+        args = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, n_contrib[k], g_img)
+        want, want_carry = composite_bwd_chained_plain(*args, carry, shape)
+        runs = []
+        for _ in range(2):
+            passed = BwdCarry(*(t.clone() for t in carry))
+            got, got_carry = composite_bwd_chained(*args, passed, shape)
+            assert all(a is b for a, b in zip(got_carry, passed))  # updated in place
+            runs.append((got, got_carry))
+        torch.cuda.synchronize()
+        (got, got_carry), (again, again_carry) = runs
+        assert torch.equal(got, again) and all(torch.equal(a, b) for a, b in zip(got_carry, again_carry))
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+        for a, b in zip(got_carry, want_carry):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+        carry = got_carry
+    assert composite_bwd_chained.launches == before + 2 * len(groups)
+    assert (carry.ta > state.t).any()
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_grouped_render_gradients_equal_flat_gradients(card, b, monkeypatch):
+    """Gradients of sum(image * weights) through the grouped route (6 groups
+    per view; chained forward, chained backward and kernel D per group) and
+    through the flat route (kernels B, C, D): each pixel walks the same
+    instances in the same order in both, so within 1e-6 of each gradient's
+    largest entry (rounding: kernel D sums each group's instances apart)."""
+    rng = np.random.default_rng(4)
+    g = 700
+    z = rng.uniform(2.0, 8.0, (b, g))
+    means = np.stack([rng.uniform(-0.5, 0.5, (b, g)) * z, rng.uniform(-0.5, 0.5, (b, g)) * z, z], -1)
+    scales = rng.uniform(0.03, 0.3, (b, g, 3))
+    rot = np.linalg.qr(rng.normal(size=(b, g, 3, 3)))[0]
+    cov = (rot * scales[..., None, :] ** 2) @ np.swapaxes(rot, -1, -2)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(card)  # noqa: E731
+    cams = (
+        t(np.tile(np.eye(4), (b, 1, 1))), t(np.tile(np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]]), (b, 1, 1))),
+        torch.full((b,), 0.5, device=card), torch.full((b,), 100.0, device=card), (40, 56),
+    )
+    leaves = (t(rng.uniform(0, 1, (b, 3))), t(means), t(cov), t(rng.normal(size=(b, g, 3, 9)) * 0.3),
+              t(rng.uniform(0.3, 0.95, (b, g))))
+    wts = t(rng.normal(size=(b, 40, 56, 3)))
+
+    def grads():
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        (raster_mod.render_pallas(*cams, *xs) * wts).sum().backward()
+        return [x.grad for x in xs]
+
+    flat = grads()
+    monkeypatch.setattr(raster_mod, "_CHAIN_MIN_G", 1)
+    monkeypatch.setattr(raster_mod, "_CHAIN_GROUP_SLOTS", 128)
+    before = composite_bwd_chained.launches
+    grouped = grads()
+    torch.cuda.synchronize()
+    assert composite_bwd_chained.launches == before + b * 6
+    for gg, gf in zip(grouped, flat):
+        assert torch.isfinite(gg).all() and gf.abs().max() > 0
+        assert (gg - gf).abs().max().item() <= 1e-6 * gf.abs().max().item()
+
+
 def test_wrappers_refuse_wrong_arguments(card):
     """A CUDA wrapper raises on what its kernel does not take."""
     sg, bg, shape = _screen(card, 3)
@@ -218,3 +301,11 @@ def test_wrappers_refuse_wrong_arguments(card):
             rows, inst.gaussian_id, inst.starts, inst.counts,
             state._replace(p_raw=state.p_raw.double()), shape,
         )
+    carry = BwdCarry(t_f.clone(), torch.zeros_like(t_f))
+    bargs = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts)
+    with pytest.raises(ValueError, match="carry.g_dot_ra"):
+        composite_bwd_chained(*bargs, n_c, g_img, carry._replace(g_dot_ra=carry.g_dot_ra[:1]), shape)
+    with pytest.raises(ValueError, match="n_contrib"):
+        composite_bwd_chained(*bargs, n_c.float(), g_img, carry, shape)
+    with pytest.raises(ValueError, match="carry.ta"):
+        composite_bwd_chained(*bargs, n_c, g_img, carry._replace(ta=carry.ta.cpu()), shape)

@@ -196,9 +196,8 @@ def test_entry_point_without_device_raises_without_card(monkeypatch):
 
 
 def test_unimatch_branch_names_the_roadmap(monkeypatch):
-    """The UniMatch branch builds; what the port still refuses around it
-    names its ROADMAP item: training the branch, the depth-only loss, and
-    (tests/test_torch_grouped.py) the grouped render's backward."""
+    """The UniMatch branch builds, and so does its training step; what the
+    port still refuses names its ROADMAP item: the depth-only loss."""
     from my_depthsplat_torch.train import TrainCfg, make_train_step
     from test_torch_unimatch_encoder import register_vitt
 
@@ -210,7 +209,8 @@ def test_unimatch_branch_names_the_roadmap(monkeypatch):
     assert type(enc.depth_predictor).__name__ == "MultiViewUniMatch"
     with pytest.raises(ValueError, match="depth_branch"):
         EncoderDepthSplat(EncoderDepthSplatCfg(depth_branch="other"), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4 in ROADMAP.md"):
-        make_train_step(TrainCfg(encoder=cfg), device="cpu")
+    init, step = make_train_step(TrainCfg(encoder=cfg), device="cpu")
+    state = init(seed=0)
+    assert type(state.model.depth_predictor).__name__ == "MultiViewUniMatch" and callable(step)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_train_step(TrainCfg(encoder=EncoderDepthSplatCfg(train_depth_only=True)), device="cpu")
