@@ -7,7 +7,8 @@ Phases, each fatal on failure (nothing falls back to the CPU):
 1. device: a CUDA card must be present; prints its name and power limit;
 2. numerics: TF32 off for matmuls and cuDNN convolutions;
 3. build: compiles every kernel (csrc/*.cu, one nvcc each, run in parallel
-   threads) into build/;
+   threads) into build/; prints ptxas's registers, shared memory and spills
+   of composite_bwd.cu;
 4. serving path at full width, the way eval/runner.py:run_test serves a
    scene: the arkit_promptda configuration (EncoderDepthSplat with the
    PromptDA branch, ViT-S, random weights from a seed), B=1, 2 context views
@@ -91,10 +92,12 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    grouped route). Then one warm-up and 3 steps, counters 0 just before and
    read just after: per step and rendered view (two depth predictions x 2
    targets) n_groups launches of kernel A and of the chained forward in the
-   forward, and of kernel A, the chained backward (csrc/composite_bwd.cu,
-   CHAINED) and kernel D in the backward (the layout is built again there,
-   one group at a time; each group's n_contrib is kept from the forward),
-   none of kernels B and C; loss/intermediate logged, logs and parameters
+   forward, and for each live group (one whose kept n_contrib has a pixel >
+   0, read from the forward's n_contrib maxima and printed) one of kernel A,
+   the chained backward (csrc/composite_bwd.cu, CHAINED) and kernel D in the
+   backward (the layout is built again there, one group at a time; a dead
+   group launches nothing), none of kernels B and C; loss/intermediate
+   logged, logs and parameters
    finite, grad_norm > 0, loss falling; then one step taken apart;
 15. the grouped route's backward vs the flat route's on one full-size view
    of the trained model's gaussians: gradients of sum(image * weights)
@@ -106,18 +109,23 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    nearest, a middle and the farthest group, and every group where a pixel
    is live, within ~30 s of plain time): rows within 1e-5 of the largest
    entry, the carry within 1e-5 of its largest entry, bit-identical across
-   two runs; then its device time summed over the view's launches, and its
-   bound from the run's data (~12 operations per evaluation up to the
-   group-local n_contrib and ~38 per gated hit; bytes: 36 B of row written
-   per instance, zeros included, 4 B of id and 8 B of destination per live
-   instance and 36 B per gaussian those reference, 4 B of n_contrib per
-   pixel of a tile with instances, and 12 B of cotangent and 8 + 8 B of
-   carry per pixel with n_contrib > 0);
+   two runs; then its device time summed over the launches the path makes
+   (the live groups; also over every group), and its bound over those launches
+   from the run's data (~12 operations per evaluation up to the group-local
+   n_contrib and ~38 per gated hit; bytes: 36 B of row written per
+   instance, the contiguous zero-fill included, 4 B of id and 8 B of
+   destination per live instance and 36 B per gaussian those reference, 4 B
+   of n_contrib per pixel of a tile with instances, and 12 B of cotangent
+   and 8 + 8 B of carry per pixel with n_contrib > 0); then the view's
+   grouped backward taken apart with CUDA events into layout rebuilds, row
+   5 and kernel D, each run once per live group, the dead groups' rows
+   exactly 0;
 17. training path of configs/re10k_small.yaml as it is set (UniMatch ViT-S,
    one scale, 2 context views and 4 targets at 256x256, B = 8 as 2
    gradient-accumulation microbatches): one warm-up and 3 steps on the flat
    route, kernels A-D launched once per microbatch, none of the chained
-   ones, loss falling.
+   ones, loss falling; kernels C and D timed at one microbatch's shapes (16
+   views at 256x256).
 
 The line before the card line is a JSON object {"kernels": [...]}; the card
 line is nvidia-smi's name and power limit; the last line is
@@ -212,6 +220,79 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     operations over the float32 peak, whichever is larger."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def screen_views(torch, means, cov, sh, opac, views, shape):
+    """Screen gaussians of (B, G) gaussians in B views (each field of
+    ``views`` reshaped to B), as the render projects them."""
+    from my_depthsplat_torch.geometry import get_fov
+    from my_depthsplat_torch.render.camera import scale_invariant_normalization
+    from my_depthsplat_torch.render.projection import project_gaussians
+
+    b = means.shape[0]
+    e, _, _, m, c = scale_invariant_normalization(
+        views["extrinsics"].reshape(b, 4, 4), views["near"].reshape(b), views["far"].reshape(b), means, cov,
+    )
+    fov = get_fov(views["intrinsics"].reshape(b, 3, 3))
+    return project_gaussians(e, m, c, sh, opac, torch.tan(0.5 * fov[:, 0]), torch.tan(0.5 * fov[:, 1]), shape, True)
+
+
+def time_backward(torch, dev, card, label, sg, shape, reps):
+    """Kernels C and D, their plain versions and index_add_ on one binning
+    (kernel B's T_final and n_contrib, a seeded cotangent, background 0)."""
+    from my_depthsplat_torch.render.instances import build_tile_instances
+    from my_depthsplat_torch.render.pallas_raster import (
+        composite_bwd,
+        composite_bwd_plain,
+        composite_fwd,
+        scatter_reduce,
+        scatter_reduce_plain,
+        screen_rows,
+    )
+
+    h, w = shape
+    v = sg.depth.shape[0]
+    inst = build_tile_instances(sg, shape)
+    rows = screen_rows(sg)
+    bg = torch.zeros(v, 3, device=dev)
+    _, t_f, n_c = composite_fwd(rows, inst.gaussian_id, inst.starts, inst.counts, bg, shape)
+    g_img = torch.randn(v, h, w, 3, generator=torch.Generator().manual_seed(4)).to(dev)
+    bargs = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, bg, t_f, n_c, g_img, shape)
+    c_ms = cuda_ms(torch, lambda: composite_bwd(*bargs), reps, True)
+    c_plain = cuda_ms(torch, lambda: composite_bwd_plain(*bargs), 1)
+    d_inst = composite_bwd(*bargs)
+    n_g, n_i = rows.shape[0], inst.gaussian_id.numel()
+    dargs = (d_inst, inst.offset, inst.per_gaussian)
+    ids = torch.repeat_interleave(torch.arange(n_g, device=dev), inst.per_gaussian.long())
+    d_ms = cuda_ms(torch, lambda: scatter_reduce(*dargs), reps, True)
+    d_plain = cuda_ms(torch, lambda: scatter_reduce_plain(*dargs), reps, True)
+    d_library = cuda_ms(torch, lambda: d_inst.new_zeros(n_g, 9).index_add_(0, ids, d_inst), reps, True)
+    evals = n_c.long().sum().item()  # up to each pixel's last contributor
+    hits = gated_hits(torch, rows, inst, n_c)
+    n_ref = int((inst.per_gaussian > 0).sum())  # gaussians with an instance
+    # C: rows of the referenced gaussians, sorted ids, destinations,
+    # starts/counts, background, T_final + n_contrib + cotangent per
+    # pixel read; 36 B per instance written
+    c_bytes = n_ref * 36 + n_i * (4 + 8) + inst.starts.numel() * 8 + v * 12 + v * h * w * 20 + n_i * 36
+    c_bound, c_by = bound(c_bytes, evals * OPS_PER_GATE + hits * OPS_PER_BWD_HIT)
+    # D: 36 B per instance row and 12 B per gaussian (offset, count) read; 36 B per gaussian written
+    d_bound, d_by = bound(n_i * 36 + n_g * (12 + 36), n_i * 9)
+    print(
+        f"kernel C composite_bwd, {label}: {c_ms:.4f} ms device (plain {c_plain:.4f} ms), bound "
+        f"{c_bound:.4f} ms by {c_by} ({n_g} gaussians, {n_ref} of them referenced, {n_i} instances, "
+        f"{evals} evaluations to the last contributor, {hits} of them gated hits) on {card}"
+    )
+    print(
+        f"kernel D scatter_reduce, {label}: {d_ms:.4f} ms device (plain {d_plain:.4f} ms, index_add_ "
+        f"alone {d_library:.4f} ms), bound {d_bound:.4f} ms by {d_by} on {card}"
+    )
+    return {
+        "composite_bwd": {
+            "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by, "library_ms": None,
+            "evaluations": evals, "gated_hits": hits,
+        },
+        "scatter_reduce": {"ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_library},
+    }
 
 
 def look_at_views(torch, rng, b, v, dev):
@@ -690,7 +771,7 @@ def train_re10k(torch, dev, card, reset_counters, read_counters):
     from my_depthsplat_torch.models import DecoderSplattingCfg, decode_splatting
     from my_depthsplat_torch.render import pallas_raster as raster_mod
     from my_depthsplat_torch.render.camera import TILE_X, TILE_Y
-    from my_depthsplat_torch.render.instances import build_tile_instances_grouped
+    from my_depthsplat_torch.render.instances import build_tile_instances_grouped, grouped_expand_inputs
     from my_depthsplat_torch.render.pallas_raster import (
         BwdCarry,
         composite_bwd_chained,
@@ -793,21 +874,38 @@ def train_re10k(torch, dev, card, reset_counters, read_counters):
         return {k: float(x) for k, x in logs.items()}, ms
 
     warm_logs, _ = timed_step()
+    # the largest n_contrib of every group, as the forward kept it for the
+    # backward (per rendered view, its groups in depth order)
+    maxima = []
+    backward = raster_mod._GroupedComposite.backward
+
+    def read_maxima(ctx, g_img):
+        maxima.extend(n.amax() for n in ctx.saved_tensors[3:])
+        return backward(ctx, g_img)
+
     reset_counters()
-    steps = [timed_step() for _ in range(TRAIN_STEPS)]
+    with mock.patch.object(raster_mod._GroupedComposite, "backward", staticmethod(read_maxima)):
+        steps = [timed_step() for _ in range(TRAIN_STEPS)]
     launches = read_counters()
-    per_step = {
-        "expand": 2 * views * n_groups, "composite_fwd_chained": views * n_groups,
-        "composite_bwd_chained": views * n_groups, "scatter_reduce": views * n_groups,
-        "composite_fwd": 0, "composite_bwd": 0,
+    maxima = torch.stack(maxima).tolist()
+    n_views = TRAIN_STEPS * views
+    check(len(maxima) == n_views * n_groups, f"{len(maxima)} groups composited, expected {n_views * n_groups}")
+    live_groups_by_view = [[k for k in range(n_groups) if maxima[i * n_groups + k] > 0] for i in range(n_views)]
+    n_live = sum(len(x) for x in live_groups_by_view)
+    want = {
+        "expand": n_views * n_groups + n_live, "composite_fwd_chained": n_views * n_groups,
+        "composite_bwd_chained": n_live, "scatter_reduce": n_live, "composite_fwd": 0, "composite_bwd": 0,
     }
-    print(f"re10k_720p_fast training: {TRAIN_STEPS} steps after 1 warm-up, launches {launches}")
-    for k, n in per_step.items():
+    print(
+        f"re10k_720p_fast training: {TRAIN_STEPS} steps after 1 warm-up, launches {launches}; live groups (a kept "
+        f"n_contrib > 0) per rendered view {[len(x) for x in live_groups_by_view]} of {n_groups}: {live_groups_by_view}"
+    )
+    for k, n in want.items():
         check(
-            launches[k] == n * TRAIN_STEPS,
-            f"re10k_720p_fast training: {k} launched {launches[k]} times in {TRAIN_STEPS} steps, "
-            f"expected {n * TRAIN_STEPS} (per step and rendered view: {n_groups} groups of kernel A and the "
-            "chained forward in the forward, and of kernel A, the chained backward and kernel D in the backward)",
+            launches[k] == n,
+            f"re10k_720p_fast training: {k} launched {launches[k]} times in {TRAIN_STEPS} steps, expected {n} (per "
+            f"rendered view: {n_groups} groups of kernel A and the chained forward in the forward, and kernel A, the "
+            "chained backward and kernel D for each live group in the backward)",
         )
     for i, (logs, ms) in enumerate([(warm_logs, float("nan")), *steps]):
         print(f"re10k_720p_fast training step {i}: {ms:.1f} ms " + " ".join(f"{k}={x:.6g}" for k, x in sorted(logs.items())))
@@ -901,6 +999,7 @@ def train_re10k(torch, dev, card, reset_counters, read_counters):
     with torch.no_grad():
         sg = project_view(torch, gaussians, tgt0, 0, shape)
         order, groups = build_tile_instances_grouped(sg, shape, slots)
+        per_group_args = grouped_expand_inputs(sg, shape, slots)[1]
         rows = screen_rows(sg)[order]
         del sg
         fwd = initial_chain_state(1, shape, dev)
@@ -919,10 +1018,10 @@ def train_re10k(torch, dev, card, reset_counters, read_counters):
         def needed_bytes(inst, n_k):
             """The bytes one group's chained backward must move on this run's
             data -> (all of them, the zero rows' share). Per instance 36 B of
-            row written, zeros included; per instance up to its tile's largest
-            n_contrib 4 B of id and 8 B of destination, and 36 B of row per
-            gaussian those reference (a zero row's place needs no
-            destination: zeroing the whole output writes it); starts and
+            row written, the zero-fill included; per instance up to its tile's
+            largest n_contrib 4 B of id and 8 B of destination, and 36 B of
+            row per gaussian those reference (a zero row's place needs no
+            destination: the contiguous zero-fill writes it); starts and
             counts; per pixel of a tile with instances 4 B of n_contrib; per
             pixel with n_contrib > 0 12 B of cotangent and 8 B of carry read,
             8 B written."""
@@ -971,11 +1070,12 @@ def train_re10k(torch, dev, card, reset_counters, read_counters):
                 stats["plain_groups"].append(k)
                 del d_again, c_again, d_p, c_p
             del d_k
-            stats["evals"] += n_contrib[k].long().sum().item()
-            stats["hits"] += gated_hits(torch, rows, inst, n_contrib[k])
-            nbytes, zero_bytes = needed_bytes(inst, n_contrib[k])
-            stats["bytes"] += nbytes
-            stats["zero_bytes"] += zero_bytes
+            if live:  # the launches the path makes: a dead group is skipped
+                stats["evals"] += n_contrib[k].long().sum().item()
+                stats["hits"] += gated_hits(torch, rows, inst, n_contrib[k])
+                nbytes, zero_bytes = needed_bytes(inst, n_contrib[k])
+                stats["bytes"] += nbytes
+                stats["zero_bytes"] += zero_bytes
         check(bool(torch.isfinite(carry.ta).all() and torch.isfinite(carry.g_dot_ra).all()), "chained backward: non-finite carry")
         # walked back over every group, ta is the transmittance before the
         # first instance: 1, up to the rounding of a few hundred divisions
@@ -986,13 +1086,17 @@ def train_re10k(torch, dev, card, reset_counters, read_counters):
             f"live pixel {sorted(stats['live_groups'])} (not compared within the time: {missed})"
         )
 
-        # ---- row 5 alone: one event pair per launch, summed over the view's walk
-        def bwd_pass():
+        # ---- row 5 alone, one event pair per launch (the zero-fill
+        # included): over the launches the path makes (the live groups), and
+        # over every group, as a walk without the dead-group skip launches it
+        live_groups = sorted(stats["live_groups"])
+
+        def bwd_pass(ks):
             c = BwdCarry(*(x.clone() for x in seeds))
             torch.cuda.synchronize()
             torch.cuda._sleep(100_000_000)  # the host enqueues everything ahead of the device
             pairs = []
-            for k in reversed(range(n)):
+            for k in reversed(ks):
                 inst = groups[k]
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -1004,30 +1108,83 @@ def train_re10k(torch, dev, card, reset_counters, read_counters):
             torch.cuda.synchronize()
             return [a.elapsed_time(b) for a, b in pairs][::-1]  # group order
 
-        bwd_pass()
-        per_group = [statistics.median(col) for col in zip(*(bwd_pass() for _ in range(5)))]
+        def walk_ms(ks):
+            bwd_pass(ks)
+            return [statistics.median(col) for col in zip(*(bwd_pass(ks) for _ in range(5)))]
+
+        per_group = walk_ms(live_groups)
         r_ms = sum(per_group)
-        r_ms_plain_groups = sum(per_group[k] for k in stats["plain_groups"])
-        n_inst = sum(inst.gaussian_id.numel() for inst in groups)
+        every_group = walk_ms(list(range(n)))
+        r_ms_plain_groups = sum(every_group[k] for k in stats["plain_groups"])
+        n_inst = sum(groups[k].gaussian_id.numel() for k in live_groups)
         r_bound, r_by = bound(stats["bytes"], stats["evals"] * OPS_PER_GATE + stats["hits"] * OPS_PER_BWD_HIT)
         zero_ms = stats["zero_bytes"] / PEAK_BYTES_PER_S * 1e3
         print(
-            f"chained backward (row 5), one trained view: {r_ms:.4f} ms device over {n} launches (slowest group "
-            f"{max(per_group):.4f}, fastest {min(per_group):.4f}; by group {[round(x, 4) for x in per_group]}); plain "
+            f"chained backward (row 5), one trained view: {r_ms:.4f} ms device over its {len(live_groups)} launches, the "
+            f"live groups {live_groups} of {n} (by group {[round(x, 4) for x in per_group]}); every group launched: "
+            f"{sum(every_group):.4f} ms (by group {[round(x, 4) for x in every_group]}); plain "
             f"{stats['plain_ms']:.1f} ms over groups {sorted(stats['plain_groups'])} (kernel on those: {r_ms_plain_groups:.4f} ms); "
-            f"bound {r_bound:.4f} ms by {r_by} ({stats['bytes']} bytes needed, {stats['bytes'] / PEAK_BYTES_PER_S * 1e3:.4f} ms, of "
-            f"which the zero rows past the live ranges {zero_ms:.4f} ms; {n_inst} instances, {stats['evals']} evaluations to "
-            f"the last contributor, {stats['hits']} of them gated hits) on {card}"
+            f"bound over the live launches {r_bound:.4f} ms by {r_by} ({stats['bytes']} bytes needed, "
+            f"{stats['bytes'] / PEAK_BYTES_PER_S * 1e3:.4f} ms, of which the zero-fill past the live ranges {zero_ms:.4f} ms; "
+            f"{n_inst} instances, {stats['evals']} evaluations to the last contributor, {stats['hits']} of them gated hits) on {card}"
         )
+
+    # ---- one view's grouped backward taken apart: CUDA events around each
+    # layout rebuild (kernel A, its host read of the total and the key sort),
+    # row 5 launch (the zero-fill included) and kernel D launch
+    def spanned(fn, key, spans):
+        def run(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            spans[key].append((a, b))
+            return out
+
+        return run
+
+    def grouped_backward():
+        leaf = rows.detach().clone().requires_grad_(True)
+        img = raster_mod._GroupedComposite.apply(leaf, bg, per_group_args, slots, shape)
+        spans = {"layout": [], "row 5": [], "kernel D": []}
+        torch.cuda.synchronize()
+        # the launch functions behind the counted wrappers, whose counts stay theirs
+        with mock.patch.object(raster_mod, "group_layout", spanned(raster_mod.group_layout, "layout", spans)), \
+                mock.patch.object(raster_mod, "_composite_bwd_chained_cuda",
+                                  spanned(raster_mod._composite_bwd_chained_cuda, "row 5", spans)), \
+                mock.patch.object(raster_mod, "_scatter_reduce_cuda", spanned(raster_mod._scatter_reduce_cuda, "kernel D", spans)):
+            t_a = time.perf_counter()
+            img.backward(g_img)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t_a) * 1e3
+        for key, pairs in spans.items():
+            check(len(pairs) == len(live_groups), f"grouped backward: {key} ran {len(pairs)} times for {len(live_groups)} live groups")
+        return leaf.grad, ms, {key: sum(a.elapsed_time(b) for a, b in pairs) for key, pairs in spans.items()}
+
+    grouped_backward()  # warm-up
+    runs = [grouped_backward() for _ in range(3)]
+    d_rows = runs[-1][0]
+    for k in set(range(n)) - set(live_groups):
+        check(int(torch.count_nonzero(d_rows[k * slots : (k + 1) * slots])) == 0, f"grouped backward: dead group {k} has gradients")
+    bwd_ms = statistics.median(ms for _, ms, _ in runs)
+    bwd_split = {key: statistics.median(split[key] for _, _, split in runs) for key in runs[0][2]}
+    print(
+        f"grouped backward, one trained view (median of 3): {bwd_ms:.1f} ms host clock; CUDA events: layout rebuilds "
+        f"{bwd_split['layout']:.4f} ms, row 5 {bwd_split['row 5']:.4f} ms, kernel D {bwd_split['kernel D']:.4f} ms over "
+        f"{len(live_groups)} live groups of {n}; the {n - len(live_groups)} dead groups' rows exactly 0 on {card}"
+    )
+    del runs, d_rows
     entry = {
         "name": "composite_bwd_chained", "route": "cuda", "source": "my_depthsplat_torch/csrc/composite_bwd.cu",
         "replaces": "my_depthsplat_tpu/render/pallas_raster.py:342",
         "launches": launches["composite_bwd_chained"], "max_abs_err": stats["err"], "ms": r_ms,
         "plain_ms": stats["plain_ms"], "bound_ms": r_bound, "bound_by": r_by, "library_ms": None,
-        "max_rel_err_carry": stats["carry_err"], "launches_per_view": n, "plain_groups": sorted(stats["plain_groups"]),
-        "ms_plain_groups": r_ms_plain_groups, "zero_rows_ms": zero_ms, "evaluations": stats["evals"],
+        "max_rel_err_carry": stats["carry_err"], "launches_per_view": len(live_groups), "groups_per_view": n,
+        "live_groups_per_view": [len(x) for x in live_groups_by_view], "plain_groups": sorted(stats["plain_groups"]),
+        "ms_plain_groups": r_ms_plain_groups, "ms_every_group": sum(every_group),
+        "zero_fill_ms": zero_ms, "evaluations": stats["evals"],
         "gated_hits": stats["hits"], "bytes_needed": stats["bytes"], "context_views": v,
-        "grouped_vs_flat_grad_rel_err": route_err,
+        "grouped_vs_flat_grad_rel_err": route_err, "grouped_backward_ms": bwd_ms, "grouped_backward_split_ms": bwd_split,
     }
     return launches, entry
 
@@ -1037,7 +1194,8 @@ def train_re10k_small(torch, dev, card, reset_counters, read_counters):
     ViT-S, one scale, lowest feature resolution 4, 2 context views and 4
     targets at 256x256, B = 8 as grad_accum = 2 microbatches, MSE + LPIPS
     0.05, lr 2e-4 / 4e-6 over 150,000 steps; 1 warm-up + 3 counted steps on
-    the flat route. Returns the counted run's launch counts."""
+    the flat route; then kernels C and D timed at one microbatch's shapes.
+    Returns the counted run's launch counts and those timings."""
     import numpy as np
 
     from my_depthsplat_torch.models import DecoderSplattingCfg, EncoderDepthSplatCfg
@@ -1094,10 +1252,19 @@ def train_re10k_small(torch, dev, card, reset_counters, read_counters):
         f"re10k_small training: step {statistics.median(ms for _, ms in steps):.1f} ms (median of {TRAIN_STEPS}), "
         f"loss/total {first:.6f} -> {last:.6f}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}"
     )
-    del state, batch
+    # kernels C and D at the shapes one microbatch gives them: its
+    # gaussians under the trained model, in each of its target views
+    mb = SMALL_BATCH // SMALL_ACCUM
+    with torch.no_grad():
+        gs = state.model({k: x[:mb] for k, x in batch["context"].items()})["gaussians"]
+        leaves = (x.repeat_interleave(N_TARGET, 0) for x in (gs.means, gs.covariances, gs.harmonics, gs.opacities))
+        sg = screen_views(torch, *leaves, {k: x[:mb] for k, x in batch["target"].items()}, SMALL_SHAPE)
+        del state, batch, gs
+        timing = time_backward(torch, dev, card, f"re10k_small microbatch, {mb * N_TARGET} views at {h}x{w}", sg, SMALL_SHAPE, 10)
+    del sg
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, timing
 
 
 def main() -> int:
@@ -1120,11 +1287,11 @@ def main() -> int:
     print("numerics: float32 matmuls and cuDNN convolutions run without TF32")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor() as pool:
+    with ThreadPoolExecutor(len(cuda_lib.KERNEL_SOURCES)) as pool:
         list(pool.map(cuda_lib.load, cuda_lib.KERNEL_SOURCES))
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {list(cuda_lib.KERNEL_SOURCES)}")
+    print("build: ptxas, csrc/composite_bwd.cu:\n" + cuda_lib.build_report("composite_bwd"))
 
-    from my_depthsplat_torch.geometry import get_fov
     from my_depthsplat_torch.models import (
         DecoderSplattingCfg,
         EncoderDepthSplat,
@@ -1133,7 +1300,6 @@ def main() -> int:
     )
     from my_depthsplat_torch.render import instances as inst_mod
     from my_depthsplat_torch.render import pallas_raster as raster_mod
-    from my_depthsplat_torch.render.camera import scale_invariant_normalization
     from my_depthsplat_torch.render.expand import count_pass, expand_plain, expand_tiles, write_pass
     from my_depthsplat_torch.render.instances import build_tile_instances, expand_inputs
     from my_depthsplat_torch.render.pallas_raster import (
@@ -1149,7 +1315,6 @@ def main() -> int:
         scatter_reduce_plain,
         screen_rows,
     )
-    from my_depthsplat_torch.render.projection import project_gaussians
     from my_depthsplat_torch.train import (
         LPIPS,
         LossCfg,
@@ -1242,16 +1407,7 @@ def main() -> int:
 
     # ---- kernel-level comparisons on random scenes at the served shapes
     def screen(means, cov, sh, opac, views):
-        b = means.shape[0]
-        e, _, _, m, c = scale_invariant_normalization(
-            views["extrinsics"].reshape(b, 4, 4), views["near"].reshape(b),
-            views["far"].reshape(b), means, cov,
-        )
-        fov = get_fov(views["intrinsics"].reshape(b, 3, 3))
-        return project_gaussians(
-            e, m, c, sh, opac, torch.tan(0.5 * fov[:, 0]), torch.tan(0.5 * fov[:, 1]),
-            shape, True,
-        )
+        return screen_views(torch, means, cov, sh, opac, views, shape)
 
     def cotangent(b, seed):
         return torch.randn(b, h, w, 3, generator=torch.Generator().manual_seed(seed)).to(dev)
@@ -1491,52 +1647,8 @@ def main() -> int:
         a_ops = area * OPS_PER_CANDIDATE
         b_bytes = rows.numel() * 4 + inst_n * 4 + inst.starts.numel() * 8 + N_TARGET * 12 + N_TARGET * h * w * 20
 
-        def time_backward(label, sg, reps):
-            """Kernels C and D, their plain versions and index_add_ on one binning."""
-            v = sg.depth.shape[0]
-            inst = build_tile_instances(sg, shape)
-            rows = screen_rows(sg)
-            bg = torch.zeros(v, 3, device=dev)
-            _, t_f, n_c = composite_fwd(rows, inst.gaussian_id, inst.starts, inst.counts, bg, shape)
-            bargs = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, bg, t_f, n_c, cotangent(v, 4), shape)
-            c_ms = cuda_ms(torch, lambda: composite_bwd(*bargs), reps, True)
-            c_plain = cuda_ms(torch, lambda: composite_bwd_plain(*bargs), 1)
-            d_inst = composite_bwd(*bargs)
-            n_g, n_i = rows.shape[0], inst.gaussian_id.numel()
-            dargs = (d_inst, inst.offset, inst.per_gaussian)
-            ids = torch.repeat_interleave(torch.arange(n_g, device=dev), inst.per_gaussian.long())
-            d_ms = cuda_ms(torch, lambda: scatter_reduce(*dargs), reps, True)
-            d_plain = cuda_ms(torch, lambda: scatter_reduce_plain(*dargs), reps, True)
-            d_library = cuda_ms(torch, lambda: d_inst.new_zeros(n_g, 9).index_add_(0, ids, d_inst), reps, True)
-            evals = n_c.long().sum().item()  # up to each pixel's last contributor
-            hits = gated_hits(torch, rows, inst, n_c)
-            n_ref = int((inst.per_gaussian > 0).sum())  # gaussians with an instance
-            # C: rows of the referenced gaussians, sorted ids, destinations,
-            # starts/counts, background, T_final + n_contrib + cotangent per
-            # pixel read; 36 B per instance written
-            c_bytes = n_ref * 36 + n_i * (4 + 8) + inst.starts.numel() * 8 + v * 12 + v * h * w * 20 + n_i * 36
-            c_bound, c_by = bound(c_bytes, evals * OPS_PER_GATE + hits * OPS_PER_BWD_HIT)
-            # D: 36 B per instance row and 12 B per gaussian (offset, count) read; 36 B per gaussian written
-            d_bound, d_by = bound(n_i * 36 + n_g * (12 + 36), n_i * 9)
-            print(
-                f"kernel C composite_bwd, {label}: {c_ms:.4f} ms device (plain {c_plain:.4f} ms), bound "
-                f"{c_bound:.4f} ms by {c_by} ({n_g} gaussians, {n_ref} of them referenced, {n_i} instances, "
-                f"{evals} evaluations to the last contributor, {hits} of them gated hits) on {card}"
-            )
-            print(
-                f"kernel D scatter_reduce, {label}: {d_ms:.4f} ms device (plain {d_plain:.4f} ms, index_add_ "
-                f"alone {d_library:.4f} ms), bound {d_bound:.4f} ms by {d_by} on {card}"
-            )
-            return {
-                "composite_bwd": {
-                    "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by, "library_ms": None,
-                    "evaluations": evals, "gated_hits": hits,
-                },
-                "scatter_reduce": {"ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_library},
-            }
-
-        bwd_one = time_backward(f"{N_TARGET} views", sg_served, 20)
-        bwd_batch = time_backward(f"{bsz * N_TARGET} views", sg_train, 10)
+        bwd_one = time_backward(torch, dev, card, f"{N_TARGET} views", sg_served, shape, 20)
+        bwd_batch = time_backward(torch, dev, card, f"{bsz * N_TARGET} views", sg_train, shape, 10)
 
     # kernel B was timed on the binning of bwd_one: the same evaluations and hits
     evals, hits = bwd_one["composite_bwd"]["evaluations"], bwd_one["composite_bwd"]["gated_hits"]
@@ -1561,7 +1673,7 @@ def main() -> int:
     # training re10k_small on the flat route
     torch.cuda.empty_cache()
     re10k_train_launches, row5_entry = train_re10k(torch, dev, card, reset_counters, read_counters)
-    small_launches = train_re10k_small(torch, dev, card, reset_counters, read_counters)
+    small_launches, small_timing = train_re10k_small(torch, dev, card, reset_counters, read_counters)
 
     # A and B: times at the served scene's shapes, launches from the serving
     # run. C and D: times at the training batch's shapes, launches from the
@@ -1589,6 +1701,7 @@ def main() -> int:
             "launches": train_launches["composite_bwd"], "max_abs_err": errs["composite_bwd"],
             "max_rel_err": rel_errs["composite_bwd"], **bwd_batch["composite_bwd"],
             "one_element": bwd_one["composite_bwd"], "launches_re10k_small": small_launches["composite_bwd"],
+            "re10k_small": small_timing["composite_bwd"],
         },
         {
             "name": "scatter_reduce", "route": "cuda", "source": "my_depthsplat_torch/csrc/scatter_reduce.cu",
@@ -1596,7 +1709,7 @@ def main() -> int:
             "launches": train_launches["scatter_reduce"], "max_abs_err": errs["scatter_reduce"],
             "max_rel_err": rel_errs["scatter_reduce"], **bwd_batch["scatter_reduce"],
             "one_element": bwd_one["scatter_reduce"], "launches_re10k_training": re10k_train_launches["scatter_reduce"],
-            "launches_re10k_small": small_launches["scatter_reduce"],
+            "launches_re10k_small": small_launches["scatter_reduce"], "re10k_small": small_timing["scatter_reduce"],
         },
         {**chained_entry, "launches_re10k_training": re10k_train_launches["composite_fwd_chained"]},
         row5_entry,

@@ -11,8 +11,8 @@
 // pixels) is staged 64 instances at a time, from its end, into shared memory
 // through the sorted gaussian-id list, and every pixel walks the batch
 // backwards in registers (pallas_raster.py:441-503):
-//     alpha and the gates exactly as composite_fwd.cu (same expression order,
-//     -fmad=false), and the instance's 1-based position <= n_contrib[pixel];
+//     alpha and the gates exactly as composite_fwd.cu, and the instance's
+//     1-based position <= n_contrib[pixel];
 //     om  = max(1 - alpha, 1e-6)
 //     T_i = T_after / om                  (starting from T_final[pixel])
 //     w   = alpha * T_i,   gc = g . colour_i
@@ -21,16 +21,10 @@
 //     d_op = exp(power) * da,  d_power = op * exp(power) * da   (the 0.99
 //     clamp is ignored in the gradient, as the JAX kernel ignores it)
 //     d_x, d_y, d_conic from d_power;  d_colour = w * g
-// The 9 values of an instance are summed over the tile's 256 pixels: warp
-// shuffles, then one partial per warp in shared memory (a warp in which no
-// pixel contributes writes zeros without shuffling), then a fixed-order sum
-// across the 8 warps. Every instance belongs to exactly one tile, so each
-// output row is written exactly once, by one CTA, in a fixed order: no
-// atomics, no zero-initialised output, and the result is bit-reproducible.
-// Instances past the live range get zero rows. Instance l's row goes to
-// d_inst[dst[l]]: the caller passes the key sort's permutation, so the rows
-// land in gaussian-major order for the segmented reduction that follows
-// (scatter_reduce.cu).
+// Gate rule: power and alpha are computed with the same expressions in the
+// same order as composite_fwd.cu (the whole library builds with -fmad=false,
+// expf, no fast math), so the backward counts exactly the hits the forward
+// counted; an instance the forward skipped contributes nothing here.
 //
 // The same kernel, instantiated with CHAINED, replaces _bwd_kernel's chained
 // mode (carry_in/carry_out; :342-344, :368-377, :521-526), launched once per
@@ -44,28 +38,69 @@
 // n_contrib (what the chained forward returned for the group) as the
 // positional mask; on exit a pixel's ta is the transmittance before the
 // group's first instance and its g_dot_ra includes the group's colour. A
-// pixel with n_contrib = 0 (stopped in a nearer group, or reached by none of
-// this group's instances) reads neither its cotangent nor its carry, and
+// pixel with n_contrib = 0 reads neither its cotangent nor its carry, and
 // its carry passes through unwritten. No background, no T_final. Walking
 // the groups farthest first repeats the flat kernel's divisions and
 // additions in the same order, so grouped and flat gradients agree to
-// rounding (~1e-7 of the largest entry measured on the H100): the chained
-// forward's seeds and kernel D's sums per group round differently.
+// rounding: kernel D sums each group apart. A group where no pixel is live
+// is not launched at all (pallas_raster.py, _GroupedComposite.backward).
 //
-// Bound on the H100: the instance x pixel evaluations up to n_contrib (~12
-// float operations for the gate of each, ~38 more with the gradient assembly
-// for each that passes both gates, against 67 TFLOP/s of non-tensor float32)
-// or the bytes (36 read per gaussian row, 4 of id + 8 of
-// destination read and 36 written per instance, 20 read per pixel; chained:
-// id and destination read only up to the tile's live range, a zero row's
-// place needing none, 4 of n_contrib per pixel of a tile with instances, and
-// 12 of cotangent + 8 of carry read and 8 written per pixel with n_contrib >
-// 0),
-// whichever is larger for the scene. Design: rows are read once per tile
-// into shared memory and broadcast to the pixels; the reduction never leaves
-// the SM. Simple before fast: no cp.async/TMA pipelining, and the shuffle
-// reduction (45 shuffles per contributing warp and instance) is the known
-// cost to attack later.
+// What bounds it on the H100. Flat (kernel C, a training batch of many small
+// views): operations, the instance x pixel evaluations up to n_contrib (~12
+// float operations for the gate of each, ~38 more for each gated hit,
+// against 67 TFLOP/s of non-tensor float32). Chained (row 5, a 512x960 view
+// in 2^18-gaussian groups, launched for the live groups only): bytes, most
+// of them the 36 B of output row of every instance (written once, as zeros
+// where no pixel reaches it), the rest the reads of the live instances (4 B
+// of id, 8 B of destination, 36 B per referenced gaussian) and of the live
+// pixels (12 B of cotangent, 8 B of carry read and written, 4 B of
+// n_contrib).
+//
+// Design.
+// - Zero-fill: the wrapper allocates the output with torch.zeros (one
+//   contiguous memset), and the kernel writes only the rows of instances up
+//   to its tile's live range, each once, through the destination. A tile
+//   whose live range is 0 returns after reading its n_contrib.
+// - Walk: a warp evaluates only the instances up to its own 32 pixels'
+//   largest n_contrib, and of those only the ones that some pixel of its
+//   16x2 strip may hit: before the walk of a batch its 32 lanes test 32
+//   instances at a time, the concave power's largest value over the strip
+//   against logf(ALPHA_MIN / op) with a margin (strip_may_pass), and a
+//   ballot gives the warp the instances to walk. A pair whose power is below
+//   -5.55 (opacity <= 1) fails the alpha gate without expf. A warp's
+//   partials are zeroed before its walk of a batch, and a warp in which no
+//   pixel hits an instance neither shuffles nor stores. None of this
+//   changes a sum: the gate decides every pair as composite_fwd.cu does.
+// - Reduction: the 9 values of an instance are summed over the tile's 256
+//   pixels in two levels. Inside a warp, values 0-7 go through a transposing
+//   butterfly (xor 16, 8, 4: each step a lane keeps half of its values and
+//   trades the other half with its partner, 4 + 2 + 1 shuffles) that leaves
+//   lane l with value l/4 summed over 8 lanes, then xor 2 and 1; value 8
+//   takes a plain xor butterfly: 14 shuffles per warp and instance instead
+//   of 45 (9 values x 5 steps). A warp in which no pixel hits skips them.
+//   Across warps, the 8 per-warp partials stay in shared memory and one
+//   thread per output value adds them in warp order. Every addition happens
+//   in a fixed order, so the result is bit-reproducible; no atomics.
+// - Staging: a three-stage pipeline with one __syncthreads per batch, the
+//   same in both instantiations. While batch q is walked, cp.async copies
+//   are in flight for batch q+1's rows (4-byte copies: a 36-byte row is only
+//   4-byte aligned, gathered through the ids) and for batch q+2's ids and
+//   destinations (contiguous), and the output rows of batch q-1 are summed
+//   and written.
+//   Rows, partials and ids are double-buffered, destinations in 4 buffers (a
+//   batch's destination is staged two batches ahead and read one behind).
+// - No TMA: Hopper's tensor maps copy regular boxes of a tensor, and the row
+//   copy is an indirect gather through the ids; the contiguous ids and
+//   destinations are 256 B and 512 B per batch, too small to pay for a
+//   tensor map and an mbarrier.
+// - No tensor cores: the per-instance sums must stay within 1e-5 of the
+//   float32 plain version's largest entry, and TF32 keeps about three
+//   digits; besides, the per-pixel terms live one per thread, so feeding
+//   mma fragments would cost a pass through shared memory per batch.
+//
+// Instance l's row goes to d_inst[dst[l]]: the caller passes the key sort's
+// permutation, so the rows land in gaussian-major order for the segmented
+// reduction that follows (scatter_reduce.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,7 +114,85 @@ constexpr int ROWS = 9;    // x, y, conic a, b, c, opacity, r, g, b
 constexpr int BATCH = 64;  // instances staged per step
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
+// expf(-5.55) = 0.003888 < 1/255: below this power no opacity <= 1 passes the
+// alpha gate
+constexpr float POWER_MIN = -5.55f;
 constexpr unsigned FULL = 0xffffffffu;
+
+template <typename T>
+__device__ __forceinline__ void copy_async(T* smem, const T* gmem) {
+    static_assert(sizeof(T) == 4 || sizeof(T) == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(sizeof(T)) : "memory");
+}
+
+__device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// One transposing step over 2H values: a lane with bit 4H set keeps values
+// H..2H-1 (moved to 0..H-1) and sends 0..H-1; its partner the reverse.
+template <int H>
+__device__ __forceinline__ void fold(float (&a)[8], int lane) {
+    const bool up = lane & (4 * H);
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+        const float send = up ? a[i] : a[i + H];
+        const float keep = up ? a[i + H] : a[i];
+        a[i] = keep + __shfl_xor_sync(FULL, send, 4 * H);
+    }
+}
+
+// Whether the pair may pass the alpha gate, decided without expf where it
+// cannot.
+__device__ __forceinline__ bool may_pass(float power, float op) { return power >= POWER_MIN || op > 1.0f; }
+
+// The largest power -0.5 (a u^2 + c d^2) - b u d for d in [lo, hi]: along an
+// edge of a box where the other offset is fixed at u.
+__device__ __forceinline__ float edge_max(float u, float lo, float hi, float a, float b, float c) {
+    const float d = fminf(fmaxf(-b * u / c, lo), hi);
+    return -0.5f * (a * u * u + c * d * d) - b * u * d;
+}
+
+// Whether some pixel of the strip [x0, x0 + 15] x [y0, y0 + 1] may pass the
+// alpha gate of the instance with row r. The power is concave: its
+// largest value over the strip is 0 where the mean lies inside, else the
+// largest of the four edges' clamped maxima. Below logf(ALPHA_MIN / op), op *
+// expf(power) < ALPHA_MIN; the slack, 1e-3 plus 1e-5 of the terms' largest
+// magnitude over the strip, is 20 times the float rounding of this bound and
+// of the gate's own power. A conic that is no ellipse, or op < 0 (a NaN
+// threshold), decides nothing.
+__device__ __forceinline__ bool strip_may_pass(const float* r, float x0, float y0) {
+    const float a = r[2], b = r[3], c = r[4], op = r[5];
+    if (!(a > 0.0f && c > 0.0f && a * c > b * b)) return true;
+    const float lx = x0 - r[0], hx = lx + (TILE - 1);
+    const float ly = y0 - r[1], hy = ly + 1.0f;
+    float top = 0.0f;
+    if (lx > 0.0f || hx < 0.0f || ly > 0.0f || hy < 0.0f)
+        top = fmaxf(fmaxf(edge_max(lx, ly, hy, a, b, c), edge_max(hx, ly, hy, a, b, c)),
+                    fmaxf(edge_max(ly, lx, hx, c, b, a), edge_max(hy, lx, hx, c, b, a)));
+    const float X = fmaxf(fabsf(lx), fabsf(hx)), Y = fmaxf(fabsf(ly), fabsf(hy));
+    const float slack = 1e-3f + 1e-5f * (a * X * X + c * Y * Y + fabsf(b) * X * Y);
+    return !(top < logf(ALPHA_MIN / op) - slack);
+}
+
+// The warp's sums of v[0..8] into out[0..8] (shared memory). The partials
+// are zero before the walk, and a warp without a hit stores nothing.
+__device__ __forceinline__ void warp_sum_rows(const float (&v)[ROWS], bool hit, int lane, float* out) {
+    if (!__any_sync(FULL, hit)) return;
+    float a[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a[k] = v[k];
+    fold<4>(a, lane);
+    fold<2>(a, lane);
+    fold<1>(a, lane);
+    float r = a[0];  // value lane / 4, summed over the 8 lanes that share lane % 4
+    r += __shfl_xor_sync(FULL, r, 2);
+    r += __shfl_xor_sync(FULL, r, 1);
+    float r8 = v[8];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) r8 += __shfl_xor_sync(FULL, r8, s);
+    if ((lane & 3) == 0) out[lane >> 2] = r;
+    if (lane == 1) out[8] = r8;
+}
 
 template <bool CHAINED>
 __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
@@ -95,9 +208,11 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
     int gy, int gx, int h, int w,
     float* __restrict__ ta_carry,        // (B, H, W) in and out; CHAINED only
     float* __restrict__ gdr_carry,       // (B, H, W) in and out; CHAINED only
-    float* __restrict__ d_inst) {        // (L, 9)
-    __shared__ float s_row[BATCH * ROWS];
-    __shared__ float s_part[NWARP][BATCH * ROWS];
+    float* __restrict__ d_inst) {        // (L, 9), zero on entry
+    __shared__ float s_row[2][BATCH * ROWS];
+    __shared__ __align__(16) float s_part[2][NWARP][BATCH * ROWS];
+    __shared__ int s_gid[2][BATCH];
+    __shared__ int64_t s_dst[4][BATCH];
     __shared__ int s_max[NWARP];
 
     const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
@@ -141,20 +256,73 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
 #pragma unroll
     for (int k = 0; k < NWARP; ++k) live = max(live, s_max[k]);
     live = min(live, count);
+    // instances past the live range keep their zero rows
+    if (live == 0) return;
 
-    // instances past the tile's last contributor carry no gradient
-    for (int i = live * ROWS + t; i < count * ROWS; i += NPIX)
-        d_inst[dst[start + i / ROWS] * ROWS + i % ROWS] = 0.0f;
-
-    const int n_batches = (live + BATCH - 1) / BATCH;
-    for (int bi = n_batches - 1; bi >= 0; --bi) {
-        const int base = bi * BATCH;
-        const int n = min(BATCH, live - base);
+    // batch q of the walk: instances [base(q), base(q) + size(q)) of the run,
+    // batch 0 the last ones
+    const int nq = (live + BATCH - 1) / BATCH;
+    auto base_of = [&](int q) { return (nq - 1 - q) * BATCH; };
+    auto size_of = [&](int q) { return min(BATCH, live - base_of(q)); };
+    auto stage_ids = [&](int q) {
+        if (q < nq && t < size_of(q)) {
+            const int l = start + base_of(q) + t;
+            copy_async(&s_gid[q & 1][t], gid + l);
+            copy_async(&s_dst[q & 3][t], dst + l);
+        }
+    };
+    auto stage_rows = [&](int q) {
+        if (q >= nq) return;
+        const int n = size_of(q);
         for (int i = t; i < n * ROWS; i += NPIX)
-            s_row[i] = rows[(size_t)gid[start + base + i / ROWS] * ROWS + i % ROWS];
+            copy_async(&s_row[q & 1][i], rows + (size_t)s_gid[q & 1][i / ROWS] * ROWS + i % ROWS);
+    };
+    // the 8 warps' partials of batch q, added in warp order, to the output
+    auto write_rows = [&](int q) {
+        const int n = size_of(q);
+        for (int i = t; i < n * ROWS; i += NPIX) {
+            float sum = 0.0f;
+#pragma unroll
+            for (int k = 0; k < NWARP; ++k) sum += s_part[q & 1][k][i];
+            d_inst[s_dst[q & 3][i / ROWS] * ROWS + i % ROWS] = sum;
+        }
+    };
+
+    stage_ids(0);
+    wait_copies();
+    __syncthreads();
+    stage_ids(1);
+    stage_rows(0);
+    for (int q = 0; q < nq; ++q) {
+        // batch q's rows and batch q+1's ids have landed; batch q-1's
+        // partials are complete; every reader of the buffers refilled below
+        // (rows of q-1, ids of q, destinations of q-2, partials of q-2) is done
+        wait_copies();
         __syncthreads();
-        for (int j = n - 1; j >= 0; --j) {
-            const float* r = s_row + j * ROWS;
+        stage_ids(q + 2);
+        stage_rows(q + 1);
+        if (q > 0) write_rows(q - 1);
+
+        const int base = base_of(q);
+        const float* s = s_row[q & 1];
+        float* part = s_part[q & 1][warp];
+        const int n = size_of(q);
+        // the warp walks up to its own pixels' largest n_contrib; past it
+        // its partials stay zero
+        const int m = max(0, min(n, wmax - base));
+        for (int i = lane; i < BATCH * ROWS / 4; i += 32)
+            reinterpret_cast<float4*>(part)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        __syncwarp();
+        // the instances of 0..m-1 that a pixel of the warp's 16x2 strip may
+        // hit, one lane testing each; walked last first
+        const float x0 = (float)(tx * TILE), y0 = (float)(ty * TILE + 2 * warp);
+        const unsigned lo = __ballot_sync(FULL, lane < m && strip_may_pass(s + lane * ROWS, x0, y0));
+        const unsigned hi = __ballot_sync(FULL, lane + 32 < m && strip_may_pass(s + (lane + 32) * ROWS, x0, y0));
+        unsigned long long todo = (unsigned long long)hi << 32 | lo;
+        while (todo) {
+            const int j = 63 - __clzll(todo);
+            todo ^= 1ull << j;
+            const float* r = s + j * ROWS;
             float v[ROWS];
             bool hit = false;
             if (base + j < ncon) {
@@ -162,7 +330,7 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
                 const float dy = py - r[1];
                 const float ca = r[2], cb = r[3], cc = r[4], op = r[5];
                 const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-                if (power <= 0.0f) {
+                if (power <= 0.0f && may_pass(power, op)) {
                     const float e = expf(power);
                     const float u = op * e;
                     const float alpha = u > ALPHA_MAX ? ALPHA_MAX : u;
@@ -192,28 +360,11 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
 #pragma unroll
                 for (int k = 0; k < ROWS; ++k) v[k] = 0.0f;
             }
-            if (__any_sync(FULL, hit)) {
-#pragma unroll
-                for (int k = 0; k < ROWS; ++k) {
-#pragma unroll
-                    for (int s = 16; s > 0; s >>= 1) v[k] += __shfl_down_sync(FULL, v[k], s);
-                }
-            }
-            if (lane == 0) {
-#pragma unroll
-                for (int k = 0; k < ROWS; ++k) s_part[warp][j * ROWS + k] = v[k];
-            }
+            warp_sum_rows(v, hit, lane, part + j * ROWS);
         }
-        __syncthreads();
-        for (int i = t; i < n * ROWS; i += NPIX) {
-            float sum = 0.0f;
-#pragma unroll
-            for (int k = 0; k < NWARP; ++k) sum += s_part[k][i];
-            d_inst[dst[start + base + i / ROWS] * ROWS + i % ROWS] = sum;
-        }
-        // the next batch overwrites s_row and s_part
-        __syncthreads();
     }
+    __syncthreads();
+    write_rows(nq - 1);
     if (CHAINED && ncon > 0) {
         ta_carry[p] = T;
         gdr_carry[p] = gdr;

@@ -3,12 +3,14 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
-         -shared -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
+         -Xptxas -v -shared -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
 
 into ``build/`` at the root of the checkout, at first use. The file name
 carries a hash of the source and flags, so an edited source is rebuilt.
 ``-fmad=false`` and no ``--use_fast_math``: the kernels must reproduce the
 plain PyTorch versions' float32 rounding (exact cull decisions, ``expf``).
+``-Xptxas -v`` reports each kernel's registers, shared memory and spills;
+the report is kept beside the library (``build_report``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 ]
 KERNEL_SOURCES = ("expand", "composite_fwd", "composite_bwd", "scatter_reduce")
@@ -61,10 +63,19 @@ def load(name: str) -> ctypes.CDLL:
             done = subprocess.run(cmd, capture_output=True, text=True)
             if done.returncode != 0:
                 raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{done.stdout}{done.stderr}")
+            out.with_suffix(".log").write_text(done.stdout + done.stderr)
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         _loaded[name] = lib
     return lib
+
+
+def build_report(name: str) -> str:
+    """ptxas's report (registers, shared memory, spills) from the build of
+    ``csrc/<name>.cu``: one line per kernel."""
+    log = _target(name).with_suffix(".log")
+    lines = log.read_text().splitlines() if log.exists() else []
+    return "\n".join(x.strip() for x in lines if "Used" in x or "spill" in x or "Compiling entry" in x)
 
 
 def check(err: int, what: str) -> None:

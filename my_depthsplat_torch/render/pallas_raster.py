@@ -388,8 +388,8 @@ def _composite_bwd_cuda(
     lib = cuda_lib.load("composite_bwd")
     lib.composite_bwd.restype = ctypes.c_int
     lib.composite_bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-    # the kernel writes every row exactly once (zeros past a tile's live range)
-    d_inst = torch.empty(gid.shape[0], 9, dtype=torch.float32, device=rows.device)
+    # zero-filled: the kernel writes only the rows of instances in a tile's live range
+    d_inst = torch.zeros(gid.shape[0], 9, dtype=torch.float32, device=rows.device)
     cuda_lib.check(
         lib.composite_bwd(
             *(ptr(t) for t in (rows, gid, dst, starts, counts, background, t_final, n_contrib, g_img)),
@@ -438,8 +438,8 @@ def _composite_bwd_chained_cuda(
     lib.composite_bwd_chained.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
     )
-    # the kernel writes every row exactly once (zeros past a tile's live range)
-    d_inst = torch.empty(gid.shape[0], 9, dtype=torch.float32, device=rows.device)
+    # zero-filled: the kernel writes only the rows of instances in a tile's live range
+    d_inst = torch.zeros(gid.shape[0], 9, dtype=torch.float32, device=rows.device)
     cuda_lib.check(
         lib.composite_bwd_chained(
             *(ptr(t) for t in (rows, gid, dst, starts, counts, n_contrib, g_img)),
@@ -574,8 +574,10 @@ class _GroupedComposite(torch.autograd.Function):
     again from the saved inputs, then the chained backward (row gradients
     per instance) and the segmented sum (kernel D) over the group's own
     gaussians, which fills the group's contiguous block of rank-order row
-    gradients. At most one group's instances exist at a time, in either
-    direction."""
+    gradients. A group whose kept n_contrib is 0 at every pixel (no pixel
+    reached it live) is skipped: its block stays zero and the carry crosses
+    it unchanged, exactly what its walk would give. At most one group's
+    instances exist at a time, in either direction."""
 
     @staticmethod
     def forward(ctx, rows, background, per_group, group_slots, image_shape):
@@ -599,8 +601,11 @@ class _GroupedComposite(torch.autograd.Function):
         carry = BwdCarry(
             t_final.clone(), (g_img * background[:, None, None, :]).sum(-1) * t_final
         )
-        d_rows = torch.empty_like(rows)
+        live = torch.stack([n.amax() for n in n_contrib]).tolist()
+        d_rows = torch.zeros_like(rows)
         for k in reversed(range(len(ctx.per_group))):
+            if live[k] == 0:
+                continue
             inst = group_layout(ctx.per_group[k], k * slots, shape)
             d_inst, carry = composite_bwd_chained(
                 rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, n_contrib[k],

@@ -44,6 +44,8 @@ from my_depthsplat_torch.render.pallas_raster import (
 )
 from my_depthsplat_torch.render.projection import project_gaussians
 
+from test_torch_scenes import occluded_scene
+
 pytestmark = pytest.mark.cuda
 
 
@@ -309,3 +311,235 @@ def test_wrappers_refuse_wrong_arguments(card):
         composite_bwd_chained(*bargs, n_c.float(), g_img, carry, shape)
     with pytest.raises(ValueError, match="carry.ta"):
         composite_bwd_chained(*bargs, n_c, g_img, carry._replace(ta=carry.ta.cpu()), shape)
+
+
+# (live range, instances) of each 16x16 tile of a 16x112 view: a dense tile
+# (most evaluations hit), a tile with instances but no live pixel, live
+# ranges on both sides of the 64-instance batch, and an empty tile
+_TILES = ((200, 230), (0, 40), (63, 63), (64, 90), (65, 65), (129, 150), (0, 0))
+
+
+def _live_range_inputs(card, seed):
+    """Kernel arguments built directly, n_contrib chosen per tile: each
+    tile's gaussians lie inside it, wide (sigma 10-20 px) and faint
+    (opacity 0.03-0.08), so the transmittance over 200 hits stays above 1e-5
+    without a stop. A pixel's n_contrib is drawn from [0, live] (from [live/2,
+    live] in the dense tile) and one pixel per tile holds the live range
+    itself. ta is the product of (1 - alpha) over the pixel's gated
+    instances up to n_contrib, as the forward leaves it."""
+    from my_depthsplat_torch.render.camera import ALPHA_MAX, ALPHA_MIN
+
+    rng = np.random.default_rng(seed)
+    h, w = 16, 16 * len(_TILES)
+    counts = np.array([c for _, c in _TILES], np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    n = int(counts.sum())
+    tile_x = np.repeat(np.arange(len(_TILES)), counts)
+    sx, sy = rng.uniform(10, 20, n), rng.uniform(10, 20, n)
+    a, c = 1 / sx**2, 1 / sy**2
+    rows = np.stack(
+        [tile_x * 16 + rng.uniform(0, 16, n), rng.uniform(0, 16, n), a, rng.uniform(-0.2, 0.2, n) * np.sqrt(a * c), c,
+         rng.uniform(0.03, 0.08, n), *rng.uniform(0, 1, (3, n))], -1,
+    )
+    gid = rng.permutation(n).astype(np.int32)  # instance l of the sorted runs -> gaussian gid[l]
+    rows[gid] = rows.copy()  # the run's instance l keeps the gaussian laid out for its tile
+    ncon = np.zeros((h, w), np.int32)
+    for k, (live, _) in enumerate(_TILES):
+        if live:
+            block = rng.integers(live // 2 if k == 0 else 0, live + 1, (16, 16))
+            block[rng.integers(16), rng.integers(16)] = live
+            ncon[:, k * 16 : k * 16 + 16] = block
+    t = lambda x: torch.from_numpy(np.asarray(x)).to(card)  # noqa: E731
+    rows_t, gid_t = t(rows.astype(np.float32)), t(gid)
+    # ta: the forward's transmittance after each pixel's last gated instance
+    d = rows_t[gid_t.long()]
+    pyx = torch.stack(torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij"), -1).reshape(-1, 2).float().to(card)
+    tile_of = torch.from_numpy(tile_x).to(card)
+    dx = pyx[:, 1:2] - d[None, :, 0]
+    dy = pyx[:, 0:1] - d[None, :, 1]
+    power = -0.5 * (d[None, :, 2] * dx * dx + d[None, :, 4] * dy * dy) - d[None, :, 3] * dx * dy
+    alpha = torch.clamp(d[None, :, 5] * torch.exp(power), max=ALPHA_MAX)
+    pos = torch.arange(n, device=card) - t(starts).long()[tile_of] + 1
+    own = tile_of[None] == (pyx[:, 1:2] // 16).long()
+    gate = own & (power <= 0) & (alpha >= ALPHA_MIN) & (pos[None] <= t(ncon).reshape(-1, 1))
+    ta = torch.where(gate, torch.clamp(1 - alpha, min=1e-6), torch.ones_like(alpha)).prod(1).reshape(1, h, w)
+    evals = t(ncon)[:, :16].sum().item()
+    dense_hits = gate.reshape(h, w, n)[:, :16].sum().item() / evals
+    return (
+        rows_t, gid_t, t(rng.permutation(n).astype(np.int64)), t(starts), t(counts), t(ncon)[None],
+        t(rng.normal(size=(1, h, w, 3)).astype(np.float32)), ta, (h, w), dense_hits,
+    )
+
+
+@pytest.mark.parametrize("chained", [False, True], ids=["kernel-C", "row-5"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_backward_kernel_on_live_ranges(card, chained, seed):
+    """Both instantiations of csrc/composite_bwd.cu vs their plain versions
+    on tiles whose live ranges are 0, 63, 64, 65 and 129 (across the
+    staging's 64-instance batches) and a dense tile (> 50 % of its
+    evaluations hit, so every lane carries values through the butterfly):
+    rows within 1e-5 of the largest entry, the carry within 1e-5 of its
+    largest entry (kernel C's limits); bit-identical across two runs; every
+    row past its tile's live range, and all of the tile with instances but
+    no live pixel, exactly 0 (the zero-fill, written by no thread)."""
+    rows, gid, dst, starts, counts, ncon, g_img, ta, shape, dense_hits = _live_range_inputs(card, seed)
+    assert dense_hits > 0.5
+    bg = torch.tensor([[0.2, 0.5, 0.7]], device=card)
+    gdr = torch.rand(ta.shape, generator=torch.Generator().manual_seed(seed)).to(card) * ta
+
+    def run(fn):
+        if not chained:
+            return fn(rows, gid, dst, starts, counts, bg, ta, ncon, g_img, shape), None
+        carry = BwdCarry(ta.clone(), gdr.clone())
+        d, carry = fn(rows, gid, dst, starts, counts, ncon, g_img, carry, shape)
+        return d, carry
+
+    kernel, plain = (composite_bwd_chained, composite_bwd_chained_plain) if chained else (composite_bwd, composite_bwd_plain)
+    before = kernel.launches
+    (got, got_carry), (again, again_carry) = run(kernel), run(kernel)
+    want, want_carry = run(plain)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    if chained:
+        assert all(torch.equal(a, b) for a, b in zip(got_carry, again_carry))
+        for a, b in zip(got_carry, want_carry):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    live = torch.tensor([lv for lv, _ in _TILES], device=card)
+    tile_of = torch.repeat_interleave(torch.arange(len(_TILES), device=card), counts.long())
+    pos = torch.arange(gid.numel(), device=card) - starts.long()[tile_of]
+    dead = pos >= live[tile_of]
+    assert int(dead.sum()) == sum(c - lv for lv, c in _TILES)
+    assert torch.equal(got[dst[dead]], torch.zeros_like(got[dst[dead]]))
+    assert (got[dst[~dead]].abs().amax(1) > 0).float().mean().item() > 0.9
+
+
+def _grazing_inputs(card, seed, n_per_tile=100):
+    """Kernel arguments for the warp-strip cull (strip_may_pass in
+    csrc/composite_bwd.cu) at its edge: a 32x32 view of 2x2 tiles, each with
+    ``n_per_tile`` instances of thin rotated conics (sigma 2-40 px along,
+    0.25-1.5 px across, any angle). Each instance is aimed at one pixel on
+    the edge of one warp's 16x2 strip: its mean lies outside the strip,
+    beyond that edge, at the distance where the power at the pixel is within
+    1e-4 (relative) of logf(ALPHA_MIN / op), on either side. Opacities are
+    1/255 times 1 + 1e-6..1e-2 for 40 % of them (the mean then sits within
+    a fraction of a pixel of the strip) and 0.01-0.5 for the rest (up to 130
+    px away, where the cull's slack is relative). Every pixel's n_contrib is
+    its tile's count; ta is the forward's transmittance at the end."""
+    from my_depthsplat_torch.render.camera import ALPHA_MAX, ALPHA_MIN
+
+    rng = np.random.default_rng(seed)
+    h = w = 32
+    n_tiles = 4
+    n = n_tiles * n_per_tile
+    tile = np.repeat(np.arange(n_tiles), n_per_tile)
+    x0 = (tile % 2) * 16.0
+    y0 = (tile // 2) * 16.0 + 2.0 * rng.integers(0, 8, n)  # the strip's top row
+    # the aimed pixel on one of the strip's edges, and the outward half-plane
+    edge = rng.integers(0, 4, n)  # top, bottom, left, right
+    along = rng.integers(0, 16, n).astype(np.float64)
+    px = np.where(edge == 2, x0, np.where(edge == 3, x0 + 15, x0 + along))
+    py = np.where(edge == 0, y0, np.where(edge == 1, y0 + 1, y0 + rng.integers(0, 2, n)))
+    normal = np.array([[0, -1], [0, 1], [-1, 0], [1, 0]], np.float64)[edge]
+    phi = rng.uniform(-0.49 * np.pi, 0.49 * np.pi, n)  # from the mean towards the pixel: into the strip
+    cos, sin = np.cos(phi), np.sin(phi)
+    d = -np.stack([normal[:, 0] * cos - normal[:, 1] * sin, normal[:, 0] * sin + normal[:, 1] * cos], -1)
+    theta = rng.uniform(0, np.pi, n)
+    s_major, s_minor = rng.uniform(2, 40, n), rng.uniform(0.25, 1.5, n)
+    ct, st = np.cos(theta), np.sin(theta)
+    # conic = R diag(1/s_major^2, 1/s_minor^2) R^T
+    a = ct**2 / s_major**2 + st**2 / s_minor**2
+    c = st**2 / s_major**2 + ct**2 / s_minor**2
+    b = ct * st * (1 / s_major**2 - 1 / s_minor**2)
+    faint = rng.uniform(size=n) < 0.4
+    op = np.where(faint, ALPHA_MIN * (1 + 10 ** rng.uniform(-6, -2, n)), rng.uniform(0.01, 0.5, n))
+    target = np.log(ALPHA_MIN / op) * (1 + rng.uniform(-1e-4, 1e-4, n))  # power at the aimed pixel
+    qd = a * d[:, 0] ** 2 + 2 * b * d[:, 0] * d[:, 1] + c * d[:, 1] ** 2
+    r = np.sqrt(-2 * target / qd)
+    mean = np.stack([px, py], -1) - r[:, None] * d
+    rows = np.stack([mean[:, 0], mean[:, 1], a, b, c, op, *rng.uniform(0, 1, (3, n))], -1)
+    gid = rng.permutation(n).astype(np.int32)
+    rows[gid] = rows.copy()
+    counts = np.full(n_tiles, n_per_tile, np.int32)
+    starts = np.arange(n_tiles, dtype=np.int32) * n_per_tile
+    t = lambda x: torch.from_numpy(np.asarray(x)).to(card)  # noqa: E731
+    rows_t, gid_t = t(rows.astype(np.float32)), t(gid)
+    dr = rows_t[gid_t.long()]
+    pyx = torch.stack(torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij"), -1).reshape(-1, 2).float().to(card)
+    dx = pyx[:, 1:2] - dr[None, :, 0]
+    dy = pyx[:, 0:1] - dr[None, :, 1]
+    power = -0.5 * (dr[None, :, 2] * dx * dx + dr[None, :, 4] * dy * dy) - dr[None, :, 3] * dx * dy
+    alpha = torch.clamp(dr[None, :, 5] * torch.exp(power), max=ALPHA_MAX)
+    tile_t = t(tile)
+    own = tile_t[None] == ((pyx[:, 0:1] // 16) * 2 + pyx[:, 1:2] // 16).long()
+    gate = own & (power <= 0) & (alpha >= ALPHA_MIN)
+    ta = torch.where(gate, torch.clamp(1 - alpha, min=1e-6), torch.ones_like(alpha)).prod(1).reshape(1, h, w)
+    # hits per (strip, instance): strip = the 16x2 block of a warp
+    strip = ((pyx[:, 0] // 2) * 2 + pyx[:, 1] // 16).long()
+    per_strip = torch.zeros(strip.max().item() + 1, n, device=card).index_add_(0, strip, gate.float())
+    stats = {
+        "grazing hits": int((gate & (alpha < ALPHA_MIN * 1.001)).sum()),
+        "strips hit at one or two pixels": int(((per_strip > 0) & (per_strip <= 2)).sum()),
+    }
+    ncon = torch.full((1, h, w), n_per_tile, dtype=torch.int32, device=card)
+    g_img = t(rng.normal(size=(1, h, w, 3)).astype(np.float32))
+    return rows_t, gid_t, t(rng.permutation(n).astype(np.int64)), t(starts), t(counts), ncon, g_img, ta, (h, w), stats
+
+
+@pytest.mark.parametrize("chained", [False, True], ids=["kernel-C", "row-5"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_backward_kernel_on_grazing_conics(card, chained, seed):
+    """Both instantiations of csrc/composite_bwd.cu vs their plain versions
+    where the warp-strip cull is hardest (``_grazing_inputs``: thin rotated
+    conics whose gate boundary runs through a strip's edge pixel, opacities
+    just above 1/255, means up to 130 px away). A hit that the cull dropped
+    would zero an instance's row where the plain version's is not zero, and
+    would move the chained carry ta by at least 1/255 (0.39 %): rows within
+    1e-5 of the largest entry, the same instances with a non-zero row, ta
+    and g_dot_ra within 1e-5 of their largest entry."""
+    rows, gid, dst, starts, counts, ncon, g_img, ta, shape, stats = _grazing_inputs(card, seed)
+    assert stats["grazing hits"] >= 20 and stats["strips hit at one or two pixels"] >= 100, stats
+    bg = torch.tensor([[0.2, 0.5, 0.7]], device=card)
+    gdr = torch.rand(ta.shape, generator=torch.Generator().manual_seed(seed)).to(card) * ta
+
+    def run(fn):
+        if not chained:
+            return fn(rows, gid, dst, starts, counts, bg, ta, ncon, g_img, shape), None
+        return fn(rows, gid, dst, starts, counts, ncon, g_img, BwdCarry(ta.clone(), gdr.clone()), shape)
+
+    kernel, plain = (composite_bwd_chained, composite_bwd_chained_plain) if chained else (composite_bwd, composite_bwd_plain)
+    (got, got_carry), (want, want_carry) = run(kernel), run(plain)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal((got != 0).any(1), (want != 0).any(1))
+    if chained:
+        for a, b in zip(got_carry, want_carry):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def test_grouped_backward_skips_dead_groups(card, monkeypatch):
+    """The occluded view through the grouped route (3 groups of 112, only
+    the nearest live) and through the flat route: gradients within 1e-4 of
+    each gradient's largest entry; the backward launches kernel A, the
+    chained backward and kernel D once, for the live group only."""
+    args = [torch.from_numpy(x).to(card) for x in occluded_scene()[0]]
+    shape = (32, 48)
+    wts = torch.randn(1, *shape, 3, generator=torch.Generator().manual_seed(6)).to(card)
+
+    def grads():
+        xs = [x.clone().requires_grad_(True) for x in args[4:]]
+        (raster_mod.render_pallas(*args[:4], shape, *xs) * wts).sum().backward()
+        return [x.grad for x in xs]
+
+    flat = grads()
+    monkeypatch.setattr(raster_mod, "_CHAIN_MIN_G", 1)
+    monkeypatch.setattr(raster_mod, "_CHAIN_GROUP_SLOTS", 112)
+    fns = (expand_tiles, composite_chained, composite_bwd_chained, scatter_reduce)
+    before = [f.launches for f in fns]
+    grouped = grads()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [3 + 1, 3, 1, 1]
+    for gg, gf in zip(grouped, flat):
+        assert torch.isfinite(gg).all() and gf.abs().max() > 0
+        assert (gg - gf).abs().max().item() <= 1e-4 * gf.abs().max().item()
