@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
+It takes no arguments and needs one card.
+
 Phases, each fatal on failure (nothing falls back to the CPU):
 1. device: a CUDA card must be present; prints its name and power limit;
 2. numerics: TF32 off for matmuls and cuDNN convolutions;
 3. build: compiles every kernel (csrc/*.cu, one nvcc each, run in parallel
-   threads) into build/; prints ptxas's registers, shared memory and spills
-   of composite_bwd.cu;
+   threads) into build/; prints ptxas's registers, shared
+   memory and spills of composite_fwd.cu and composite_bwd.cu;
 4. serving path at full width, the way eval/runner.py:run_test serves a
    scene: the arkit_promptda configuration (EncoderDepthSplat with the
    PromptDA branch, ViT-S, random weights from a seed), B=1, 2 context views
@@ -52,9 +54,14 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    UniMatch encoder (ViT-B, two scales, 128 candidates, float32) on 12
    seeded context views at 512x960, then decode_splatting of 2 target views
    at 512x960 from 5,898,240 gaussians through the depth-grouped route, for
-   3 requests after one warm-up, counters 0 just before and read just after
-   (kernel A and the chained composite must each have launched once per
-   depth group and target view: 23 x 2 x 3); before the first decode,
+   3 requests after one warm-up, counters 0 just before and read just after:
+   in each rendered view kernel A (both passes) and the chained composite
+   must each have launched once for every depth group up to and including
+   the first after which no pixel is live, and kernel A's count pass once
+   more, on the next group (its live count stops the walk), if there is
+   one; the count is taken independently afterwards by threading the
+   chained composite over all 23 groups of each view (printed; the walk's
+   launches are not counted); before the first decode,
    kernel A's count pass says how many instances a view makes; encoder time
    by part from one more pass with synchronising hooks;
 12. kernel A vs its plain version at the shapes the grouped route gives it:
@@ -73,10 +80,12 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    grouped route vs the flat route on one full-size view (<= 1e-6, exact
    expected), with both routes' decode time and peak memory;
 13. timings (CUDA events) of each kernel's device passes alone, of its
-   plain version on the card, and its bound: A and B at the served scene's
-   shapes (4 views), C and D at one batch element's (4 views) and at the
-   training batch's (56 views), the chained composite summed over the 23
-   launches of one served 512x960 view; index_add_ is D's library time. The
+   plain version on the card, and its bound: A at the served scene's shapes
+   (4 views), on each depth group a served 512x960 view composites and its
+   count pass alone on the next group, B, C
+   and D at one batch element's (4 views) and at the training batch's (56
+   views), the chained composite summed over the launches the path makes in
+   one served view and over all 23 groups; index_add_ is D's library time. The
    operations in B's and C's bounds are counted from this run's data: every
    (instance, pixel) pair up to the pixel's last contributor costs the gate,
    and only the pairs that pass both gates (counted here) cost the rest. The
@@ -91,9 +100,14 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    that fits (bisection; 5 x 491,520 >= 2^21 keeps every view on the
    grouped route). Then one warm-up and 3 steps, counters 0 just before and
    read just after: per step and rendered view (two depth predictions x 2
-   targets) n_groups launches of kernel A and of the chained forward in the
-   forward, and for each live group (one whose kept n_contrib has a pixel >
-   0, read from the forward's n_contrib maxima and printed) one of kernel A,
+   targets) one launch of kernel A and of the chained forward in the forward
+   for each group up to and including the first after which no pixel is
+   live, and one more count pass of kernel A on the next group if there is
+   one (checked against a walk over every group of the same view, made
+   after each step from the inputs the view's backward saw, outside the
+   step's time and counts), and for each live group (one whose kept
+   n_contrib has a pixel > 0, read from the forward's n_contrib maxima and
+   printed) one of kernel A,
    the chained backward (csrc/composite_bwd.cu, CHAINED) and kernel D in the
    backward (the layout is built again there, one group at a time; a dead
    group launches nothing), none of kernels B and C; loss/intermediate
@@ -104,7 +118,9 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    w.r.t. background, means, covariances, SH and opacities within 1e-4 of
    each gradient's largest entry; both routes' render forward+backward time
    and peak memory;
-16. the chained backward vs composite_bwd_chained_plain on that view, group
+16. the chained forward alone on that view, over the launches the path
+   makes and over every group, with its bound; the chained backward vs composite_bwd_chained_plain on
+   that view, group
    by group farthest first from the kernel's true incoming carry (the
    nearest, a middle and the farthest group, and every group where a pixel
    is live, within ~30 s of plain time): rows within 1e-5 of the largest
@@ -124,8 +140,8 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    one scale, 2 context views and 4 targets at 256x256, B = 8 as 2
    gradient-accumulation microbatches): one warm-up and 3 steps on the flat
    route, kernels A-D launched once per microbatch, none of the chained
-   ones, loss falling; kernels C and D timed at one microbatch's shapes (16
-   views at 256x256).
+   ones, loss falling; kernels B, C and D timed at one microbatch's shapes
+   (16 views at 256x256).
 
 The line before the card line is a JSON object {"kernels": [...]}; the card
 line is nvidia-smi's name and power limit; the last line is
@@ -237,14 +253,93 @@ def screen_views(torch, means, cov, sh, opac, views, shape):
     return project_gaussians(e, m, c, sh, opac, torch.tan(0.5 * fov[:, 0]), torch.tan(0.5 * fov[:, 1]), shape, True)
 
 
-def time_backward(torch, dev, card, label, sg, shape, reps):
-    """Kernels C and D, their plain versions and index_add_ on one binning
-    (kernel B's T_final and n_contrib, a seeded cotangent, background 0)."""
+def chained_walk_ms(torch, rows, groups, shape) -> list[float]:
+    """Device ms of each chained composite launch (one event pair each) over
+    ``groups`` in order, threading one state from the initial one; the host
+    enqueues every launch before the first one runs."""
+    from my_depthsplat_torch.render.pallas_raster import composite_chained, initial_chain_state
+
+    state = initial_chain_state(1, shape, rows.device)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clock
+    pairs = []
+    for inst in groups:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        composite_chained(rows, inst.gaussian_id, inst.starts, inst.counts, state, shape)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in pairs]
+
+
+def live_after_groups(torch, rows, per_group, slots, shape) -> list[int]:
+    """The pixels still live (p_raw >= 1e-4) after each depth group of one
+    view when the chained composite is threaded over every group, the dead
+    ones too: the walk the grouped forward cuts short, as an independent
+    count of where it should stop. ``rows`` in depth-rank order,
+    ``per_group`` from grouped_expand_inputs."""
+    from my_depthsplat_torch.render.instances import group_layout
+    from my_depthsplat_torch.render.pallas_raster import composite_chained, initial_chain_state
+
+    state = initial_chain_state(1, shape, rows.device)
+    live = []
+    for k, args in enumerate(per_group):
+        inst = group_layout(args, k * slots, shape)
+        composite_chained(rows, inst.gaussian_id, inst.starts, inst.counts, state, shape)
+        live.append(int((state.p_raw >= 1e-4).sum()))
+    return live
+
+
+def groups_to_composite(live: list[int]) -> int:
+    """The groups up to and including the first after which no pixel is
+    live (all of them if some pixel stays live)."""
+    return next((k + 1 for k, n in enumerate(live) if n == 0), len(live))
+
+
+def time_expand(torch, flat, reps, write=True):
+    """Kernel A on one argument tuple of expand_tiles: device ms of its
+    count and write passes alone, ms of its wrapper (the host read of the
+    total included), and its bound; -> dict. ``write=False``: the count pass
+    alone, as the grouped forward runs it on the group after the last one it
+    composites (the wrapper: count_instances, its host read included)."""
+    from my_depthsplat_torch.render.expand import count_instances, count_pass, expand_tiles, write_pass
+
+    xy, conic, op, rect_i, valid, slot, gpv, gx, nt = flat
+    cnt = count_pass(xy, conic, op, rect_i, valid, gpv, gx, nt)
+    ends = torch.cumsum(cnt, 0, dtype=torch.int64)
+    offset, total = ends - cnt, int(ends[-1])
+    count_ms = cuda_ms(torch, lambda: count_pass(xy, conic, op, rect_i, valid, gpv, gx, nt), reps, True)
+    n = xy.shape[0]
+    rect = rect_i.long()
+    area = ((rect[:, 2] - rect[:, 0]) * (rect[:, 3] - rect[:, 1]))[valid].sum().item()
+    if write:
+        write_ms = cuda_ms(torch, lambda: write_pass(xy, conic, op, rect_i, valid, slot, offset, total, gpv, gx, nt), reps, True)
+        wrapper_ms = cuda_ms(torch, lambda: expand_tiles(*flat), reps)
+        # the cull fields and slots read, keys and ids written
+        nbytes = n * (8 + 12 + 4 + 16 + 1 + 8) + total * (8 + 4)
+    else:
+        live = torch.zeros(1, dtype=torch.int32, device=xy.device)
+        write_ms = 0.0
+        wrapper_ms = cuda_ms(torch, lambda: count_instances(*flat, live), reps)
+        nbytes = n * (8 + 12 + 4 + 16 + 1 + 4)  # the cull fields read, the counts written
+    a_bound, a_by = bound(nbytes, area * OPS_PER_CANDIDATE)
+    return {
+        "ms": count_ms + write_ms, "count_ms": count_ms, "write_ms": write_ms, "wrapper_ms": wrapper_ms,
+        "bound_ms": a_bound, "bound_by": a_by, "gaussians": n, "candidate_tiles": area, "instances": total,
+    }
+
+
+def time_composite(torch, dev, card, label, sg, shape, reps):
+    """Kernel B, and kernels C and D on its T_final and n_contrib (a seeded
+    cotangent, background 0), on one binning: device times, plain versions,
+    index_add_ for D, bounds."""
     from my_depthsplat_torch.render.instances import build_tile_instances
     from my_depthsplat_torch.render.pallas_raster import (
         composite_bwd,
         composite_bwd_plain,
         composite_fwd,
+        composite_plain,
         scatter_reduce,
         scatter_reduce_plain,
         screen_rows,
@@ -255,7 +350,11 @@ def time_backward(torch, dev, card, label, sg, shape, reps):
     inst = build_tile_instances(sg, shape)
     rows = screen_rows(sg)
     bg = torch.zeros(v, 3, device=dev)
-    _, t_f, n_c = composite_fwd(rows, inst.gaussian_id, inst.starts, inst.counts, bg, shape)
+    fargs = (rows, inst.gaussian_id, inst.starts, inst.counts, bg, shape)
+    b_ms = cuda_ms(torch, lambda: composite_fwd(*fargs), reps, True)
+    b_wrapper = cuda_ms(torch, lambda: composite_fwd(*fargs), reps)
+    b_plain = cuda_ms(torch, lambda: composite_plain(*fargs), 1)
+    _, t_f, n_c = composite_fwd(*fargs)
     g_img = torch.randn(v, h, w, 3, generator=torch.Generator().manual_seed(4)).to(dev)
     bargs = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, bg, t_f, n_c, g_img, shape)
     c_ms = cuda_ms(torch, lambda: composite_bwd(*bargs), reps, True)
@@ -270,6 +369,10 @@ def time_backward(torch, dev, card, label, sg, shape, reps):
     evals = n_c.long().sum().item()  # up to each pixel's last contributor
     hits = gated_hits(torch, rows, inst, n_c)
     n_ref = int((inst.per_gaussian > 0).sum())  # gaussians with an instance
+    # B: every gaussian's row, the sorted ids, starts/counts and background
+    # read; image, T_final and n_contrib (20 B) per pixel written
+    b_bytes = rows.numel() * 4 + n_i * 4 + inst.starts.numel() * 8 + v * 12 + v * h * w * 20
+    b_bound, b_by = bound(b_bytes, evals * OPS_PER_GATE + hits * OPS_PER_FWD_HIT)
     # C: rows of the referenced gaussians, sorted ids, destinations,
     # starts/counts, background, T_final + n_contrib + cotangent per
     # pixel read; 36 B per instance written
@@ -277,6 +380,11 @@ def time_backward(torch, dev, card, label, sg, shape, reps):
     c_bound, c_by = bound(c_bytes, evals * OPS_PER_GATE + hits * OPS_PER_BWD_HIT)
     # D: 36 B per instance row and 12 B per gaussian (offset, count) read; 36 B per gaussian written
     d_bound, d_by = bound(n_i * 36 + n_g * (12 + 36), n_i * 9)
+    print(
+        f"kernel B composite_fwd, {label}: {b_ms:.4f} ms device, wrapper {b_wrapper:.4f} ms (plain {b_plain:.4f} ms), "
+        f"bound {b_bound:.4f} ms by {b_by} ({n_i} instances, {evals} evaluations to the last contributor, {hits} of "
+        f"them gated hits) on {card}"
+    )
     print(
         f"kernel C composite_bwd, {label}: {c_ms:.4f} ms device (plain {c_plain:.4f} ms), bound "
         f"{c_bound:.4f} ms by {c_by} ({n_g} gaussians, {n_ref} of them referenced, {n_i} instances, "
@@ -287,12 +395,47 @@ def time_backward(torch, dev, card, label, sg, shape, reps):
         f"alone {d_library:.4f} ms), bound {d_bound:.4f} ms by {d_by} on {card}"
     )
     return {
+        "composite_fwd": {
+            "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by, "library_ms": None,
+            "wrapper_ms": b_wrapper,
+        },
         "composite_bwd": {
             "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by, "library_ms": None,
             "evaluations": evals, "gated_hits": hits,
         },
         "scatter_reduce": {"ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_library},
     }
+
+
+def chained_fwd_bytes(torch, inst, live_in, live_out, n_k):
+    """The bytes one group's chained composite must move on this run's data
+    -> (all of them, the state's share). A tile whose pixels had all
+    stopped before needs none of its instances; one whose pixels have all
+    stopped by the end needs them up to the one after its last contributor
+    (the earliest a stop can fall); any other needs its whole run. Per
+    needed instance 4 B of id, per gaussian they reference 36 B of row;
+    starts and counts; per pixel live on entry 20 B of state read and 24 B
+    (state, n_contrib) written, per stopped pixel 4 B read (p_raw) and 4 B
+    written (n_contrib). The (1, H, W) images are whole tiles."""
+    from my_depthsplat_torch.render.camera import TILE_X, TILE_Y
+
+    _, h, w = n_k.shape
+
+    def per_tile(x):
+        return x.reshape(h // TILE_Y, TILE_Y, w // TILE_X, TILE_X).transpose(1, 2).reshape(-1, TILE_Y * TILE_X)
+
+    counts = inst.counts.long()
+    last = per_tile(n_k).amax(dim=1).long()
+    need = torch.where(
+        per_tile(live_out).any(dim=1), counts,
+        torch.where(per_tile(live_in).any(dim=1), torch.minimum(counts, last + 1), torch.zeros_like(counts)),
+    )
+    tile_of = torch.repeat_interleave(torch.arange(counts.numel(), device=counts.device), counts)
+    pos = torch.arange(tile_of.numel(), device=counts.device) - inst.starts.long()[tile_of]
+    n_ref = torch.unique(inst.gaussian_id[pos < need[tile_of]]).numel()
+    n_live = int(live_in.sum())
+    state_bytes = n_live * 44 + (h * w - n_live) * 8
+    return n_ref * 36 + int(need.sum()) * 4 + counts.numel() * 8 + state_bytes, state_bytes
 
 
 def look_at_views(torch, rng, b, v, dev):
@@ -430,10 +573,11 @@ def project_view(torch, gaussians, views, view, shape):
     )
 
 
-def serve_re10k(torch, dev, card, reset_counters, read_counters):
-    """Phases 11-12 and the chained composite's timing: returns the launch
-    counts of the serving run and the chained kernel's entry for the
-    ``kernels`` line."""
+def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
+    """Phases 11-12 and the chained composite's and kernel A's timings at
+    the re10k shapes: returns the launch counts of the serving run, the
+    chained kernel's entry for the ``kernels`` line, kernel A's largest
+    difference from its plain version and its per-group timing."""
     import numpy as np
 
     from my_depthsplat_torch.models import DecoderSplattingCfg, EncoderDepthSplat, decode_splatting
@@ -457,7 +601,8 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters):
 
     shape = RE10K_SHAPE
     h, w = shape
-    n_groups = -(-(RE10K_CONTEXT * h * w) // raster_mod._CHAIN_GROUP_SLOTS)
+    slots = raster_mod._CHAIN_GROUP_SLOTS
+    n_groups = -(-(RE10K_CONTEXT * h * w) // slots)
     encoder = EncoderDepthSplat(re10k_encoder_cfg(), device=dev, seed=0).eval()
     dec_cfg = DecoderSplattingCfg()
     n_params = sum(p.numel() for p in encoder.parameters())
@@ -501,19 +646,58 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters):
         decode(out["gaussians"], requests[0][1])
         del out, sg, xy, conic, op, rect, valid
 
+        # kernel A's and the chained composite's launches in each rendered view
+        per_view = []
+        render_grouped = raster_mod._render_grouped
+
+        def count_view(*args):
+            def now():
+                return expand_tiles.launches, expand_tiles.write_launches, composite_chained.launches
+
+            before = now()
+            image = render_grouped(*args)
+            per_view.append(tuple(a - b for a, b in zip(now(), before)))
+            return image
+
         torch.cuda.reset_peak_memory_stats()
         reset_counters()
         served = []
-        for ctx, tgt in requests:
-            out, enc_ms = lap(lambda: encoder(ctx))
-            dec, dec_ms = lap(lambda: decode(out["gaussians"], tgt))
-            served.append((out, dec, enc_ms, dec_ms))
+        with mock.patch.object(raster_mod, "_render_grouped", count_view):
+            for ctx, tgt in requests:
+                out, enc_ms = lap(lambda: encoder(ctx))
+                dec, dec_ms = lap(lambda: decode(out["gaussians"], tgt))
+                served.append((out, dec, enc_ms, dec_ms))
         launches = read_counters()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        want = n_groups * RE10K_TARGET * RE10K_REQUESTS
-        print(f"re10k_720p_fast serving: {RE10K_REQUESTS} requests, launches {launches}")
-        for k in ("expand", "composite_fwd_chained"):
-            check(launches[k] == want, f"{k}: {launches[k]} launches on the serving path, expected {want}")
+        # the independent count: the chained composite threaded over every
+        # group of each served view, the dead ones too
+        expected = []
+        with uncounted():
+            for (out, _, _, _), (_, tgt) in zip(served, requests):
+                for view in range(RE10K_TARGET):
+                    sg = project_view(torch, out["gaussians"], tgt, view, shape)
+                    order, per_group = grouped_expand_inputs(sg, shape, slots)
+                    live = live_after_groups(torch, screen_rows(sg)[order], per_group, slots, shape)
+                    expected.append(groups_to_composite(live))
+                    del sg, order, per_group
+        # a walk that stops before the last group runs the next group's count
+        # pass, whose live count stops it
+        counts_expected = [n + (n < n_groups) for n in expected]
+        print(
+            f"re10k_720p_fast serving: {RE10K_REQUESTS} requests, launches {launches}; per rendered view (kernel A count "
+            f"passes, write passes, chained composite) {per_view}; groups up to the first after which no pixel is live, "
+            f"by the walk over every group: {expected} of {n_groups}"
+        )
+        check(len(per_view) == len(expected) == RE10K_TARGET * RE10K_REQUESTS, f"{len(per_view)} views rendered")
+        for i, ((n_a, n_w, n_c), want, want_a) in enumerate(zip(per_view, expected, counts_expected)):
+            check(
+                n_w == n_c == want and n_a == want_a,
+                f"re10k serving, view {i}: kernel A {n_a} count and {n_w} write passes, chained composite {n_c} "
+                f"launches; expected {want_a}, {want} and {want} (the groups up to and including the first after "
+                "which no pixel is live, and the next group's count pass)",
+            )
+        for k, n in (("expand", sum(counts_expected)), ("expand_write", sum(expected)), ("composite_fwd_chained", sum(expected))):
+            check(launches[k] == n, f"{k}: {launches[k]} launches on the serving path, expected {n}")
         for i, (out, dec, _, _) in enumerate(served):
             img = dec.color
             check(tuple(img.shape) == (1, RE10K_TARGET, h, w, 3), f"request {i}: image shape {tuple(img.shape)}")
@@ -570,33 +754,6 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters):
         torch.cuda.empty_cache()
 
         # ---- the chained composite vs its plain version, group by group
-        def per_tile(x):
-            """(1, H, W) -> (tiles, 256); the image is whole tiles."""
-            return x.reshape(h // TILE_Y, TILE_Y, w // TILE_X, TILE_X).transpose(1, 2).reshape(-1, TILE_Y * TILE_X)
-
-        def needed_bytes(inst, live_in, live_out, n_k):
-            """The bytes one group's composite must move on this run's data
-            -> (all of them, the state's share). A tile whose pixels had all
-            stopped before needs none of its instances; one whose pixels have
-            all stopped by the end needs them up to the one after its last
-            contributor (the earliest a stop can fall); any other needs its
-            whole run. Per needed instance 4 B of id, per gaussian they
-            reference 36 B of row; starts and counts; per pixel live on entry
-            20 B of state read and 24 B (state, n_contrib) written, per
-            stopped pixel 4 B read (p_raw) and 4 B written (n_contrib)."""
-            counts = inst.counts.long()
-            last = per_tile(n_k).amax(dim=1).long()
-            need = torch.where(
-                per_tile(live_out).any(dim=1), counts,
-                torch.where(per_tile(live_in).any(dim=1), torch.minimum(counts, last + 1), torch.zeros_like(counts)),
-            )
-            tile_of = torch.repeat_interleave(torch.arange(counts.numel(), device=dev), counts)
-            pos = torch.arange(tile_of.numel(), device=dev) - inst.starts.long()[tile_of]
-            n_ref = torch.unique(inst.gaussian_id[pos < need[tile_of]]).numel()
-            n_live = int(live_in.sum())
-            state_bytes = n_live * 44 + (h * w - n_live) * 8
-            return n_ref * 36 + int(need.sum()) * 4 + counts.numel() * 8 + state_bytes, state_bytes
-
         def compare_chained(label, sg, pick):
             """One view, depth group by depth group. Kernel A against its
             plain version on every group's inputs as the grouped layout slices
@@ -628,9 +785,10 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters):
             )
             rows = screen_rows(sg)[order]
             state = initial_chain_state(1, shape, dev)
+            # per group: evaluations, hits, bytes needed, state bytes, live pixels after it
             stats = {
-                "err": 0.0, "a_err": a_err, "plain_ms": 0.0, "plain_groups": [], "evals": 0, "hits": 0,
-                "bytes": 0, "state_bytes": 0, "stopped": [],
+                "err": 0.0, "a_err": a_err, "plain_ms": 0.0, "plain_groups": [], "evals": [], "hits": [],
+                "bytes": [], "state_bytes": [], "stopped": [], "live": [],
             }
             chosen = None
             for k, inst in enumerate(groups):
@@ -658,21 +816,22 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters):
                     stats["err"] = max(stats["err"], di.max().item())
                     stats["plain_ms"] += ms
                     stats["plain_groups"].append(k)
-                stats["evals"] += n_k.long().sum().item()
-                stats["hits"] += gated_hits(torch, rows, inst, n_k)
-                nbytes, state_bytes = needed_bytes(inst, incoming.p_raw >= 1e-4, state.p_raw >= 1e-4, n_k)
-                stats["bytes"] += nbytes
-                stats["state_bytes"] += state_bytes
+                stats["evals"].append(n_k.long().sum().item())
+                stats["hits"].append(gated_hits(torch, rows, inst, n_k))
+                nbytes, state_bytes = chained_fwd_bytes(torch, inst, incoming.p_raw >= 1e-4, state.p_raw >= 1e-4, n_k)
+                stats["bytes"].append(nbytes)
+                stats["state_bytes"].append(state_bytes)
                 stats["stopped"].append(round((state.p_raw < 1e-4).float().mean().item(), 4))
+                stats["live"].append(int((state.p_raw >= 1e-4).sum()))
             check(bool(torch.isfinite(state.rgb).all()), f"{label}: non-finite colour")
-            return rows, groups, stats
+            return rows, groups, stats, grouped_expand_inputs(sg, shape, slots)[1]
 
         def pick_groups(first_ms, n):
             """Every group if the plain version's time allows (~30 s)."""
             return set(range(n)) if first_ms * n <= 30_000 else {0, n // 2, n - 1}
 
         sg0 = project_view(torch, gaussians, tgt0, 0, shape)
-        rows0, groups0, served_stats = compare_chained("served view 0", sg0, pick_groups)
+        rows0, groups0, served_stats, args0 = compare_chained("served view 0", sg0, pick_groups)
         check(len(groups0) == n_groups == 23, f"{len(groups0)} depth groups, expected 23")
         print(f"served view 0: share of pixels stopped after each group {served_stats['stopped']}")
         del sg0
@@ -690,44 +849,67 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters):
             t32(rng.uniform(0.3, 0.95, (1, n_dense))), torch.ones(1, device=dev), torch.full((1,), 0.5625, device=dev),
             shape, True,
         )
-        _, _, dense_stats = compare_chained("dense synthetic stack", sg_dense, lambda ms, n: set(range(n)))
+        _, _, dense_stats, _ = compare_chained("dense synthetic stack", sg_dense, lambda ms, n: set(range(n)))
         print(f"dense synthetic stack: share of pixels stopped after each group {dense_stats['stopped']}")
         check(dense_stats["stopped"][-2] > 0.5, "dense synthetic stack: most pixels should stop before the last group")
         del sg_dense, means, cov
 
-        # ---- the chained kernel alone: one event pair per launch, summed over the view
-        def chained_pass():
-            state = initial_chain_state(1, shape, dev)
-            torch.cuda.synchronize()
-            torch.cuda._sleep(100_000_000)  # the host enqueues everything ahead of the device
-            pairs = []
-            for inst in groups0:
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                composite_chained(rows0, inst.gaussian_id, inst.starts, inst.counts, state, shape)
-                end.record()
-                pairs.append((start, end))
-            torch.cuda.synchronize()
-            return [a.elapsed_time(b) for a, b in pairs]
-
-        chained_pass()
-        per_group = [statistics.median(col) for col in zip(*(chained_pass() for _ in range(5)))]
-        c_ms = sum(per_group)
-        c_ms_plain_groups = sum(per_group[k] for k in served_stats["plain_groups"])
-        n_inst0 = sum(inst.gaussian_id.numel() for inst in groups0)
-        c_bound, c_by = bound(
-            served_stats["bytes"], served_stats["evals"] * OPS_PER_GATE + served_stats["hits"] * OPS_PER_FWD_HIT
+        # ---- the chained kernel alone, one event pair per launch: over the
+        # launches the path makes (the groups up to the first after which no
+        # pixel is live) and over every group
+        n_path = expected[0]  # served view 0 of request 0: the view compared above
+        check(
+            groups_to_composite(served_stats["live"]) == n_path,
+            f"served view 0: the comparison's walk stops after {groups_to_composite(served_stats['live'])} groups, "
+            f"the count {n_path}",
         )
-        state_ms = served_stats["state_bytes"] / PEAK_BYTES_PER_S * 1e3
+        path = groups0[:n_path]
+        chained_walk_ms(torch, rows0, groups0, shape)  # warm-up
+        per_group = [statistics.median(col) for col in zip(*(chained_walk_ms(torch, rows0, groups0, shape) for _ in range(5)))]
+        c_ms, c_ms_all = sum(per_group[:n_path]), sum(per_group)
+        c_ms_plain_groups = sum(per_group[k] for k in served_stats["plain_groups"])
+        n_inst0 = sum(inst.gaussian_id.numel() for inst in path)
+
+        def chained_bound(ks):
+            st = served_stats
+            return bound(
+                sum(st["bytes"][k] for k in ks),
+                sum(st["evals"][k] for k in ks) * OPS_PER_GATE + sum(st["hits"][k] for k in ks) * OPS_PER_FWD_HIT,
+            )
+
+        (c_bound, c_by), (c_bound_all, c_by_all) = chained_bound(range(n_path)), chained_bound(range(n_groups))
+        state_ms = sum(served_stats["state_bytes"][:n_path]) / PEAK_BYTES_PER_S * 1e3
         print(
-            f"chained composite, one served view: {c_ms:.4f} ms device over {n_groups} launches "
-            f"(slowest group {max(per_group):.4f}, fastest {min(per_group):.4f}); plain {served_stats['plain_ms']:.1f} ms "
-            f"over groups {served_stats['plain_groups']} (kernel on those: {c_ms_plain_groups:.4f} ms); bound "
-            f"{c_bound:.4f} ms by {c_by} ({served_stats['bytes']} bytes needed, {served_stats['bytes'] / PEAK_BYTES_PER_S * 1e3:.4f} ms, "
-            f"of which the state traffic {state_ms:.4f} ms; {n_inst0} instances, "
-            f"{served_stats['evals']} evaluations to the last contributor, {served_stats['hits']} of them gated hits) on {card}"
+            f"chained composite, one served view: {c_ms:.4f} ms device over the {n_path} launches the path makes "
+            f"(by group {[round(x, 4) for x in per_group[:n_path]]}), bound {c_bound:.4f} ms by {c_by} "
+            f"({sum(served_stats['bytes'][:n_path])} bytes needed, of which the state traffic {state_ms:.4f} ms; {n_inst0} "
+            f"instances, {sum(served_stats['evals'][:n_path])} evaluations to the last contributor, "
+            f"{sum(served_stats['hits'][:n_path])} of them gated hits); over all {n_groups} groups {c_ms_all:.4f} ms "
+            f"(bound {c_bound_all:.4f} ms by {c_by_all}); plain {served_stats['plain_ms']:.1f} ms over groups "
+            f"{served_stats['plain_groups']} (kernel on those: {c_ms_plain_groups:.4f} ms) on {card}"
         )
         del rows0, groups0
+
+        # ---- kernel A alone on each group the path composites (served view
+        # 0), and the count pass it runs on the next group, whose live count
+        # stops the walk
+        a_groups = [time_expand(torch, args, 10) for args in args0[:n_path]]
+        if n_path < n_groups:
+            a_groups.append(time_expand(torch, args0[n_path], 10, write=False))
+        expand_re10k = {
+            "groups": n_path, "count_passes": len(a_groups),
+            **{k: sum(x[k] for x in a_groups) for k in ("ms", "wrapper_ms", "bound_ms")},
+            **{f"{k}_per_group": [x[k] for x in a_groups] for k in ("ms", "wrapper_ms", "bound_ms", "bound_by", "instances")},
+        }
+        print(
+            f"kernel A expand, served view 0, the {n_path} groups the path composites and "
+            f"{len(a_groups) - n_path} count pass alone on the next (2^18 gaussians each): device "
+            f"{[round(x['ms'], 4) for x in a_groups]} ms (sum {expand_re10k['ms']:.4f}), wrapper with its host read "
+            f"{[round(x['wrapper_ms'], 4) for x in a_groups]} ms (sum {expand_re10k['wrapper_ms']:.4f}), bound "
+            f"{[round(x['bound_ms'], 4) for x in a_groups]} ms by {[x['bound_by'] for x in a_groups]}, instances "
+            f"{[x['instances'] for x in a_groups]} on {card}"
+        )
+        del args0
 
         # ---- the grouped route vs the flat route on one full-size view
         def route(min_g):
@@ -753,19 +935,22 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters):
         "launches": launches["composite_fwd_chained"],
         "max_abs_err": max(served_stats["err"], dense_stats["err"]), "ms": c_ms,
         "plain_ms": served_stats["plain_ms"], "bound_ms": c_bound, "bound_by": c_by, "library_ms": None,
-        "launches_per_view": n_groups, "plain_groups": served_stats["plain_groups"],
+        "launches_per_view": expected, "groups_per_view": n_groups, "ms_every_group": c_ms_all,
+        "bound_ms_every_group": c_bound_all, "plain_groups": served_stats["plain_groups"],
         "ms_plain_groups": c_ms_plain_groups, "state_traffic_ms": state_ms,
-        "evaluations": served_stats["evals"], "gated_hits": served_stats["hits"], "bytes_needed": served_stats["bytes"],
+        "evaluations": sum(served_stats["evals"][:n_path]), "gated_hits": sum(served_stats["hits"][:n_path]),
+        "bytes_needed": sum(served_stats["bytes"][:n_path]),
     }
-    return launches, entry, max(served_stats["a_err"], dense_stats["a_err"])
+    return launches, entry, max(served_stats["a_err"], dense_stats["a_err"]), expand_re10k
 
 
-def train_re10k(torch, dev, card, reset_counters, read_counters):
+def train_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
     """Phases 14-16: training of configs/re10k_720p_fast.yaml through the
     depth-grouped render, the chained backward (row 5) against its plain
-    version, the grouped backward against the flat one, and row 5's timing.
-    Returns the training run's launch counts and row 5's entry for the
-    ``kernels`` line."""
+    version, the grouped backward against the flat one, and the timings of
+    row 5 and of the chained forward on a trained view. Returns the
+    training run's launch counts, row 5's entry for the ``kernels`` line
+    and the chained forward's timing."""
     import numpy as np
 
     from my_depthsplat_torch.models import DecoderSplattingCfg, decode_splatting
@@ -874,38 +1059,51 @@ def train_re10k(torch, dev, card, reset_counters, read_counters):
         return {k: float(x) for k, x in logs.items()}, ms
 
     warm_logs, _ = timed_step()
-    # the largest n_contrib of every group, as the forward kept it for the
-    # backward (per rendered view, its groups in depth order)
-    maxima = []
+    # per rendered view: the largest n_contrib of every group the forward
+    # composited, as it kept them for the backward, and its inputs, for the
+    # walk over every group after the step (outside the step's time)
+    maxima, stash, expected = [], [], []
     backward = raster_mod._GroupedComposite.backward
 
     def read_maxima(ctx, g_img):
-        maxima.extend(n.amax() for n in ctx.saved_tensors[3:])
+        maxima.append([n.amax() for n in ctx.saved_tensors[3:]])
+        stash.append((ctx.saved_tensors[0].detach(), ctx.per_group))
         return backward(ctx, g_img)
 
     reset_counters()
+    steps = []
     with mock.patch.object(raster_mod._GroupedComposite, "backward", staticmethod(read_maxima)):
-        steps = [timed_step() for _ in range(TRAIN_STEPS)]
+        for _ in range(TRAIN_STEPS):
+            steps.append(timed_step())
+            with torch.no_grad(), uncounted():
+                expected.extend(groups_to_composite(live_after_groups(torch, r, pg, slots, shape)) for r, pg in stash)
+            stash.clear()
     launches = read_counters()
-    maxima = torch.stack(maxima).tolist()
+    maxima = [torch.stack(m).tolist() for m in maxima]
     n_views = TRAIN_STEPS * views
-    check(len(maxima) == n_views * n_groups, f"{len(maxima)} groups composited, expected {n_views * n_groups}")
-    live_groups_by_view = [[k for k in range(n_groups) if maxima[i * n_groups + k] > 0] for i in range(n_views)]
+    check(len(maxima) == len(expected) == n_views, f"{len(maxima)} views rendered, expected {n_views}")
+    composited = [len(m) for m in maxima]
+    live_groups_by_view = [[k for k, x in enumerate(m) if x > 0] for m in maxima]
     n_live = sum(len(x) for x in live_groups_by_view)
+    n_stopped = sum(n < n_groups for n in expected)  # walks that ran the next group's count pass
     want = {
-        "expand": n_views * n_groups + n_live, "composite_fwd_chained": n_views * n_groups,
+        "expand": sum(expected) + n_stopped + n_live, "expand_write": sum(expected) + n_live,
+        "composite_fwd_chained": sum(expected),
         "composite_bwd_chained": n_live, "scatter_reduce": n_live, "composite_fwd": 0, "composite_bwd": 0,
     }
     print(
-        f"re10k_720p_fast training: {TRAIN_STEPS} steps after 1 warm-up, launches {launches}; live groups (a kept "
-        f"n_contrib > 0) per rendered view {[len(x) for x in live_groups_by_view]} of {n_groups}: {live_groups_by_view}"
+        f"re10k_720p_fast training: {TRAIN_STEPS} steps after 1 warm-up, launches {launches}; groups composited per "
+        f"rendered view {composited}, by the walk over every group {expected} (up to the first after which no pixel is "
+        f"live) of {n_groups}; live groups (a kept n_contrib > 0) {live_groups_by_view}"
     )
+    check(composited == expected, "re10k_720p_fast training: a view's forward composited another number of groups")
     for k, n in want.items():
         check(
             launches[k] == n,
             f"re10k_720p_fast training: {k} launched {launches[k]} times in {TRAIN_STEPS} steps, expected {n} (per "
-            f"rendered view: {n_groups} groups of kernel A and the chained forward in the forward, and kernel A, the "
-            "chained backward and kernel D for each live group in the backward)",
+            f"rendered view: kernel A and the chained forward for each group up to the first after which no pixel is "
+            "live in the forward, and the next group's count pass where the walk stops early; kernel A, the chained "
+            "backward and kernel D for each live group in the backward)",
         )
     for i, (logs, ms) in enumerate([(warm_logs, float("nan")), *steps]):
         print(f"re10k_720p_fast training step {i}: {ms:.1f} ms " + " ".join(f"{k}={x:.6g}" for k, x in sorted(logs.items())))
@@ -1003,14 +1201,38 @@ def train_re10k(torch, dev, card, reset_counters, read_counters):
         rows = screen_rows(sg)[order]
         del sg
         fwd = initial_chain_state(1, shape, dev)
-        n_contrib = []
+        n_contrib, fwd_stats = [], {"evals": 0, "hits": 0, "bytes": 0, "live": []}
         for inst in groups:
+            live_in = fwd.p_raw >= 1e-4
             fwd, n_k = composite_chained(rows, inst.gaussian_id, inst.starts, inst.counts, fwd, shape)
             n_contrib.append(n_k)
+            fwd_stats["live"].append(int((fwd.p_raw >= 1e-4).sum()))
+            if len(fwd_stats["live"]) == 1 or fwd_stats["live"][-2] > 0:  # a launch the path makes
+                fwd_stats["evals"] += n_k.long().sum().item()
+                fwd_stats["hits"] += gated_hits(torch, rows, inst, n_k)
+                fwd_stats["bytes"] += chained_fwd_bytes(torch, inst, live_in, fwd.p_raw >= 1e-4, n_k)[0]
         g_img = torch.from_numpy(rng.normal(size=(1, h, w, 3)).astype(np.float32)).to(dev)
         seeds = BwdCarry(fwd.t.clone(), (g_img * bg[:, None, None, :]).sum(-1) * fwd.t)
         n = len(groups)
         check(n == -(-(v * h * w) // slots), f"{n} depth groups in a view of {v * h * w} gaussians")
+
+        # ---- the chained forward alone on this view: over the launches the
+        # path makes and over every group
+        n_path = groups_to_composite(fwd_stats["live"])
+        chained_walk_ms(torch, rows, groups, shape)  # warm-up
+        fwd_ms = [statistics.median(col) for col in zip(*(chained_walk_ms(torch, rows, groups, shape) for _ in range(5)))]
+        fwd_bound, fwd_by = bound(fwd_stats["bytes"], fwd_stats["evals"] * OPS_PER_GATE + fwd_stats["hits"] * OPS_PER_FWD_HIT)
+        chained_training = {
+            "launches_per_view": n_path, "groups_per_view": n, "ms": sum(fwd_ms[:n_path]), "ms_every_group": sum(fwd_ms),
+            "bound_ms": fwd_bound, "bound_by": fwd_by,
+            "evaluations": fwd_stats["evals"], "gated_hits": fwd_stats["hits"], "bytes_needed": fwd_stats["bytes"],
+        }
+        print(
+            f"chained composite, one trained view: {chained_training['ms']:.4f} ms device over the {n_path} launches the "
+            f"path makes (by group {[round(x, 4) for x in fwd_ms[:n_path]]}), bound {fwd_bound:.4f} ms by {fwd_by} "
+            f"({fwd_stats['evals']} evaluations to the last contributor, {fwd_stats['hits']} of them gated hits, "
+            f"{fwd_stats['bytes']} bytes needed); over all {n} groups {sum(fwd_ms):.4f} ms on {card}"
+        )
 
         def per_tile(x):
             return x.reshape(h // TILE_Y, TILE_Y, w // TILE_X, TILE_X).transpose(1, 2).reshape(-1, TILE_Y * TILE_X)
@@ -1186,7 +1408,7 @@ def train_re10k(torch, dev, card, reset_counters, read_counters):
         "gated_hits": stats["hits"], "bytes_needed": stats["bytes"], "context_views": v,
         "grouped_vs_flat_grad_rel_err": route_err, "grouped_backward_ms": bwd_ms, "grouped_backward_split_ms": bwd_split,
     }
-    return launches, entry
+    return launches, entry, chained_training
 
 
 def train_re10k_small(torch, dev, card, reset_counters, read_counters):
@@ -1236,7 +1458,7 @@ def train_re10k_small(torch, dev, card, reset_counters, read_counters):
     launches = read_counters()
     print(f"re10k_small training: {TRAIN_STEPS} steps after 1 warm-up, launches {launches}")
     want = SMALL_ACCUM * TRAIN_STEPS  # one flat render per microbatch
-    for k in ("expand", "composite_fwd", "composite_bwd", "scatter_reduce"):
+    for k in ("expand", "expand_write", "composite_fwd", "composite_bwd", "scatter_reduce"):
         check(launches[k] == want, f"re10k_small training: {k} launched {launches[k]} times, expected {want}")
     for k in ("composite_fwd_chained", "composite_bwd_chained"):
         check(launches[k] == 0, f"re10k_small training: {k} launched on the flat route")
@@ -1260,7 +1482,7 @@ def train_re10k_small(torch, dev, card, reset_counters, read_counters):
         leaves = (x.repeat_interleave(N_TARGET, 0) for x in (gs.means, gs.covariances, gs.harmonics, gs.opacities))
         sg = screen_views(torch, *leaves, {k: x[:mb] for k, x in batch["target"].items()}, SMALL_SHAPE)
         del state, batch, gs
-        timing = time_backward(torch, dev, card, f"re10k_small microbatch, {mb * N_TARGET} views at {h}x{w}", sg, SMALL_SHAPE, 10)
+        timing = time_composite(torch, dev, card, f"re10k_small microbatch, {mb * N_TARGET} views at {h}x{w}", sg, SMALL_SHAPE, 10)
     del sg
     gc.collect()
     torch.cuda.empty_cache()
@@ -1290,7 +1512,8 @@ def main() -> int:
     with ThreadPoolExecutor(len(cuda_lib.KERNEL_SOURCES)) as pool:
         list(pool.map(cuda_lib.load, cuda_lib.KERNEL_SOURCES))
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {list(cuda_lib.KERNEL_SOURCES)}")
-    print("build: ptxas, csrc/composite_bwd.cu:\n" + cuda_lib.build_report("composite_bwd"))
+    for src in ("composite_fwd", "composite_bwd"):
+        print(f"build: ptxas, csrc/{src}.cu:\n" + cuda_lib.build_report(src))
 
     from my_depthsplat_torch.models import (
         DecoderSplattingCfg,
@@ -1300,7 +1523,7 @@ def main() -> int:
     )
     from my_depthsplat_torch.render import instances as inst_mod
     from my_depthsplat_torch.render import pallas_raster as raster_mod
-    from my_depthsplat_torch.render.expand import count_pass, expand_plain, expand_tiles, write_pass
+    from my_depthsplat_torch.render.expand import expand_plain, expand_tiles
     from my_depthsplat_torch.render.instances import build_tile_instances, expand_inputs
     from my_depthsplat_torch.render.pallas_raster import (
         composite_bwd,
@@ -1327,18 +1550,29 @@ def main() -> int:
 
     shape = SHAPE
     h, w = shape
+    # name -> (wrapper, attribute) of each launch count; kernel A counts its
+    # count passes ("expand") and its write passes apart
     counters = {
-        "expand": expand_tiles, "composite_fwd": composite_tiles,
-        "composite_bwd": composite_bwd, "scatter_reduce": scatter_reduce,
-        "composite_fwd_chained": composite_chained, "composite_bwd_chained": composite_bwd_chained,
+        "expand": (expand_tiles, "launches"), "expand_write": (expand_tiles, "write_launches"),
+        "composite_fwd": (composite_tiles, "launches"), "composite_bwd": (composite_bwd, "launches"),
+        "scatter_reduce": (scatter_reduce, "launches"), "composite_fwd_chained": (composite_chained, "launches"),
+        "composite_bwd_chained": (composite_bwd_chained, "launches"),
     }
 
     def reset_counters():
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     def read_counters():
-        return {k: fn.launches for k, fn in counters.items()}
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    @contextlib.contextmanager
+    def uncounted():
+        """Launches made inside (checks beside the main path) leave the counts as they were."""
+        before = read_counters()
+        yield
+        for k, (fn, attr) in counters.items():
+            setattr(fn, attr, before[k])
 
     @contextlib.contextmanager
     def plain_versions():
@@ -1382,6 +1616,7 @@ def main() -> int:
     print(f"serving: {N_SCENES} scenes, launches {launches}")
     for k in ("expand", "composite_fwd"):
         check(launches[k] > 0, f"{k} was not launched on the serving path: {launches}")
+    check(launches["expand_write"] == launches["expand"], f"serving: kernel A's passes differ in number: {launches}")
     n_gauss = served[0][0]["gaussians"].means.shape[1]
     check(n_gauss == N_CONTEXT * h * w, f"expected {N_CONTEXT * h * w} gaussians, got {n_gauss}")
     for i, (out, dec, _, _) in enumerate(served):
@@ -1558,6 +1793,7 @@ def main() -> int:
     print(f"training: {TRAIN_STEPS} steps after 1 warm-up, launches {train_launches}")
     for k in ("expand", "composite_fwd", "composite_bwd", "scatter_reduce"):
         check(train_launches[k] >= TRAIN_STEPS, f"{k} launched {train_launches[k]} times in {TRAIN_STEPS} training steps")
+    check(train_launches["expand_write"] == train_launches["expand"], f"training: kernel A's passes differ in number")
     for i, (logs, ms) in enumerate([(warm_logs, float("nan")), *steps]):
         print(f"training step {i}: {ms:.1f} ms " + " ".join(f"{k}={v:.6g}" for k, v in sorted(logs.items())))
         check(all(np.isfinite(v) for v in logs.values()), f"training step {i}: non-finite log")
@@ -1621,58 +1857,29 @@ def main() -> int:
     # ---- timings and bounds
     with torch.no_grad():
         flat = expand_inputs(sg_served, shape)
-        inst = build_tile_instances(sg_served, shape)
-        rows = screen_rows(sg_served)
-        bgz = torch.zeros(N_TARGET, 3, device=dev)
-        cargs = (rows, inst.gaussian_id, inst.starts, inst.counts, bgz, shape)
-        xy, conic, op, rect_i, valid, slot, gpv, gx, nt = flat
-        cnt = count_pass(xy, conic, op, rect_i, valid, gpv, gx, nt)
-        ends = torch.cumsum(cnt, 0, dtype=torch.int64)
-        offset, total = ends - cnt, int(ends[-1])
-        a_count = cuda_ms(torch, lambda: count_pass(xy, conic, op, rect_i, valid, gpv, gx, nt), 20, True)
-        a_write = cuda_ms(
-            torch, lambda: write_pass(xy, conic, op, rect_i, valid, slot, offset, total, gpv, gx, nt), 20, True
-        )
-        a_ms = a_count + a_write
-        a_wrapper = cuda_ms(torch, lambda: expand_tiles(*flat), 20)
+        a_time = time_expand(torch, flat, 20)
         a_plain = cuda_ms(torch, lambda: expand_plain(*flat), 5)
-        b_ms = cuda_ms(torch, lambda: composite_fwd(*cargs), 20, True)
-        b_wrapper = cuda_ms(torch, lambda: composite_fwd(*cargs), 20)
-        b_plain = cuda_ms(torch, lambda: composite_plain(*cargs), 2)
-
-        n, inst_n = flat[0].shape[0], inst.gaussian_id.numel()
-        rect = flat[3].long()
-        area = ((rect[:, 2] - rect[:, 0]) * (rect[:, 3] - rect[:, 1]))[flat[4]].sum().item()
-        a_bytes = n * (8 + 12 + 4 + 16 + 1 + 8) + inst_n * (8 + 4)
-        a_ops = area * OPS_PER_CANDIDATE
-        b_bytes = rows.numel() * 4 + inst_n * 4 + inst.starts.numel() * 8 + N_TARGET * 12 + N_TARGET * h * w * 20
-
-        bwd_one = time_backward(torch, dev, card, f"{N_TARGET} views", sg_served, shape, 20)
-        bwd_batch = time_backward(torch, dev, card, f"{bsz * N_TARGET} views", sg_train, shape, 10)
-
-    # kernel B was timed on the binning of bwd_one: the same evaluations and hits
-    evals, hits = bwd_one["composite_bwd"]["evaluations"], bwd_one["composite_bwd"]["gated_hits"]
-    a_bound, a_by = bound(a_bytes, a_ops)
-    b_bound, b_by = bound(b_bytes, evals * OPS_PER_GATE + hits * OPS_PER_FWD_HIT)
+        bwd_one = time_composite(torch, dev, card, f"{N_TARGET} views", sg_served, shape, 20)
+        bwd_batch = time_composite(torch, dev, card, f"{bsz * N_TARGET} views", sg_train, shape, 10)
     print(
-        f"kernel A expand: {a_ms:.4f} ms device (count pass {a_count:.4f} + write pass {a_write:.4f}), "
-        f"wrapper {a_wrapper:.4f} ms (plain {a_plain:.4f} ms), bound {a_bound:.4f} ms by {a_by} "
-        f"({n} gaussians, {area} candidate tiles, {inst_n} instances) on {card}"
-    )
-    print(
-        f"kernel B composite_fwd: {b_ms:.4f} ms device, wrapper {b_wrapper:.4f} ms "
-        f"(plain {b_plain:.4f} ms), bound {b_bound:.4f} ms by {b_by} "
-        f"({inst_n} instances, {evals} evaluations to the last contributor, {hits} of them gated hits) on {card}"
+        f"kernel A expand: {a_time['ms']:.4f} ms device (count pass {a_time['count_ms']:.4f} + write pass "
+        f"{a_time['write_ms']:.4f}), wrapper {a_time['wrapper_ms']:.4f} ms (plain {a_plain:.4f} ms), bound "
+        f"{a_time['bound_ms']:.4f} ms by {a_time['bound_by']} ({a_time['gaussians']} gaussians, "
+        f"{a_time['candidate_tiles']} candidate tiles, {a_time['instances']} instances) on {card}"
     )
     # ---- slice 3: serving re10k_720p_fast at full width, the chained composite
     torch.cuda.empty_cache()
-    re10k_launches, chained_entry, a_err_grouped = serve_re10k(torch, dev, card, reset_counters, read_counters)
+    re10k_launches, chained_entry, a_err_grouped, expand_re10k = serve_re10k(
+        torch, dev, card, reset_counters, read_counters, uncounted
+    )
     errs["expand"] = max(errs["expand"], a_err_grouped)
 
     # ---- slice 4: training re10k_720p_fast through the grouped route, row 5;
     # training re10k_small on the flat route
     torch.cuda.empty_cache()
-    re10k_train_launches, row5_entry = train_re10k(torch, dev, card, reset_counters, read_counters)
+    re10k_train_launches, row5_entry, chained_training = train_re10k(
+        torch, dev, card, reset_counters, read_counters, uncounted
+    )
     small_launches, small_timing = train_re10k_small(torch, dev, card, reset_counters, read_counters)
 
     # A and B: times at the served scene's shapes, launches from the serving
@@ -1682,18 +1889,18 @@ def main() -> int:
         {
             "name": "expand", "route": "cuda", "source": "my_depthsplat_torch/csrc/expand.cu",
             "replaces": "my_depthsplat_tpu/render/expand.py:70", "launches": launches["expand"],
-            "max_abs_err": errs["expand"], "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
-            "bound_by": a_by, "library_ms": None, "wrapper_ms": a_wrapper,
+            "max_abs_err": errs["expand"], "plain_ms": a_plain, "library_ms": None,
+            **{k: a_time[k] for k in ("ms", "bound_ms", "bound_by", "wrapper_ms")},
             "launches_training": train_launches["expand"], "launches_re10k": re10k_launches["expand"],
             "launches_re10k_training": re10k_train_launches["expand"], "launches_re10k_small": small_launches["expand"],
+            "re10k_groups": expand_re10k,
         },
         {
             "name": "composite_fwd", "route": "cuda", "source": "my_depthsplat_torch/csrc/composite_fwd.cu",
             "replaces": "my_depthsplat_tpu/render/pallas_raster.py:162",
-            "launches": launches["composite_fwd"], "max_abs_err": errs["composite_fwd"], "ms": b_ms,
-            "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by, "library_ms": None,
-            "wrapper_ms": b_wrapper, "launches_training": train_launches["composite_fwd"],
-            "launches_re10k_small": small_launches["composite_fwd"],
+            "launches": launches["composite_fwd"], "max_abs_err": errs["composite_fwd"], **bwd_one["composite_fwd"],
+            "launches_training": train_launches["composite_fwd"], "training": bwd_batch["composite_fwd"],
+            "launches_re10k_small": small_launches["composite_fwd"], "re10k_small": small_timing["composite_fwd"],
         },
         {
             "name": "composite_bwd", "route": "cuda", "source": "my_depthsplat_torch/csrc/composite_bwd.cu",
@@ -1711,7 +1918,8 @@ def main() -> int:
             "one_element": bwd_one["scatter_reduce"], "launches_re10k_training": re10k_train_launches["scatter_reduce"],
             "launches_re10k_small": small_launches["scatter_reduce"], "re10k_small": small_timing["scatter_reduce"],
         },
-        {**chained_entry, "launches_re10k_training": re10k_train_launches["composite_fwd_chained"]},
+        {**chained_entry, "launches_re10k_training": re10k_train_launches["composite_fwd_chained"],
+         "re10k_training": chained_training},
         row5_entry,
     ]
     print(json.dumps({"kernels": kernels}))

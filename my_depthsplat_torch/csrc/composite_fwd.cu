@@ -7,10 +7,9 @@
 // array into VMEM and composited a (256 pixels x CHUNK instances) block at a
 // time with doubling-scan cumulative products. Here one CTA of 256 threads
 // owns one (view, tile), one thread per pixel; the run is staged through
-// shared memory in batches of 256 instances (one instance per thread, read
-// through the sorted gaussian-id list), and every pixel composites the batch
-// sequentially with exactly the JAX gates (pallas_raster.py:129-159,
-// 218-279):
+// shared memory in batches of 256 instances (read through the sorted
+// gaussian-id list), and every pixel composites the batch sequentially with
+// exactly the JAX gates (pallas_raster.py:129-159, 218-279):
 //     power = -0.5 (a dx^2 + c dy^2) - b dx dy,   skip unless power <= 0
 //     alpha = min(0.99, opacity * exp(power)),     skip unless alpha >= 1/255
 //     stop for good once T (1 - alpha) < 1e-4 (that instance excluded)
@@ -18,8 +17,7 @@
 // Outputs: rgb + T * background, the final transmittance T, and n_contrib,
 // the 1-based run position of the last contributing instance (what a
 // backward pass needs). Pixels past the image edge are masked and count as
-// done. The CTA leaves early once __syncthreads_count says every pixel is
-// done.
+// done. The CTA leaves once __syncthreads_count says every pixel is done.
 //
 // The same kernel, instantiated with CHAINED, replaces _fwd_kernel's chained
 // mode (:172-182, :281-289, :308-318; launched with init=state,
@@ -34,35 +32,69 @@
 // has not stopped stores p_raw = T. No background (the caller adds T * bg once
 // after the last group); n_contrib is local to the launch. A pixel that had
 // stopped before the launch costs one read of p_raw and one write of
-// n_contrib = 0: its rgb and T are left as they are. Flat and chained
-// share the per-pixel loop below, so a pixel performs the same float32
-// operations in the same order over the concatenated runs either way.
+// n_contrib = 0: its rgb and T are left as they are.
+// On exit the kernel adds the number of pixels still live (p_raw >= 1e-4)
+// to *live when the caller passes it: the grouped render reads it with the
+// next group's instance count and stops the walk once no pixel is live.
+// Flat and chained share the per-pixel walk below, so a pixel performs the
+// same float32 operations in the same order over the concatenated runs
+// either way.
 //
-// Bound on the H100: the instance x pixel evaluations up to n_contrib (~12
-// float operations for the gate of each, ~13 more for each that passes both
-// gates, against 67 TFLOP/s of non-tensor float32) or the bytes (36 bytes of
-// gaussian row + 4 bytes of id per instance read, 20 bytes per pixel
-// written; chained, in every launch: 20 bytes of state read and 24 written
-// for a pixel still live on entry, 4 read (p_raw) and 4 written (n_contrib)
-// for one that has stopped, which decides when a group leaves few instances
-// per tile), whichever is larger for the scene. Design: each instance row is
-// read from device memory once per tile into shared memory and then
-// broadcast to all 256 pixels, so memory traffic is per instance and not per
-// evaluation; the evaluations run from registers and shared memory. Built
-// without --use_fast_math and with -fmad=false so expf and the rounding match
-// the plain PyTorch version. Simple before fast: no cp.async/TMA pipelining.
+// What bounds it on the H100: operations, the instance x pixel evaluations
+// (~12 float operations for the gate of each, ~13 more for each that passes
+// both gates, against 67 TFLOP/s of non-tensor float32) more than the bytes
+// (36 B of gaussian row + 4 B of id per instance read, 20 B per pixel
+// written; chained, 20 B of state read and 24 B written for a pixel live on
+// entry, 4 + 4 B for one that has stopped). A pixel keeps evaluating until it
+// stops, so the instruction issue rate of the walk sets the pace.
+//
+// Design.
+// - Staging: 256 instances per batch, one per thread: each thread reads
+//   its instance's id and the 9 floats of its row (a 36-byte row is only
+//   4-byte aligned) and stores them into shared memory; a barrier, then
+//   the walk. One buffer: the barrier before each batch is the
+//   __syncthreads_count that tells the CTA whether every pixel is done, so
+//   the previous batch is walked before it is overwritten and a CTA whose
+//   pixels are all done stages nothing more. Other CTAs on the SM walk
+//   while one stages (12 KB of shared memory per CTA leaves registers to
+//   bound the occupancy).
+// - Reads: rows sit in shared memory padded to 12 floats, so a pixel reads
+//   an instance with two 128-bit loads (a third for the colour of a hit),
+//   all lanes at the same address (a broadcast), instead of nine scalar
+//   loads.
+// - Gate: a pair whose power is below -5.55 (opacity <= 1) fails the alpha
+//   gate without expf (may_pass, composite_common.cuh, the backward's test).
+// - A warp whose 32 pixels have all stopped leaves the walk of a batch at
+//   once (every lane's loop ends) and only stages.
+// - Measured and taken back (PERF.md): batches of 64 and 128 instances
+//   (more barriers, each waiting on the slowest warp), the backward's
+//   per-warp strip cull (strip_may_pass and a ballot per 32 instances; at
+//   these splat sizes it removes few pairs and costs registers), a cheaper
+//   cull by each instance's reachable rows, and double-buffered staging,
+//   with cp.async (faster on some inputs, slower on others: no clear gain
+//   for the code) or with plain loads (slower on the chained kernel).
+// - None of this changes a pixel's arithmetic: the same instances in the
+//   same order through the same expressions (-fmad=false, expf, no fast
+//   math); the gate skips only pairs that it rejects. The outputs are bit
+//   for bit those of the one-pair-at-a-time walk without staging overlap
+//   that this design replaced.
+// - No TMA: Hopper's tensor maps copy regular boxes of a tensor, and the row
+//   copy is an indirect gather through the ids; the ids are 1 KB per batch,
+//   too small to pay for a tensor map and an mbarrier. No tensor cores: the
+//   gates must decide every pair exactly in float32, and the per-pixel walk
+//   is a sequential scan with a data-dependent stop, not a product.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int NPIX = TILE * TILE;
-constexpr int ROWS = 9;  // x, y, conic a, b, c, opacity, r, g, b
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float TRANSMITTANCE_EPS = 1e-4f;
+using namespace composite;
+
+constexpr int BATCH = NPIX;  // instances staged per step: one per thread
+constexpr int RSTRIDE = 12;  // floats per row in shared memory: three float4
 
 template <bool CHAINED>
 __global__ void __launch_bounds__(NPIX) composite_fwd_kernel(
@@ -75,8 +107,9 @@ __global__ void __launch_bounds__(NPIX) composite_fwd_kernel(
     float* __restrict__ image,         // (B, H, W, 3); in and out when CHAINED
     float* __restrict__ t_final,       // (B, H, W); in and out when CHAINED
     float* __restrict__ p_raw,         // (B, H, W) in and out; CHAINED only
-    int* __restrict__ n_contrib) {     // (B, H, W)
-    __shared__ float s_row[ROWS][NPIX];
+    int* __restrict__ n_contrib,       // (B, H, W)
+    int* __restrict__ live) {          // (1,) pixels live on exit, added; CHAINED, may be null
+    __shared__ __align__(16) float s_row[BATCH * RSTRIDE];
 
     const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
     const int tile = (b * gy + ty) * gx + tx;
@@ -108,23 +141,26 @@ __global__ void __launch_bounds__(NPIX) composite_fwd_kernel(
         }
     }
 
-    for (int base = 0; base < count; base += NPIX) {
-        // barrier: the previous batch is consumed before it is overwritten
+    const float4* s = reinterpret_cast<const float4*>(s_row);
+    for (int base = 0; base < count; base += BATCH) {
+        // barrier: the previous batch is walked before it is overwritten
         if (__syncthreads_count(done) == NPIX) break;
         if (base + t < count) {
-            const float* r = rows + (size_t)gid[start + base + t] * ROWS;
+            const float* src = rows + (size_t)gid[start + base + t] * ROWS;
 #pragma unroll
-            for (int k = 0; k < ROWS; ++k) s_row[k][t] = r[k];
+            for (int k = 0; k < ROWS; ++k) s_row[t * RSTRIDE + k] = src[k];
         }
         __syncthreads();
-        const int n = min(NPIX, count - base);
+        const int n = min(BATCH, count - base);
+        // a warp whose 32 pixels have all stopped leaves the loop at once
         for (int j = 0; j < n && !done; ++j) {
-            const float dx = px - s_row[0][j];
-            const float dy = py - s_row[1][j];
-            const float ca = s_row[2][j], cb = s_row[3][j], cc = s_row[4][j];
-            const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-            if (!(power <= 0.0f)) continue;
-            const float v = s_row[5][j] * expf(power);
+            const float4 r0 = s[3 * j];      // x, y, conic a, b
+            const float4 r1 = s[3 * j + 1];  // conic c, opacity, r, g
+            const float dx = px - r0.x;
+            const float dy = py - r0.y;
+            const float power = -0.5f * (r0.z * dx * dx + r1.x * dy * dy) - r0.w * dx * dy;
+            if (!(power <= 0.0f && may_pass(power, r1.y))) continue;
+            const float v = r1.y * expf(power);
             const float alpha = v > ALPHA_MAX ? ALPHA_MAX : v;
             if (!(alpha >= ALPHA_MIN)) continue;
             const float test_t = T * (1.0f - alpha);
@@ -134,12 +170,16 @@ __global__ void __launch_bounds__(NPIX) composite_fwd_kernel(
                 break;
             }
             const float wgt = alpha * T;
-            c0 += wgt * s_row[6][j];
-            c1 += wgt * s_row[7][j];
-            c2 += wgt * s_row[8][j];
+            c0 += wgt * r1.z;
+            c1 += wgt * r1.w;
+            c2 += wgt * s[3 * j + 2].x;
             T = test_t;
             last = base + j + 1;
         }
+    }
+    if (CHAINED && live != nullptr) {
+        const int n_live = __syncthreads_count(!done);  // outside pixels count as done
+        if (t == 0 && n_live > 0) atomicAdd(live, n_live);
     }
     if (!inside) return;
     if (stopped_on_entry) {
@@ -168,18 +208,21 @@ extern "C" int composite_fwd(
     float* t_final, int* n_contrib, void* stream) {
     const dim3 grid(gx, gy, b);
     composite_fwd_kernel<false><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
-        rows, gid, starts, counts, bg, gy, gx, h, w, image, t_final, nullptr, n_contrib);
+        rows, gid, starts, counts, bg, gy, gx, h, w, image, t_final, nullptr, n_contrib, nullptr);
     return (int)cudaGetLastError();
 }
 
 // One depth group resumed from, and written back into, the state arrays rgb,
-// t_frozen and p_raw; n_contrib is written anew (local to this launch).
+// t_frozen and p_raw; n_contrib is written anew (local to this launch). When
+// live is not null, the number of pixels live on exit is added to *live
+// (the caller zeroes it first). live comes after the stream so that the
+// arguments before it are those of the chained entry without the count.
 extern "C" int composite_fwd_chained(
     const float* rows, const int* gid, const int* starts, const int* counts,
     int b, int gy, int gx, int h, int w, float* rgb, float* t_frozen,
-    float* p_raw, int* n_contrib, void* stream) {
+    float* p_raw, int* n_contrib, void* stream, int* live) {
     const dim3 grid(gx, gy, b);
     composite_fwd_kernel<true><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
-        rows, gid, starts, counts, nullptr, gy, gx, h, w, rgb, t_frozen, p_raw, n_contrib);
+        rows, gid, starts, counts, nullptr, gy, gx, h, w, rgb, t_frozen, p_raw, n_contrib, live);
     return (int)cudaGetLastError();
 }

@@ -6,7 +6,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
          -Xptxas -v -shared -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
 
 into ``build/`` at the root of the checkout, at first use. The file name
-carries a hash of the source and flags, so an edited source is rebuilt.
+carries a hash of the source, of every ``csrc/*.cuh`` header it includes
+(directly or through another header) and of the flags, so an edited source
+or header is rebuilt.
 ``-fmad=false`` and no ``--use_fast_math``: the kernels must reproduce the
 plain PyTorch versions' float32 rounding (exact cull decisions, ``expf``).
 ``-Xptxas -v`` reports each kernel's registers, shared memory and spills;
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -45,10 +48,25 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _headers(src: bytes, seen: set[str]) -> list[str]:
+    """The ``csrc/*.cuh`` headers that ``src`` includes, directly or through
+    another such header, each once, in the order they are first met."""
+    found = []
+    for header in re.findall(rb'^#include "([^"/]+\.cuh)"', src, flags=re.M):
+        name = header.decode()
+        if name not in seen:
+            seen.add(name)
+            found += [name, *_headers((CSRC / name).read_bytes(), seen)]
+    return found
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"{name}-{digest[:12]}.so"
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src)
+    for header in _headers(src, set()):
+        digest.update((CSRC / header).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -18,6 +18,7 @@ output; both return ``offset`` and ``counts`` for the gradient reduction
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 from torch import Tensor
@@ -110,7 +111,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def count_pass(xy, conic, opacity, rect, valid, g_per_view, grid_x, n_tiles) -> Tensor:
-    """Kernel A's first device pass: (N,) int32 surviving tiles per gaussian."""
+    """Kernel A's first device pass: (N,) int32 surviving tiles per gaussian.
+    Counted in ``expand_tiles.launches``."""
     counts = torch.empty(xy.shape[0], dtype=torch.int32, device=xy.device)
     cuda_lib.check(
         _lib().expand_count(
@@ -119,6 +121,7 @@ def count_pass(xy, conic, opacity, rect, valid, g_per_view, grid_x, n_tiles) -> 
         ),
         "expand_count",
     )
+    expand_tiles.launches += 1
     return counts
 
 
@@ -126,7 +129,8 @@ def write_pass(
     xy, conic, opacity, rect, valid, slot, offset, total, g_per_view, grid_x, n_tiles
 ) -> tuple[Tensor, Tensor]:
     """Kernel A's second device pass: ``total`` keys and gaussian ids, each
-    gaussian's written from its exclusive prefix ``offset`` (N,) int64."""
+    gaussian's written from its exclusive prefix ``offset`` (N,) int64.
+    Counted in ``expand_tiles.write_launches``."""
     keys = torch.empty(total, dtype=torch.int64, device=xy.device)
     gid = torch.empty(total, dtype=torch.int32, device=xy.device)
     cuda_lib.check(
@@ -137,10 +141,45 @@ def write_pass(
         ),
         "expand_write",
     )
+    expand_tiles.write_launches += 1
     return keys, gid
 
 
-def _expand_cuda(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles):
+class Counted(NamedTuple):
+    """Kernel A's count pass, read back: what its write pass needs."""
+
+    counts: Tensor  # (N,) int32 surviving tiles per gaussian
+    ends: Tensor  # (N,) int64 inclusive prefix sum of counts
+    total: int  # instances, on the host
+
+
+def _count(xy, conic, opacity, rect, valid, g_per_view, grid_x, n_tiles, live=None) -> tuple[Counted, int | None]:
+    counts = count_pass(xy, conic, opacity, rect, valid, g_per_view, grid_x, n_tiles)
+    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    # host sync: the outputs are sized by the count pass; a live count comes
+    # along in the same copy
+    if live is None:
+        return Counted(counts, ends, int(ends[-1])), None
+    total, n_live = torch.cat([ends[-1:], live.long()]).tolist()
+    return Counted(counts, ends, total), n_live
+
+
+def count_instances(
+    xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles, live
+) -> tuple[Counted | None, int]:
+    """Kernel A's count pass on ``expand_tiles``' arguments, read back to the
+    host in one copy together with ``live``, a one-element integer tensor on
+    the same device (the grouped render's count of live pixels). Returns
+    what ``expand_tiles(..., counted=)`` takes and the live count. The count
+    pass is counted in ``expand_tiles.launches`` whether or not its write
+    pass follows. CPU tensors: (None, the live count): the plain version has
+    no count pass of its own."""
+    if not xy.is_cuda or xy.shape[0] == 0:
+        return None, int(live)
+    return _count(xy, conic, opacity, rect, valid, g_per_view, grid_x, n_tiles, live)
+
+
+def _expand_cuda(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles, counted):
     n = xy.shape[0]
     for name, t, dtype, shape in (
         ("xy", xy, torch.float32, (n, 2)),
@@ -153,28 +192,32 @@ def _expand_cuda(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_ti
         cuda_lib.check_tensor(name, t, dtype, shape)
     if n >= 2**31:
         raise ValueError("expand_tiles: more gaussians than the 31-bit slot field holds")
-    counts = count_pass(xy, conic, opacity, rect, valid, g_per_view, grid_x, n_tiles)
-    ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    total = int(ends[-1])  # host sync: the outputs are sized by the count pass
+    if counted is None:
+        counted, _ = _count(xy, conic, opacity, rect, valid, g_per_view, grid_x, n_tiles)
+    counts, ends, total = counted
     offset = ends - counts
     keys, gid = write_pass(
         xy, conic, opacity, rect, valid, slot, offset, total,
         g_per_view, grid_x, n_tiles,
     )
-    expand_tiles.launches += 1
     return keys, gid, offset, counts
 
 
-def expand_tiles(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles):
+def expand_tiles(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles, counted=None):
     """Kernel A for CUDA tensors, ``expand_plain`` for CPU tensors (same
-    arguments and results). ``expand_tiles.launches`` counts kernel runs
-    (one per call: the count and write passes together)."""
+    arguments and results). Kernel A's two device passes are counted where
+    they launch: ``expand_tiles.launches`` its count passes (every run of
+    the kernel starts with one; ``count_instances`` may run one whose write
+    pass never follows), ``expand_tiles.write_launches`` its write passes.
+    ``counted``: the count pass already run on these inputs
+    (``count_instances``), for CUDA tensors."""
     if xy.is_cuda:
         if xy.shape[0] == 0:
             empty = lambda dtype: torch.empty(0, dtype=dtype, device=xy.device)  # noqa: E731
             return empty(torch.int64), empty(torch.int32), empty(torch.int64), empty(torch.int32)
-        return _expand_cuda(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles)
+        return _expand_cuda(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles, counted)
     return expand_plain(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles)
 
 
 expand_tiles.launches = 0
+expand_tiles.write_launches = 0

@@ -29,7 +29,7 @@ import torch
 from torch import Tensor
 
 from .camera import TILE_X, TILE_Y
-from .expand import expand_tiles
+from .expand import Counted, expand_tiles
 from .projection import ScreenGaussians
 
 
@@ -132,12 +132,15 @@ def grouped_expand_inputs(
     return order, per_group
 
 
-def group_layout(args: tuple, first_rank: int, image_shape: tuple[int, int]) -> TileInstances:
+def group_layout(
+    args: tuple, first_rank: int, image_shape: tuple[int, int], counted: Counted | None = None
+) -> TileInstances:
     """One depth group's layout from its ``grouped_expand_inputs`` tuple:
     kernel A and the key sort, ids shifted by the group's first rank so that
-    they index rank space."""
+    they index rank space. ``counted``: kernel A's count pass, if it has
+    already run (``count_instances``)."""
     grid_hw = tile_grid(image_shape)
-    keys, gid, offset, per_gaussian = expand_tiles(*args)
+    keys, gid, offset, per_gaussian = expand_tiles(*args, counted=counted)
     return _sorted_runs(keys, gid + first_rank, offset, per_gaussian, grid_hw[0] * grid_hw[1], grid_hw)
 
 

@@ -47,6 +47,7 @@ from .camera import (
     TRANSMITTANCE_EPS,
     scale_invariant_normalization,
 )
+from .expand import count_instances
 from .instances import (
     TileInstances,
     build_tile_instances,
@@ -330,7 +331,7 @@ def composite_fwd(rows, gid, starts, counts, background, image_shape):
     return composite_plain(rows, gid, starts, counts, background, image_shape)
 
 
-def _composite_chained_cuda(rows, gid, starts, counts, state, image_shape):
+def _composite_chained_cuda(rows, gid, starts, counts, state, image_shape, live):
     h, w = image_shape
     b = state.t.shape[0]
     gy, gx = tile_grid(image_shape)
@@ -344,14 +345,18 @@ def _composite_chained_cuda(rows, gid, starts, counts, state, image_shape):
         ("state.p_raw", state.p_raw, torch.float32, (b, h, w)),
     ):
         cuda_lib.check_tensor(name, t, dtype, shape)
+    if live is not None:
+        cuda_lib.check_tensor("live", live, torch.int32, (1,))
+        live.zero_()  # the kernel adds each tile's live pixels
     lib = cuda_lib.load("composite_fwd")
     lib.composite_fwd_chained.restype = ctypes.c_int
-    lib.composite_fwd_chained.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+    lib.composite_fwd_chained.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
     n_contrib = torch.empty(b, h, w, dtype=torch.int32, device=rows.device)
     cuda_lib.check(
         lib.composite_fwd_chained(
             *(ptr(t) for t in (rows, gid, starts, counts)), b, gy, gx, h, w,
             *(ptr(t) for t in state), ptr(n_contrib), cuda_lib.stream(rows),
+            None if live is None else ptr(live),
         ),
         "composite_fwd_chained",
     )
@@ -359,17 +364,23 @@ def _composite_chained_cuda(rows, gid, starts, counts, state, image_shape):
     return state, n_contrib
 
 
-def composite_chained(rows, gid, starts, counts, state, image_shape):
+def composite_chained(rows, gid, starts, counts, state, image_shape, live=None):
     """One depth group composited onto ``state`` -> (state, n_contrib of this
     group). On either device the state's tensors are updated in place and
     handed back: the chained kernel (csrc/composite_fwd.cu, CHAINED) writes
     them for CUDA tensors; for CPU tensors ``composite_chained_plain``
-    computes the new state, which is copied into them. No autograd graph."""
+    computes the new state, which is copied into them. No autograd graph.
+
+    ``live``, a one-element int32 tensor on the same device, if given, is
+    set to the number of pixels still live after the group (``p_raw >=
+    1e-4``), without a host sync: the kernel counts them on the card."""
     if rows.is_cuda:
-        return _composite_chained_cuda(rows, gid, starts, counts, state, image_shape)
+        return _composite_chained_cuda(rows, gid, starts, counts, state, image_shape, live)
     new, n_contrib = composite_chained_plain(rows, gid, starts, counts, state, image_shape)
     for old, fresh in zip(state, new):
         old.copy_(fresh)
+    if live is not None:
+        live.fill_(int((state.p_raw >= TRANSMITTANCE_EPS).sum()))
     return state, n_contrib
 
 
@@ -565,28 +576,40 @@ class _GroupedComposite(torch.autograd.Function):
 
     Forward: the chained composite over the groups, nearest first, from the
     state (rgb 0, T 1, p_raw 1), then the background once. Each group's
-    layout (kernel A and the key sort) is built, used and dropped; what is
-    kept for the backward is the inputs, the final T and each group's
-    n_contrib (int32, H x W).
+    layout (kernel A and the key sort) is built, used and dropped. The walk
+    stops after the first group at whose end no pixel is live: a later group
+    would leave the state as it is and give n_contrib 0 everywhere, so no
+    layout is built for it and nothing is launched. The chained kernel
+    counts the live pixels on the card, and kernel A's host read of the next
+    group's instance total brings the count along (no sync of its own). What
+    is kept for the backward is the inputs, the final T and the n_contrib
+    (int32, H x W) of each group composited.
 
     Backward: the carry seeded with ta = T_final and g_dot_ra = (g . bg) *
     T_final; the groups walked farthest first, each group's layout built
     again from the saved inputs, then the chained backward (row gradients
     per instance) and the segmented sum (kernel D) over the group's own
     gaussians, which fills the group's contiguous block of rank-order row
-    gradients. A group whose kept n_contrib is 0 at every pixel (no pixel
-    reached it live) is skipped: its block stays zero and the carry crosses
-    it unchanged, exactly what its walk would give. At most one group's
-    instances exist at a time, in either direction."""
+    gradients. A group that the forward did not composite, or whose kept
+    n_contrib is 0 at every pixel (no pixel reached it live), is skipped:
+    its block stays zero and the carry crosses it unchanged, exactly what
+    its walk would give. At most one group's instances exist at a time, in
+    either direction."""
 
     @staticmethod
     def forward(ctx, rows, background, per_group, group_slots, image_shape):
         state = initial_chain_state(1, image_shape, rows.device)
+        live = torch.empty(1, dtype=torch.int32, device=rows.device)
         n_contrib = []
         for k, args in enumerate(per_group):
-            inst = group_layout(args, k * group_slots, image_shape)
+            counted = None
+            if k > 0:  # the count pass of group k brings the live count of group k - 1
+                counted, n_live = count_instances(*args, live)
+                if n_live == 0:
+                    break  # no pixel is live: the later groups change nothing
+            inst = group_layout(args, k * group_slots, image_shape, counted)
             state, n_k = composite_chained(
-                rows, inst.gaussian_id, inst.starts, inst.counts, state, image_shape
+                rows, inst.gaussian_id, inst.starts, inst.counts, state, image_shape, live
             )
             n_contrib.append(n_k)
         ctx.save_for_backward(rows, background, state.t, *n_contrib)
@@ -603,7 +626,7 @@ class _GroupedComposite(torch.autograd.Function):
         )
         live = torch.stack([n.amax() for n in n_contrib]).tolist()
         d_rows = torch.zeros_like(rows)
-        for k in reversed(range(len(ctx.per_group))):
+        for k in reversed(range(len(n_contrib))):
             if live[k] == 0:
                 continue
             inst = group_layout(ctx.per_group[k], k * slots, shape)

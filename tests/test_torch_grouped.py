@@ -33,6 +33,7 @@ from my_depthsplat_torch.render.pallas_raster import (
 )
 
 from test_torch_render import _both_projections, random_scene
+from test_torch_scenes import occluded_scene
 from test_torch_unimatch_encoder import encoder_pair, make_context, register_vitt
 
 
@@ -209,9 +210,10 @@ def test_grouped_render_goes_through_the_chained_composite(monkeypatch):
     patch_groups(monkeypatch, 128)
     calls = []
 
-    def spy(rows, gid, starts, counts, state, image_shape):
-        calls.append((rows.shape[0], int(counts.sum()), state))
-        return composite_chained_plain(rows, gid, starts, counts, state, image_shape)
+    def spy(rows, gid, starts, counts, state, image_shape, live=None):
+        # the incoming state, copied: the wrapper updates it in place
+        calls.append((rows.shape[0], int(counts.sum()), type(state)(*(t.clone() for t in state))))
+        return composite_chained(rows, gid, starts, counts, state, image_shape, live)
 
     monkeypatch.setattr(port_raster, "composite_chained", spy)
     render(*ta[:4], shape, ta[4], *ta[5:])
@@ -298,3 +300,66 @@ def test_unimatch_slice_matches_jax_through_grouped_route(monkeypatch):
     assert dec_t.color.shape == (1, 1, *shape, 3)
     assert diff.max() <= 6e-3, diff.max()
     assert diff.mean() <= 1e-4, diff.mean()
+
+
+def test_grouped_forward_stops_after_the_last_live_group(monkeypatch):
+    """The occluded view (tests/test_torch_scenes.py): its near layer stops
+    every pixel within the first of three depth groups of 112 (largest
+    p_raw after it 1.3e-5). The forward builds that group's layout and
+    composites it, then stops: ``group_layout`` and ``composite_chained``
+    run once, and the live count read with the next group's instance total
+    is 0. The image equals the flat route's (the same instances in the same
+    order) and the JAX grouped render's, which walks every group, within
+    1e-5."""
+    args, shape = occluded_scene()
+    ta = [torch.from_numpy(x) for x in args]
+    flat = render(*ta[:4], shape, ta[4], *ta[5:])
+    patch_groups(monkeypatch, 112)
+    calls = {"group_layout": [], "composite_chained": [], "count_instances": []}
+    for name, c in calls.items():
+        fn = getattr(port_raster, name)
+        monkeypatch.setattr(port_raster, name, lambda *a, fn=fn, c=c: c.append(a[-1]) or fn(*a))
+    grouped = render(*ta[:4], shape, ta[4], *ta[5:])
+    assert [len(c) for c in calls.values()] == [1, 1, 1]
+    (live,) = calls["count_instances"]
+    assert int(live) == 0
+    assert torch.equal(grouped, flat)
+    ja = tuple(map(jnp.asarray, args))
+    want = jax.jit(lambda *a: jax_raster.render_pallas(*a[:4], shape, a[4], *a[5:]))(*ja)
+    np.testing.assert_allclose(grouped.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+def test_grouped_forward_composites_every_group_while_a_pixel_is_live(monkeypatch):
+    """A sparse view of 300 gaussians in groups of 128, where pixels stay
+    live to the end: all 3 groups are composited, and the live count that
+    each chained composite leaves is its state's number of pixels with
+    p_raw >= 1e-4, the same after every group (no pixel stops here)."""
+    args, shape = random_scene(b=1, g=300, seed=7, h=40, w=56)
+    ta = [torch.from_numpy(x) for x in args]
+    patch_groups(monkeypatch, 128)
+    seen = []
+
+    def spy(rows, gid, starts, counts, state, image_shape, live):
+        out = composite_chained(rows, gid, starts, counts, state, image_shape, live)
+        seen.append((int(live), int((state.p_raw >= 1e-4).sum())))
+        return out
+
+    monkeypatch.setattr(port_raster, "composite_chained", spy)
+    render(*ta[:4], shape, ta[4], *ta[5:])
+    assert len(seen) == 3
+    assert all(got == want > 0 for got, want in seen), seen
+
+
+def test_count_instances_reads_the_live_count_on_cpu():
+    """CPU tensors: no count pass of its own (the plain version has none),
+    only the live count handed back; ``composite_chained`` fills ``live``
+    from the plain version's p_raw, as the kernel counts it on the card."""
+    sg, _ = one_view(3, 500, 32, 48, 0.8)
+    order, per_group = port_raster.grouped_expand_inputs(sg, (32, 48), 128)
+    live = torch.tensor([7], dtype=torch.int32)
+    assert port_raster.count_instances(*per_group[1], live) == (None, 7)
+    inst = port_raster.group_layout(per_group[0], 0, (32, 48))
+    state = initial_chain_state(1, (32, 48), "cpu")
+    composite_chained(screen_rows(sg)[order], inst.gaussian_id, inst.starts, inst.counts, state, (32, 48), live)
+    n_live = int((state.p_raw >= 1e-4).sum())
+    assert 0 < n_live < 32 * 48 and int(live) == n_live  # the deep stack stops some pixels

@@ -202,10 +202,12 @@ def test_grouped_gradients_match_jax(which, monkeypatch):
 
 def test_grouped_backward_skips_dead_groups(monkeypatch):
     """An opaque near layer stops every pixel within the first of three
-    depth groups (112 slots). The grouped backward rebuilds the layout (kernel
-    A), and runs the chained backward and kernel D, for the live groups
-    only, those whose kept n_contrib has a pixel > 0; each dead group's
-    block of rank-order row gradients is exactly 0. The gradients match
+    depth groups (112 slots). The forward composites that group only (it
+    stops once no pixel is live) and keeps its n_contrib alone. The grouped
+    backward rebuilds the layout (kernel A), and runs the chained backward
+    and kernel D, for the live groups only, those whose kept n_contrib has
+    a pixel > 0; each dead group's block of rank-order row gradients is
+    exactly 0. The gradients match
     ``jax.grad`` through the JAX grouped render, which walks every group,
     within 1e-4 of each gradient's largest entry, the ragged scene's
     tolerance above (measured 1.4e-5: the stops land on the same instances
@@ -241,9 +243,9 @@ def test_grouped_backward_skips_dead_groups(monkeypatch):
     _, means, cov, sh, opac = _grads(args, shape, wts)
 
     live = [k for k, m in enumerate(maxima) if m > 0]
-    assert len(maxima) == 3 and live == [0], maxima
+    assert len(maxima) == 1 and live == [0], maxima  # only group 0 was composited
     split = layouts.index("backward")
-    assert (split, len(layouts) - split - 1) == (3, 1)  # kernel A: every group forward, live ones backward
+    assert (split, len(layouts) - split - 1) == (1, 1)  # kernel A: the composited group forward, live ones backward
     assert {k: len(c) for k, c in bwd_calls.items()} == {"composite_bwd_chained": 1, "scatter_reduce": 1}
     (d,) = d_rows
     for k in range(3):

@@ -417,7 +417,7 @@ def test_backward_kernel_on_live_ranges(card, chained, seed):
 
 def _grazing_inputs(card, seed, n_per_tile=100):
     """Kernel arguments for the warp-strip cull (strip_may_pass in
-    csrc/composite_bwd.cu) at its edge: a 32x32 view of 2x2 tiles, each with
+    csrc/composite_common.cuh) at its edge: a 32x32 view of 2x2 tiles, each with
     ``n_per_tile`` instances of thin rotated conics (sigma 2-40 px along,
     0.25-1.5 px across, any angle). Each instance is aimed at one pixel on
     the edge of one warp's 16x2 strip: its mean lies outside the strip,
@@ -521,8 +521,11 @@ def test_backward_kernel_on_grazing_conics(card, chained, seed):
 def test_grouped_backward_skips_dead_groups(card, monkeypatch):
     """The occluded view through the grouped route (3 groups of 112, only
     the nearest live) and through the flat route: gradients within 1e-4 of
-    each gradient's largest entry; the backward launches kernel A, the
-    chained backward and kernel D once, for the live group only."""
+    each gradient's largest entry; the forward launches kernel A and the
+    chained composite once, for the nearest group (every pixel has stopped
+    after it), and kernel A's count pass once more, for the next group,
+    whose live count stops the walk; the backward kernel A, the chained
+    backward and kernel D once, for the live group only."""
     args = [torch.from_numpy(x).to(card) for x in occluded_scene()[0]]
     shape = (32, 48)
     wts = torch.randn(1, *shape, 3, generator=torch.Generator().manual_seed(6)).to(card)
@@ -536,10 +539,90 @@ def test_grouped_backward_skips_dead_groups(card, monkeypatch):
     monkeypatch.setattr(raster_mod, "_CHAIN_MIN_G", 1)
     monkeypatch.setattr(raster_mod, "_CHAIN_GROUP_SLOTS", 112)
     fns = (expand_tiles, composite_chained, composite_bwd_chained, scatter_reduce)
-    before = [f.launches for f in fns]
+    before = [f.launches for f in fns] + [expand_tiles.write_launches]
     grouped = grads()
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(fns, before)] == [3 + 1, 3, 1, 1]
+    # the forward builds and composites group 0 only: group 1's count pass
+    # reads that no pixel is live, and its write pass and the rest never run
+    after = [f.launches for f in fns] + [expand_tiles.write_launches]
+    assert [a - b for a, b in zip(after, before)] == [2 + 1, 1, 1, 1, 1 + 1]
     for gg, gf in zip(grouped, flat):
         assert torch.isfinite(gg).all() and gf.abs().max() > 0
         assert (gg - gf).abs().max().item() <= 1e-4 * gf.abs().max().item()
+
+
+def _incoming_state(card, shape, seed):
+    """A chained composite's incoming state: colour and transmittance from a
+    seed (T log-uniform in [1.5e-4, 1], so that some pixels stop within a
+    few hits), p_raw = T for the live pixels, and a fifth of the pixels
+    stopped on entry (p_raw below 1e-4)."""
+    rng = np.random.default_rng(100 + seed)
+    t = 10 ** rng.uniform(np.log10(1.5e-4), 0, (1, *shape))
+    stopped = rng.uniform(size=t.shape) < 0.2
+    p_raw = np.where(stopped, rng.uniform(1e-6, 9e-5, t.shape), t)
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(card)  # noqa: E731
+    return ChainState(f(rng.uniform(0, 1, (1, *shape, 3))), f(t), f(p_raw))
+
+
+@pytest.mark.parametrize("chained", [False, True], ids=["kernel-B", "row-3"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_forward_kernel_on_grazing_conics(card, chained, seed):
+    """Both instantiations of csrc/composite_fwd.cu vs their plain versions
+    on pairs at the alpha gate's edge (``_grazing_inputs``: thin rotated
+    conics whose gate boundary runs through a strip's edge pixel, opacities
+    just above 1/255, means up to 130 px away), where a gate decided
+    otherwise than the plain version's (the expf skip below power -5.55
+    included) would show: a hit dropped would leave a pixel's n_contrib
+    short and its T too large by at least 1/255 of it. Image and T within
+    1e-4; n_contrib and the stopped flag equal at every pixel whose plain
+    p_raw is not within 1e-6 of the 1e-4 threshold. Chained: from
+    ``_incoming_state``, which stops some pixels on entry and brings others
+    close to the stop; the live count it returns is the number of pixels
+    with p_raw >= 1e-4."""
+    rows, gid, _, starts, counts, _, _, _, shape, _ = _grazing_inputs(card, seed)
+    if chained:
+        incoming = _incoming_state(card, shape, seed)
+        want, n_want = composite_chained_plain(rows, gid, starts, counts, incoming, shape)
+        live = torch.full((1,), -1, dtype=torch.int32, device=card)
+        got, n_got = composite_chained(rows, gid, starts, counts, ChainState(*(x.clone() for x in incoming)), shape, live)
+        pairs = ((got.rgb, want.rgb), (got.t, want.t))
+        p_got, p_want = got.p_raw, want.p_raw
+    else:
+        bg = torch.tensor([[0.2, 0.5, 0.7]], device=card)
+        img, t_fin, n_got = composite_fwd(rows, gid, starts, counts, bg, shape)
+        img_p, t_p, n_want = composite_plain(rows, gid, starts, counts, bg, shape)
+        fresh = initial_chain_state(1, shape, card)
+        p_want = composite_chained_plain(rows, gid, starts, counts, fresh, shape)[0].p_raw
+        p_got = None  # the flat kernel keeps no p_raw
+        pairs = ((img, img_p), (t_fin, t_p))
+    torch.cuda.synchronize()
+    for a, b in pairs:
+        assert (a - b).abs().max().item() <= 1e-4
+    clear = (p_want - 1e-4).abs() > 1e-6
+    assert torch.equal(n_got[clear], n_want[clear])
+    assert (n_want > 0).float().mean().item() > 0.5
+    if chained:
+        assert torch.equal((p_got >= 1e-4)[clear], (p_want >= 1e-4)[clear])
+        assert int(live) == int((got.p_raw >= 1e-4).sum())
+        assert 0 < int(live) < shape[0] * shape[1]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_forward_kernel_feeds_the_backward_as_the_plain_forward_does(card, seed):
+    """Kernel C fed kernel B's T_final and n_contrib vs fed the plain
+    forward's, on the grazing conics: the same rows within 1e-5 of the
+    largest entry, non-zero for the same instances (the backward's gate
+    counts exactly the hits the forward counted)."""
+    rows, gid, dst, starts, counts, _, g_img, _, shape, _ = _grazing_inputs(card, seed)
+    bg = torch.tensor([[0.2, 0.5, 0.7]], device=card)
+    args = (rows, gid, starts, counts, bg, shape)
+    _, t_k, n_k = composite_fwd(*args)
+    _, t_p, n_p = composite_plain(*args)
+
+    def rows_from(t_fin, n_c):
+        return composite_bwd(rows, gid, dst, starts, counts, bg, t_fin, n_c, g_img, shape)
+
+    got, want = rows_from(t_k, n_k), rows_from(t_p, n_p)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal((got != 0).any(1), (want != 0).any(1))

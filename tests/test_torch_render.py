@@ -128,10 +128,10 @@ def test_expand_wrapper_uses_plain_on_cpu():
     args, shape = random_scene(b=1, g=64, seed=5)
     _, sg = _both_projections(args, shape)
     flat = expand_inputs(sg, shape)
-    before = expand_tiles.launches
+    before = expand_tiles.launches, expand_tiles.write_launches
     got = expand_tiles(*flat)
     want = expand_plain(*flat)
-    assert expand_tiles.launches == before
+    assert (expand_tiles.launches, expand_tiles.write_launches) == before
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     keys_p, gid_p, offset_p, per_gaussian_p = want
     assert keys_p.dtype == torch.int64 and gid_p.dtype == torch.int32
