@@ -65,10 +65,12 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    kernel A's count pass says how many instances a view makes; encoder time
    by part from one more pass with synchronising hooks;
 12. kernel A vs its plain version at the shapes the grouped route gives it:
-   every depth group of one served view (2^18 rank-ordered gaussians, slots
-   counted from the group's first rank, a 32x60 tile grid, tens of tiles
-   per gaussian) and of the dense stack, keys, ids, offsets and counts
-   identical; the chained composite (csrc/composite_fwd.cu, CHAINED) vs
+   every depth group of one served view (2^18 rank-ordered gaussians, a
+   32x60 tile grid, tens of tiles per gaussian) and of the dense stack,
+   with the route's tile-only int16 keys and with 64-bit keys, keys, ids,
+   offsets and counts identical, and every group's layout (perm,
+   gaussian_id, starts, counts, offset, per_gaussian) from the tile-only
+   keys identical to the one from 64-bit keys; the chained composite (csrc/composite_fwd.cu, CHAINED) vs
    composite_chained_plain on one served view, group by group from the
    kernel's true incoming state (every group if the plain version's time
    allows, else the first, a middle, the last and every group that a pixel
@@ -80,9 +82,13 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    grouped route vs the flat route on one full-size view (<= 1e-6, exact
    expected), with both routes' decode time and peak memory;
 13. timings (CUDA events) of each kernel's device passes alone, of its
-   plain version on the card, and its bound: A at the served scene's shapes
-   (4 views), on each depth group a served 512x960 view composites and its
-   count pass alone on the next group, B, C
+   plain version on the card, and its bound: A's count and write passes at
+   the served scene's shapes (4 views), at the training batch's (56 views),
+   on each depth group a served 512x960 view composites and its count pass
+   alone on the next group (the bound from the key width written), and
+   each of those groups' layout taken apart (count pass, host read of the
+   total, write pass, key sort, run bounds, id gather; the route's tile-only
+   int16 keys), B, C
    and D at one batch element's (4 views) and at the training batch's (56
    views), the chained composite summed over the launches the path makes in
    one served view and over all 23 groups; index_add_ is D's library time. The
@@ -135,13 +141,13 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    and 8 + 8 B of carry per pixel with n_contrib > 0); then the view's
    grouped backward taken apart with CUDA events into layout rebuilds, row
    5 and kernel D, each run once per live group, the dead groups' rows
-   exactly 0;
+   exactly 0, and those layout rebuilds taken apart as in phase 13;
 17. training path of configs/re10k_small.yaml as it is set (UniMatch ViT-S,
    one scale, 2 context views and 4 targets at 256x256, B = 8 as 2
    gradient-accumulation microbatches): one warm-up and 3 steps on the flat
    route, kernels A-D launched once per microbatch, none of the chained
-   ones, loss falling; kernels B, C and D timed at one microbatch's shapes
-   (16 views at 256x256).
+   ones, loss falling; kernels A, B, C and D timed at one microbatch's
+   shapes (16 views at 256x256).
 
 The line before the card line is a JSON object {"kernels": [...]}; the card
 line is nvidia-smi's name and power limit; the last line is
@@ -300,24 +306,31 @@ def groups_to_composite(live: list[int]) -> int:
 def time_expand(torch, flat, reps, write=True):
     """Kernel A on one argument tuple of expand_tiles: device ms of its
     count and write passes alone, ms of its wrapper (the host read of the
-    total included), and its bound; -> dict. ``write=False``: the count pass
-    alone, as the grouped forward runs it on the group after the last one it
-    composites (the wrapper: count_instances, its host read included)."""
+    total included), and its bound from the key width written; -> dict.
+    ``write=False``: the count pass alone, as the grouped forward runs it on
+    the group after the last one it composites (the wrapper:
+    count_instances, its host read included)."""
     from my_depthsplat_torch.render.expand import count_instances, count_pass, expand_tiles, write_pass
 
     xy, conic, op, rect_i, valid, slot, gpv, gx, nt = flat
     cnt = count_pass(xy, conic, op, rect_i, valid, gpv, gx, nt)
     ends = torch.cumsum(cnt, 0, dtype=torch.int64)
     offset, total = ends - cnt, int(ends[-1])
-    count_ms = cuda_ms(torch, lambda: count_pass(xy, conic, op, rect_i, valid, gpv, gx, nt), reps, True)
     n = xy.shape[0]
+
+    def writing():
+        return write_pass(xy, conic, op, rect_i, valid, slot, offset, total, gpv, gx, nt)
+
+    count_ms = cuda_ms(torch, lambda: count_pass(xy, conic, op, rect_i, valid, gpv, gx, nt), reps, True)
     rect = rect_i.long()
     area = ((rect[:, 2] - rect[:, 0]) * (rect[:, 3] - rect[:, 1]))[valid].sum().item()
+    key_bytes = 0
     if write:
-        write_ms = cuda_ms(torch, lambda: write_pass(xy, conic, op, rect_i, valid, slot, offset, total, gpv, gx, nt), reps, True)
+        key_bytes = writing()[0].element_size()
+        write_ms = cuda_ms(torch, writing, reps, True)
         wrapper_ms = cuda_ms(torch, lambda: expand_tiles(*flat), reps)
-        # the cull fields and slots read, keys and ids written
-        nbytes = n * (8 + 12 + 4 + 16 + 1 + 8) + total * (8 + 4)
+        # the cull fields (and 64-bit keys' slots) read, keys and ids written
+        nbytes = n * (8 + 12 + 4 + 16 + 1 + (8 if slot is not None else 0)) + total * (key_bytes + 4)
     else:
         live = torch.zeros(1, dtype=torch.int32, device=xy.device)
         write_ms = 0.0
@@ -326,8 +339,66 @@ def time_expand(torch, flat, reps, write=True):
     a_bound, a_by = bound(nbytes, area * OPS_PER_CANDIDATE)
     return {
         "ms": count_ms + write_ms, "count_ms": count_ms, "write_ms": write_ms, "wrapper_ms": wrapper_ms,
-        "bound_ms": a_bound, "bound_by": a_by, "gaussians": n, "candidate_tiles": area, "instances": total,
+        "bound_ms": a_bound, "bound_by": a_by, "key_bytes": key_bytes, "gaussians": n,
+        "candidate_tiles": area, "instances": total,
     }
+
+
+def time_layout(torch, args, first_rank, shape, reps):
+    """One depth group's layout (render/instances.py:group_layout) taken
+    apart, on its ``grouped_expand_inputs`` tuple (tile-only keys): kernel
+    A's count pass, the host read of its total (host clock from a
+    synchronised start: the cumsum, the copy and the wait), the write pass,
+    the stable key sort, the run bounds (searchsorted), the id shift and
+    gather; device ms of each alone (CUDA events). ``group_layout_ms``: the
+    whole group_layout with its host read."""
+    from my_depthsplat_torch.render import instances as inst_mod
+    from my_depthsplat_torch.render.expand import count_pass, write_pass
+
+    xy, conic, op, rect, valid, slot, gpv, gx, nt = args
+    cnt = count_pass(xy, conic, op, rect, valid, gpv, gx, nt)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    for _ in range(reps):
+        ends = torch.cumsum(cnt, 0, dtype=torch.int64)
+        total = int(ends[-1])
+    host_read_ms = (time.perf_counter() - t_a) * 1e3 / reps
+    offset = ends - cnt
+
+    def writing():
+        return write_pass(xy, conic, op, rect, valid, slot, offset, total, gpv, gx, nt)
+
+    keys, gid = writing()
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    edges = torch.arange(nt + 1, dtype=keys.dtype, device=xy.device)
+    return {
+        "count_ms": cuda_ms(torch, lambda: count_pass(xy, conic, op, rect, valid, gpv, gx, nt), reps, True),
+        "host_read_ms": host_read_ms,
+        "write_ms": cuda_ms(torch, writing, reps, True),
+        "sort_ms": cuda_ms(torch, lambda: torch.sort(keys, stable=True), reps, True),
+        "bounds_ms": cuda_ms(torch, lambda: torch.searchsorted(sorted_keys, edges), reps, True),
+        "gather_ms": cuda_ms(torch, lambda: (gid + first_rank)[perm], reps, True),
+        "group_layout_ms": cuda_ms(torch, lambda: inst_mod.group_layout(args, first_rank, shape), reps),
+        "key_bytes": keys.element_size(),
+        "instances": total,
+    }
+
+
+def layout_sum(layouts):
+    """Sums over groups of ``time_layout``'s results."""
+    return {k: sum(x[k] for x in layouts) for k in layouts[0] if k != "key_bytes"}
+
+
+def print_layouts(label, layouts, card):
+    total = layout_sum(layouts)
+    for k, x in enumerate([*layouts, total]):
+        name = f"group {k}" if k < len(layouts) else f"sum of {len(layouts)}"
+        parts = ("count_ms", "host_read_ms", "write_ms", "sort_ms", "bounds_ms", "gather_ms")
+        print(
+            f"layout, {label}, {name} ({x['instances']} instances, {layouts[0]['key_bytes']} B tile keys): "
+            + " + ".join(f"{p[:-3]} {x[p]:.4f}" for p in parts)
+            + f"; whole group_layout {x['group_layout_ms']:.4f} (ms) on {card}"
+        )
 
 
 def time_composite(torch, dev, card, label, sg, shape, reps):
@@ -588,6 +659,7 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
     from my_depthsplat_torch.render.instances import (
         build_tile_instances_grouped,
         expand_inputs,
+        group_layout,
         grouped_expand_inputs,
     )
     from my_depthsplat_torch.render.pallas_raster import (
@@ -757,31 +829,45 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
         def compare_chained(label, sg, pick):
             """One view, depth group by depth group. Kernel A against its
             plain version on every group's inputs as the grouped layout slices
-            them: keys, ids, offsets and counts identical. The chained kernel
-            threaded over the groups; for the groups ``pick`` chooses, held
-            against the plain version from the kernel's incoming state.
-            Returns what the bound needs."""
+            them, with its tile-only keys and with 64-bit keys ``tile << 32 |
+            slot``: keys, ids, offsets and counts identical; the group's
+            layout from the tile-only keys identical to the one from 64-bit
+            keys (perm, gaussian_id, starts, counts, offset, per_gaussian).
+            The chained kernel threaded over the groups; for the groups
+            ``pick`` chooses, held against the plain version from the
+            kernel's incoming state. Returns what the bound needs."""
             slots = raster_mod._CHAIN_GROUP_SLOTS
             order, groups = build_tile_instances_grouped(sg, shape, slots)
             a_err = 0
             for k, args in enumerate(grouped_expand_inputs(sg, shape, slots)[1]):
-                out_k, out_p = expand_tiles(*args), expand_plain(*args)
-                check(
-                    out_k[0].shape == out_p[0].shape,
-                    f"{label}, group {k}: kernel A emits {out_k[0].numel()} instances, plain {out_p[0].numel()}",
-                )
-                for what, x, y in zip(("keys", "ids", "offset", "per_gaussian"), out_k, out_p):
-                    if x.numel():
-                        a_err = max(a_err, (x.long() - y.long()).abs().max().item())
-                    check(torch.equal(x, y), f"{label}, group {k}: kernel A {what} differ")
+                args64 = (*args[:5], torch.arange(args[0].shape[0], device=dev), *args[6:])
+                for fmt, a in (("tile-only", args), ("64-bit", args64)):
+                    out_k, out_p = expand_tiles(*a), expand_plain(*a)
+                    check(
+                        out_k[0].shape == out_p[0].shape,
+                        f"{label}, group {k}, {fmt} keys: kernel A emits {out_k[0].numel()} instances, plain "
+                        f"{out_p[0].numel()}",
+                    )
+                    for what, x, y in zip(("keys", "ids", "offset", "per_gaussian"), out_k, out_p):
+                        if x.numel():
+                            a_err = max(a_err, (x.long() - y.long()).abs().max().item())
+                        check(torch.equal(x, y), f"{label}, group {k}, {fmt} keys: kernel A {what} differ")
                 check(
                     int(out_k[3].sum(dtype=torch.int64)) == groups[k].gaussian_id.numel(),
                     f"{label}, group {k}: the layout holds another number of instances than kernel A emits",
                 )
+                inst64 = group_layout(args64, k * slots, shape)
+                for f in ("perm", "gaussian_id", "starts", "counts", "offset", "per_gaussian"):
+                    x, y = getattr(groups[k], f), getattr(inst64, f)
+                    check(
+                        x.dtype == y.dtype and torch.equal(x, y),
+                        f"{label}, group {k}: the tile-key layout's {f} differs from the 64-bit-key layout's",
+                    )
             per_gaussian = sum(inst.gaussian_id.numel() for inst in groups) / order.numel()
             print(
                 f"{label}: kernel A vs plain on each of {len(groups)} depth groups ({slots} gaussians, "
-                f"{h // TILE_Y}x{w // TILE_X} tiles, {per_gaussian:.1f} instances per gaussian): max abs difference {a_err}"
+                f"{h // TILE_Y}x{w // TILE_X} tiles, {per_gaussian:.1f} instances per gaussian), tile-only and 64-bit keys: "
+                f"max abs difference {a_err}; every group's layout from tile-only keys identical to the 64-bit-key layout"
             )
             rows = screen_rows(sg)[order]
             state = initial_chain_state(1, shape, dev)
@@ -898,17 +984,27 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
             a_groups.append(time_expand(torch, args0[n_path], 10, write=False))
         expand_re10k = {
             "groups": n_path, "count_passes": len(a_groups),
-            **{k: sum(x[k] for x in a_groups) for k in ("ms", "wrapper_ms", "bound_ms")},
-            **{f"{k}_per_group": [x[k] for x in a_groups] for k in ("ms", "wrapper_ms", "bound_ms", "bound_by", "instances")},
+            **{k: sum(x[k] for x in a_groups) for k in ("ms", "count_ms", "write_ms", "wrapper_ms", "bound_ms")},
+            **{f"{k}_per_group": [x[k] for x in a_groups] for k in (
+                "ms", "count_ms", "write_ms", "wrapper_ms", "bound_ms", "bound_by", "key_bytes", "candidate_tiles",
+                "instances",
+            )},
         }
         print(
             f"kernel A expand, served view 0, the {n_path} groups the path composites and "
             f"{len(a_groups) - n_path} count pass alone on the next (2^18 gaussians each): device "
-            f"{[round(x['ms'], 4) for x in a_groups]} ms (sum {expand_re10k['ms']:.4f}), wrapper with its host read "
-            f"{[round(x['wrapper_ms'], 4) for x in a_groups]} ms (sum {expand_re10k['wrapper_ms']:.4f}), bound "
-            f"{[round(x['bound_ms'], 4) for x in a_groups]} ms by {[x['bound_by'] for x in a_groups]}, instances "
-            f"{[x['instances'] for x in a_groups]} on {card}"
+            f"{[round(x['ms'], 4) for x in a_groups]} ms (sum {expand_re10k['ms']:.4f}; count passes "
+            f"{[round(x['count_ms'], 4) for x in a_groups]}, write passes {[round(x['write_ms'], 4) for x in a_groups]}), "
+            f"wrapper with its host read {[round(x['wrapper_ms'], 4) for x in a_groups]} ms (sum "
+            f"{expand_re10k['wrapper_ms']:.4f}), bound {[round(x['bound_ms'], 4) for x in a_groups]} ms by "
+            f"{[x['bound_by'] for x in a_groups]} ({[x['key_bytes'] for x in a_groups]} B keys), candidate tiles "
+            f"{[x['candidate_tiles'] for x in a_groups]}, instances {[x['instances'] for x in a_groups]} on {card}"
         )
+        # ---- one group's layout taken apart, each group the path composites
+        layouts = [time_layout(torch, args, k * slots, shape, 10) for k, args in enumerate(args0[:n_path])]
+        expand_re10k["layout_per_group"] = layouts
+        expand_re10k["layout_sum"] = layout_sum(layouts)
+        print_layouts("served view 0", layouts, card)
         del args0
 
         # ---- the grouped route vs the flat route on one full-size view
@@ -1396,6 +1492,10 @@ def train_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
         f"{len(live_groups)} live groups of {n}; the {n - len(live_groups)} dead groups' rows exactly 0 on {card}"
     )
     del runs, d_rows
+    # ---- the layout rebuilds of that backward taken apart, one per live group
+    with torch.no_grad():
+        layouts = [time_layout(torch, per_group_args[k], k * slots, shape, 10) for k in live_groups]
+    print_layouts(f"trained view 0, live groups {live_groups}", layouts, card)
     entry = {
         "name": "composite_bwd_chained", "route": "cuda", "source": "my_depthsplat_torch/csrc/composite_bwd.cu",
         "replaces": "my_depthsplat_tpu/render/pallas_raster.py:342",
@@ -1408,7 +1508,8 @@ def train_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
         "gated_hits": stats["hits"], "bytes_needed": stats["bytes"], "context_views": v,
         "grouped_vs_flat_grad_rel_err": route_err, "grouped_backward_ms": bwd_ms, "grouped_backward_split_ms": bwd_split,
     }
-    return launches, entry, chained_training
+    return launches, entry, chained_training, {"live_groups": live_groups, "layout_per_group": layouts,
+                                               "layout_sum": layout_sum(layouts)}
 
 
 def train_re10k_small(torch, dev, card, reset_counters, read_counters):
@@ -1421,6 +1522,7 @@ def train_re10k_small(torch, dev, card, reset_counters, read_counters):
     import numpy as np
 
     from my_depthsplat_torch.models import DecoderSplattingCfg, EncoderDepthSplatCfg
+    from my_depthsplat_torch.render.instances import expand_inputs
     from my_depthsplat_torch.train import LPIPS, LossCfg, OptimizerCfg, TrainCfg, make_train_step
 
     h, w = SMALL_SHAPE
@@ -1482,7 +1584,14 @@ def train_re10k_small(torch, dev, card, reset_counters, read_counters):
         leaves = (x.repeat_interleave(N_TARGET, 0) for x in (gs.means, gs.covariances, gs.harmonics, gs.opacities))
         sg = screen_views(torch, *leaves, {k: x[:mb] for k, x in batch["target"].items()}, SMALL_SHAPE)
         del state, batch, gs
-        timing = time_composite(torch, dev, card, f"re10k_small microbatch, {mb * N_TARGET} views at {h}x{w}", sg, SMALL_SHAPE, 10)
+        label = f"re10k_small microbatch, {mb * N_TARGET} views at {h}x{w}"
+        timing = time_composite(torch, dev, card, label, sg, SMALL_SHAPE, 10)
+        timing["expand"] = a_small = time_expand(torch, expand_inputs(sg, SMALL_SHAPE), 10)
+    print(
+        f"kernel A expand, {label}: {a_small['ms']:.4f} ms device (count pass {a_small['count_ms']:.4f} + write pass "
+        f"{a_small['write_ms']:.4f}), bound {a_small['bound_ms']:.4f} ms by {a_small['bound_by']} ({a_small['instances']} "
+        f"instances) on {card}"
+    )
     del sg
     gc.collect()
     torch.cuda.empty_cache()
@@ -1512,7 +1621,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(cuda_lib.KERNEL_SOURCES)) as pool:
         list(pool.map(cuda_lib.load, cuda_lib.KERNEL_SOURCES))
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {list(cuda_lib.KERNEL_SOURCES)}")
-    for src in ("composite_fwd", "composite_bwd"):
+    for src in ("expand", "composite_fwd", "composite_bwd"):
         print(f"build: ptxas, csrc/{src}.cu:\n" + cuda_lib.build_report(src))
 
     from my_depthsplat_torch.models import (
@@ -1859,14 +1968,17 @@ def main() -> int:
         flat = expand_inputs(sg_served, shape)
         a_time = time_expand(torch, flat, 20)
         a_plain = cuda_ms(torch, lambda: expand_plain(*flat), 5)
+        a_train = time_expand(torch, expand_inputs(sg_train, shape), 10)
         bwd_one = time_composite(torch, dev, card, f"{N_TARGET} views", sg_served, shape, 20)
         bwd_batch = time_composite(torch, dev, card, f"{bsz * N_TARGET} views", sg_train, shape, 10)
-    print(
-        f"kernel A expand: {a_time['ms']:.4f} ms device (count pass {a_time['count_ms']:.4f} + write pass "
-        f"{a_time['write_ms']:.4f}), wrapper {a_time['wrapper_ms']:.4f} ms (plain {a_plain:.4f} ms), bound "
-        f"{a_time['bound_ms']:.4f} ms by {a_time['bound_by']} ({a_time['gaussians']} gaussians, "
-        f"{a_time['candidate_tiles']} candidate tiles, {a_time['instances']} instances) on {card}"
-    )
+    for label, x in ((f"{N_TARGET} views", a_time), (f"training batch, {bsz * N_TARGET} views", a_train)):
+        print(
+            f"kernel A expand, {label}: {x['ms']:.4f} ms device (count pass {x['count_ms']:.4f} + write pass "
+            f"{x['write_ms']:.4f}), wrapper {x['wrapper_ms']:.4f} ms"
+            + (f" (plain {a_plain:.4f} ms)" if x is a_time else "")
+            + f", bound {x['bound_ms']:.4f} ms by {x['bound_by']} ({x['gaussians']} gaussians, "
+            f"{x['candidate_tiles']} candidate tiles, {x['instances']} instances) on {card}"
+        )
     # ---- slice 3: serving re10k_720p_fast at full width, the chained composite
     torch.cuda.empty_cache()
     re10k_launches, chained_entry, a_err_grouped, expand_re10k = serve_re10k(
@@ -1877,7 +1989,7 @@ def main() -> int:
     # ---- slice 4: training re10k_720p_fast through the grouped route, row 5;
     # training re10k_small on the flat route
     torch.cuda.empty_cache()
-    re10k_train_launches, row5_entry, chained_training = train_re10k(
+    re10k_train_launches, row5_entry, chained_training, trained_layouts = train_re10k(
         torch, dev, card, reset_counters, read_counters, uncounted
     )
     small_launches, small_timing = train_re10k_small(torch, dev, card, reset_counters, read_counters)
@@ -1890,10 +2002,11 @@ def main() -> int:
             "name": "expand", "route": "cuda", "source": "my_depthsplat_torch/csrc/expand.cu",
             "replaces": "my_depthsplat_tpu/render/expand.py:70", "launches": launches["expand"],
             "max_abs_err": errs["expand"], "plain_ms": a_plain, "library_ms": None,
-            **{k: a_time[k] for k in ("ms", "bound_ms", "bound_by", "wrapper_ms")},
+            **{k: a_time[k] for k in ("ms", "bound_ms", "bound_by", "wrapper_ms", "count_ms", "write_ms")},
+            "training": a_train, "re10k_small": small_timing["expand"],
             "launches_training": train_launches["expand"], "launches_re10k": re10k_launches["expand"],
             "launches_re10k_training": re10k_train_launches["expand"], "launches_re10k_small": small_launches["expand"],
-            "re10k_groups": expand_re10k,
+            "re10k_groups": expand_re10k, "re10k_trained_view_layouts": trained_layouts,
         },
         {
             "name": "composite_fwd", "route": "cuda", "source": "my_depthsplat_torch/csrc/composite_fwd.cu",

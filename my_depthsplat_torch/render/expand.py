@@ -2,10 +2,19 @@
 
 Port of my_depthsplat_tpu/render/expand.py. For every gaussian and every
 tile of its screen rect that survives the exact ellipse-tile cull, emit a
-64-bit sort key ``(view * n_tiles + tile) << 32 | slot`` (``slot`` = depth
-rank) and the gaussian's flat index. The TPU kernel's tier caps, int32 key
-packing and register-tile padding are static-shape artifacts and are gone:
-allocation is dynamic, so nothing is ever dropped.
+sort key and the gaussian's flat index. Two key formats:
+
+- ``slot`` given (any batch of views): the 64-bit key
+  ``(view * n_tiles + tile) << 32 | slot`` (``slot`` = depth rank);
+- ``slot`` None (one view whose gaussians arrive in depth-rank order, as a
+  depth group does): the tile index alone, int16 where ``n_tiles <= 32767``
+  else int32 (``tile_key_dtype``). Instances are emitted gaussian-major, so
+  within a tile they already stand in rank order, and a stable sort of the
+  tile keys gives the permutation the 64-bit keys would.
+
+The TPU kernel's tier caps, int32 key packing and register-tile padding are
+static-shape artifacts and are gone: allocation is dynamic, so nothing is
+ever dropped.
 
 ``expand_tiles`` launches csrc/expand.cu for CUDA tensors and runs
 ``expand_plain`` for CPU tensors. Both emit instances in the same order
@@ -26,6 +35,8 @@ from torch import Tensor
 from ..ops import cuda_lib
 from ..ops.cuda_lib import ptr
 from .camera import ALPHA_MIN, TILE_X, TILE_Y
+
+_BLOCK = 256  # gaussians per block of csrc/expand.cu (THREADS)
 
 
 def rect_quadratic_min(ca, cb, cc, x0, x1, y0, y1):
@@ -62,20 +73,33 @@ def _cull_setup(conic: Tensor, opacity: Tensor) -> tuple[Tensor, Tensor]:
     return pd, thr
 
 
+def tile_key_dtype(n_tiles: int) -> torch.dtype:
+    """The type of a tile-only key (``slot`` None): int16 where every tile
+    index fits, else int32."""
+    return torch.int16 if n_tiles <= torch.iinfo(torch.int16).max else torch.int32
+
+
+def _key_dtype(slot: Tensor | None, n_tiles: int) -> torch.dtype:
+    return torch.int64 if slot is not None else tile_key_dtype(n_tiles)
+
+
 def expand_plain(
     xy: Tensor,  # (N, 2) f32
     conic: Tensor,  # (N, 3) f32
     opacity: Tensor,  # (N,) f32
     rect: Tensor,  # (N, 4) i32 min_x, min_y, max_x, max_y
     valid: Tensor,  # (N,) bool
-    slot: Tensor,  # (N,) i64 depth rank
+    slot: Tensor | None,  # (N,) i64 depth rank; None: one view in rank order
     g_per_view: int,
     grid_x: int,
     n_tiles: int,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Vectorised over (gaussian, candidate tile): returns unsorted int64
-    keys and int32 gaussian ids of the surviving instances, and each
-    gaussian's first instance (N,) int64 and instance count (N,) int32."""
+    """Vectorised over (gaussian, candidate tile): returns the unsorted keys
+    (int64, or tile-only ``tile_key_dtype(n_tiles)`` where ``slot`` is None)
+    and int32 gaussian ids of the surviving instances, and each gaussian's
+    first instance (N,) int64 and instance count (N,) int32."""
+    if slot is None and g_per_view < xy.shape[0]:
+        raise ValueError("expand_plain: tile-only keys (slot None) take one view")
     dev = xy.device
     rw = (rect[:, 2] - rect[:, 0]).long()
     rh = (rect[:, 3] - rect[:, 1]).long()
@@ -96,18 +120,26 @@ def expand_plain(
     )
     pd, thr = _cull_setup(conic, opacity)
     ok = (qmin <= thr[g]) | ~pd[g]
-    tile = torch.div(g, g_per_view, rounding_mode="floor") * n_tiles + ty * grid_x + tx
-    keys = (tile << 32) | slot[g]
+    if slot is None:
+        keys = (ty * grid_x + tx).to(tile_key_dtype(n_tiles))
+    else:
+        tile = torch.div(g, g_per_view, rounding_mode="floor") * n_tiles + ty * grid_x + tx
+        keys = (tile << 32) | slot[g]
     counts = torch.bincount(g[ok], minlength=n)
     return keys[ok], g[ok].int(), torch.cumsum(counts, 0) - counts, counts.int()
 
 
-def _lib() -> ctypes.CDLL:
-    lib = cuda_lib.load("expand")
-    lib.expand_count.restype = lib.expand_write.restype = ctypes.c_int
-    lib.expand_count.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    lib.expand_write.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-    return lib
+_ENTRIES = {  # C entry point -> its argument types
+    "expand_count": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
+    "expand_write": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
+    "expand_write_tiles": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
+}
+
+
+def _entry(name: str):
+    fn = getattr(cuda_lib.load("expand"), name)
+    fn.restype, fn.argtypes = ctypes.c_int, _ENTRIES[name]
+    return fn
 
 
 def count_pass(xy, conic, opacity, rect, valid, g_per_view, grid_x, n_tiles) -> Tensor:
@@ -115,7 +147,7 @@ def count_pass(xy, conic, opacity, rect, valid, g_per_view, grid_x, n_tiles) -> 
     Counted in ``expand_tiles.launches``."""
     counts = torch.empty(xy.shape[0], dtype=torch.int32, device=xy.device)
     cuda_lib.check(
-        _lib().expand_count(
+        _entry("expand_count")(
             *(ptr(t) for t in (xy, conic, opacity, rect, valid)), xy.shape[0],
             g_per_view, grid_x, n_tiles, ptr(counts), cuda_lib.stream(xy),
         ),
@@ -126,21 +158,28 @@ def count_pass(xy, conic, opacity, rect, valid, g_per_view, grid_x, n_tiles) -> 
 
 
 def write_pass(
-    xy, conic, opacity, rect, valid, slot, offset, total, g_per_view, grid_x, n_tiles
+    xy, conic, opacity, rect, valid, slot, offset, total, g_per_view, grid_x, n_tiles,
 ) -> tuple[Tensor, Tensor]:
     """Kernel A's second device pass: ``total`` keys and gaussian ids, each
     gaussian's written from its exclusive prefix ``offset`` (N,) int64.
-    Counted in ``expand_tiles.write_launches``."""
-    keys = torch.empty(total, dtype=torch.int64, device=xy.device)
+    ``slot`` given: the 64-bit keys; ``slot`` None: tile-only keys of one
+    view in rank order (``tile_key_dtype(n_tiles)``). Counted in
+    ``expand_tiles.write_launches``."""
+    key_dtype = _key_dtype(slot, n_tiles)
+    keys = torch.empty(total, dtype=key_dtype, device=xy.device)
     gid = torch.empty(total, dtype=torch.int32, device=xy.device)
-    cuda_lib.check(
-        _lib().expand_write(
+    n = xy.shape[0]
+    if key_dtype == torch.int64:
+        err = _entry("expand_write")(
             *(ptr(t) for t in (xy, conic, opacity, rect, valid, slot, offset)),
-            xy.shape[0], g_per_view, grid_x, n_tiles, ptr(keys), ptr(gid),
-            cuda_lib.stream(xy),
-        ),
-        "expand_write",
-    )
+            n, g_per_view, grid_x, n_tiles, ptr(keys), ptr(gid), cuda_lib.stream(xy),
+        )
+    else:
+        err = _entry("expand_write_tiles")(
+            *(ptr(t) for t in (xy, conic, opacity, rect, valid, offset)),
+            n, grid_x, n_tiles, keys.element_size(), ptr(keys), ptr(gid), cuda_lib.stream(xy),
+        )
+    cuda_lib.check(err, "expand_write")
     expand_tiles.write_launches += 1
     return keys, gid
 
@@ -187,19 +226,22 @@ def _expand_cuda(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_ti
         ("opacity", opacity, torch.float32, (n,)),
         ("rect", rect, torch.int32, (n, 4)),
         ("valid", valid, torch.bool, (n,)),
-        ("slot", slot, torch.int64, (n,)),
+        *((("slot", slot, torch.int64, (n,)),) if slot is not None else ()),
     ):
         cuda_lib.check_tensor(name, t, dtype, shape)
     if n >= 2**31:
         raise ValueError("expand_tiles: more gaussians than the 31-bit slot field holds")
+    if rect.data_ptr() % 16 or xy.data_ptr() % 8:
+        raise ValueError("expand_tiles: rect must be 16-byte and xy 8-byte aligned (vector loads)")
+    if _BLOCK * n_tiles >= 2**31:
+        raise ValueError("expand_tiles: a block's candidate tiles must fit in int32")
+    if slot is None and g_per_view < n:
+        raise ValueError("expand_tiles: tile-only keys (slot None) take one view")
     if counted is None:
         counted, _ = _count(xy, conic, opacity, rect, valid, g_per_view, grid_x, n_tiles)
     counts, ends, total = counted
     offset = ends - counts
-    keys, gid = write_pass(
-        xy, conic, opacity, rect, valid, slot, offset, total,
-        g_per_view, grid_x, n_tiles,
-    )
+    keys, gid = write_pass(xy, conic, opacity, rect, valid, slot, offset, total, g_per_view, grid_x, n_tiles)
     return keys, gid, offset, counts
 
 
@@ -214,7 +256,7 @@ def expand_tiles(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_ti
     if xy.is_cuda:
         if xy.shape[0] == 0:
             empty = lambda dtype: torch.empty(0, dtype=dtype, device=xy.device)  # noqa: E731
-            return empty(torch.int64), empty(torch.int32), empty(torch.int64), empty(torch.int32)
+            return empty(_key_dtype(slot, n_tiles)), empty(torch.int32), empty(torch.int64), empty(torch.int32)
         return _expand_cuda(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles, counted)
     return expand_plain(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles)
 

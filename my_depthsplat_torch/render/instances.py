@@ -8,10 +8,13 @@ gaussians, ``build_tile_instances_grouped``), not its TPU layout:
    ``b * G + g`` index (ties break as instances.py:181-185 breaks them);
 2. kernel A (expand.py) duplicates each gaussian over the tiles its ellipse
    really reaches and emits 64-bit keys ``(view * n_tiles + tile) << 32 |
-   slot`` with the gaussian's flat index;
-3. ``torch.sort`` of the keys gives every tile's instances as one contiguous
-   run in depth order; per-tile start and count come from
-   ``torch.searchsorted`` on the tile boundaries. The sort's permutation and
+   slot`` with the gaussian's flat index; a depth group, whose gaussians
+   arrive in rank order, gets tile-only keys (int16 up to 32767 tiles, else
+   int32) instead: within a tile its instances already stand in rank order;
+3. a stable ``torch.sort`` of the keys gives every tile's instances as one
+   contiguous run in depth order, the same permutation from either key
+   format; per-tile start and count come from ``torch.searchsorted`` on the
+   tile boundaries in the key's own type. The sort's permutation and
    kernel A's per-gaussian ranges are kept: the backward writes instance
    gradients back in kernel A's gaussian-major order, where each gaussian's
    rows are contiguous.
@@ -83,11 +86,11 @@ def _sorted_runs(
     n_runs: int, grid_hw: tuple[int, int],
 ) -> TileInstances:
     """Kernel A's output -> per-tile runs: one stable key sort, then the
-    run boundaries of the ``n_runs`` (view, tile) ids by ``searchsorted``."""
+    run boundaries of the ``n_runs`` (view, tile) ids by ``searchsorted``:
+    the high 32 bits of a 64-bit key, the whole of a tile-only key."""
     sorted_keys, perm = torch.sort(keys, stable=True)
-    bounds = torch.searchsorted(
-        sorted_keys, torch.arange(n_runs + 1, dtype=torch.int64, device=keys.device) << 32
-    )
+    edges = torch.arange(n_runs + 1, dtype=keys.dtype, device=keys.device)
+    bounds = torch.searchsorted(sorted_keys, edges << 32 if keys.dtype == torch.int64 else edges)
     return TileInstances(
         gaussian_id=gid[perm],
         starts=bounds[:-1].int(),
@@ -116,19 +119,18 @@ def grouped_expand_inputs(
     +inf and sort last), cut into contiguous groups of ``group_slots`` depth
     ranks. Returns ``order`` (G,) int64, the gaussian at each depth rank, and
     per group the argument tuple of ``expand_tiles`` / ``expand_plain``:
-    slices of the rank-ordered cull fields, slots counted from the group's
-    first rank."""
+    slices of the rank-ordered cull fields and no slots (``None``: the
+    gaussians stand in rank order, so kernel A writes tile-only keys)."""
     if sg.depth.shape[0] != 1:
         raise ValueError("the grouped layout takes one view at a time")
     g = sg.depth.shape[1]
     grid_y, grid_x = tile_grid(image_shape)
     order = torch.sort(sg.depth.detach().reshape(-1), stable=True).indices
     fields = [t[order] for t in _cull_fields(sg)]
-    slot = torch.arange(min(group_slots, g), dtype=torch.int64, device=order.device)
     per_group = []
     for g0 in range(0, g, group_slots):
         n = min(group_slots, g - g0)
-        per_group.append((*(t[g0 : g0 + n] for t in fields), slot[:n], n, grid_x, grid_y * grid_x))
+        per_group.append((*(t[g0 : g0 + n] for t in fields), None, n, grid_x, grid_y * grid_x))
     return order, per_group
 
 

@@ -24,6 +24,8 @@ from my_depthsplat_torch.render.instances import (
     build_tile_instances,
     build_tile_instances_grouped,
     expand_inputs,
+    group_layout,
+    grouped_expand_inputs,
 )
 from my_depthsplat_torch.render.pallas_raster import (
     BwdCarry,
@@ -44,7 +46,7 @@ from my_depthsplat_torch.render.pallas_raster import (
 )
 from my_depthsplat_torch.render.projection import project_gaussians
 
-from test_torch_scenes import occluded_scene
+from test_torch_scenes import expansion_fields, occluded_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -90,6 +92,62 @@ def test_kernels_match_plain_versions(card, seed):
     assert (img_k - img_p).abs().max().item() <= 1e-4
     assert (t_k - t_p).abs().max().item() <= 1e-4
     assert (n_k == n_p).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize(
+    "kind,n",
+    [("mixed", 700), ("mixed", 256), ("mixed", 1), ("whole-grid", 300), ("one-tile", 1000), ("one-tile+whole-grid", 512)],
+)
+def test_expand_kernel_on_extreme_rects(card, kind, n):
+    """Kernel A vs expand_plain, keys, ids, offsets and counts identical,
+    with 64-bit keys over two views (slots a seeded permutation) and with
+    tile-only keys of one rank-ordered view: rects over the whole 20x30 grid
+    (600 candidates each, more than a dense write block's chunk of 1024
+    candidates in two gaussians), one-tile rects (sparse write blocks),
+    both in one launch, and a mix with conics that are not positive
+    definite, invalid and culled gaussians; N a multiple of the block's 256
+    gaussians or not."""
+    if "+" in kind:
+        parts = [expansion_fields(n + k, n // 2, (20, 30), part) for k, part in enumerate(kind.split("+"))]
+        fields = [torch.cat(f).to(card) for f in zip(*parts)]
+    else:
+        fields = [f.to(card) for f in expansion_fields(n, n, (20, 30), kind)]
+    slot = torch.from_numpy(np.random.default_rng(n).permutation(n)).to(card)
+    before = expand_tiles.launches, expand_tiles.write_launches
+    for args in ((*fields, slot, max(n // 2, 1), 30, 600), (*fields, None, n, 30, 600)):
+        got, want = expand_tiles(*args), expand_plain(*args)
+        torch.cuda.synchronize()
+        assert got[0].numel() > 0
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert (expand_tiles.launches, expand_tiles.write_launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("case", ["projected", "mixed"])
+def test_tile_key_layout_equals_64bit_layout(card, case):
+    """On the card, every depth group's layout from kernel A's tile-only
+    keys equals the layout from its 64-bit keys ``tile << 32 | slot``, field
+    for field: a dense projected view in groups of 128, and the mixed
+    synthetic fields in groups of 256 (a ragged last group)."""
+    if case == "projected":
+        sg, _, shape = _screen(card, 4, b=1, g=1500, max_scale=0.35)
+        per_group = grouped_expand_inputs(sg, shape, 128)[1]
+    else:
+        shape = (320, 480)
+        fields = [f.to(card) for f in expansion_fields(6, 700, (20, 30), "mixed")]
+        per_group = [
+            (*(f[g0 : g0 + 256] for f in fields), None, min(256, 700 - g0), 30, 600) for g0 in range(0, 700, 256)
+        ]
+    first = 0
+    for k, args in enumerate(per_group):
+        n = args[0].shape[0]
+        got = group_layout(args, first, shape)
+        want = group_layout((*args[:5], torch.arange(n, device=card), *args[6:]), first, shape)
+        torch.cuda.synchronize()
+        for f in ("perm", "gaussian_id", "starts", "counts", "offset", "per_gaussian"):
+            x, y = getattr(got, f), getattr(want, f)
+            assert x.dtype == y.dtype and torch.equal(x, y), f"group {k}: {f}"
+        first += n
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -311,6 +369,9 @@ def test_wrappers_refuse_wrong_arguments(card):
         composite_bwd_chained(*bargs, n_c.float(), g_img, carry, shape)
     with pytest.raises(ValueError, match="carry.ta"):
         composite_bwd_chained(*bargs, n_c, g_img, carry._replace(ta=carry.ta.cpu()), shape)
+    flat = expand_inputs(sg, shape)
+    with pytest.raises(ValueError, match="one view"):
+        expand_tiles(*flat[:5], None, *flat[6:])  # tile-only keys of two views
 
 
 # (live range, instances) of each 16x16 tile of a 16x112 view: a dense tile

@@ -36,6 +36,55 @@ def occluded_scene(seed=0, g_far=150, h=32, w=48):
     ), (h, w)
 
 
+def expansion_fields(seed, n, grid_hw=(20, 30), kind="mixed"):
+    """Seeded cull fields (xy, conic, opacity, rect, valid; CPU tensors) of
+    ``n`` gaussians, taken as one view in depth-rank order, for kernel A on a
+    ``grid_hw`` tile grid. ``kind``: "mixed" (splats of 1 or 3 tiles a side in
+    the left two thirds, so the right third holds empty tiles; every 7th a
+    narrow splat whose rect spans the whole grid, every 5th a one-tile rect,
+    every 11th of the others a conic that is not positive definite, every 13th invalid,
+    every 17th fainter than the composite's alpha gate), "whole-grid" (every
+    rect spans the grid: more candidates per gaussian than a block's chunk
+    of 256) or "one-tile" (every rect is one tile)."""
+    rng = np.random.default_rng(seed)
+    gy, gx = grid_hw
+    idx = np.arange(n)
+    cx = rng.uniform(0, gx * 16 * 2 / 3, n)
+    cy = rng.uniform(0, gy * 16, n)
+    sig = rng.uniform(2.0, 16.0, n)
+    ang = rng.uniform(0, np.pi, n)
+    s1, s2 = sig, sig * rng.uniform(0.3, 1.0, n)
+    c, s = np.cos(ang), np.sin(ang)
+    cov = np.stack([c * c * s1**2 + s * s * s2**2, c * s * (s1**2 - s2**2), s * s * s1**2 + c * c * s2**2], -1)
+    det = cov[:, 0] * cov[:, 2] - cov[:, 1] ** 2
+    conic = np.stack([cov[:, 2] / det, -cov[:, 1] / det, cov[:, 0] / det], -1)
+    half = rng.integers(1, 3, n)  # rects of 1 or 3 tiles a side
+    tx, ty = (cx // 16).astype(np.int64), (cy // 16).astype(np.int64)
+    rect = np.stack([tx - half + 1, ty - half + 1, tx + half, ty + half], -1)
+    rect = np.clip(rect, 0, [gx, gy, gx, gy])
+    opac = rng.uniform(0.05, 0.99, n)
+    valid = np.ones(n, bool)
+    if kind == "mixed":
+        whole, one = idx % 7 == 3, idx % 5 == 1
+        rect[whole] = [0, 0, gx, gy]
+        rect[one] = np.stack([tx, ty, tx + 1, ty + 1], -1)[one]
+        conic[(idx % 11 == 2) & ~whole] = [0.05, 0.2, 0.05]  # b^2 > ac: never culled
+        valid[idx % 13 == 4] = False
+        opac[idx % 17 == 6] = 1e-3  # below 1/255: every positive-definite candidate culled
+    elif kind == "whole-grid":
+        rect[:] = [0, 0, gx, gy]
+    elif kind == "one-tile":
+        rect = np.stack([tx, ty, tx + 1, ty + 1], -1)
+    else:
+        raise ValueError(kind)
+    valid &= (rect[:, 2] > rect[:, 0]) & (rect[:, 3] > rect[:, 1])
+    f32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))  # noqa: E731
+    return (
+        f32(np.stack([cx, cy], -1)), f32(conic), f32(opac),
+        torch.from_numpy(np.ascontiguousarray(rect, np.int32)), torch.from_numpy(valid),
+    )
+
+
 def test_occluded_scene_is_opaque():
     """The near layer alone covers the view: rendered through the port on the
     CPU over a white and over a black background, every pixel's images differ
