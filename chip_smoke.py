@@ -51,7 +51,8 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    the 56-view binning of the training batch (4,128,768 gaussians, about
    10.7 M instances) under the trained model;
 11. serving path of configs/re10k_720p_fast.yaml at full width (slice 3): the
-   UniMatch encoder (ViT-B, two scales, 128 candidates, float32) on 12
+   UniMatch encoder (ViT-B, two scales, 128 candidates; the YAML's encoder
+   section with its precision policy off, float32) on 12
    seeded context views at 512x960, then decode_splatting of 2 target views
    at 512x960 from 5,898,240 gaussians through the depth-grouped route, for
    3 requests after one warm-up, counters 0 just before and read just after:
@@ -147,7 +148,33 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    gradient-accumulation microbatches): one warm-up and 3 steps on the flat
    route, kernels A-D launched once per microbatch, none of the chained
    ones, loss falling; kernels A, B, C and D timed at one microbatch's
-   shapes (16 views at 256x256).
+   shapes (16 views at 256x256);
+18. (run first, after the build, so that its peak memory is its own)
+   configs/re10k_720p_fast.yaml served through the port's CLI,
+   my_depthsplat_torch.main.main(["--config", <the YAML>, overrides]): a
+   seeded synthetic re10k test chunk (4 scenes of 14 JPEG frames at
+   720x1280, cameras as phase 11's) and an evaluation index (context frames
+   0-11, targets 12-13) are written under build/, and only dataset.roots,
+   dataset.view_sampler_args.index_path, output_dir and
+   test.eval_time_skip_steps=1 are overridden, so the YAML's own loader,
+   evaluation sampler, crop shim (Lanczos x0.75 to 540x960, then the centre
+   512x960), patch shim, precision policy, grouped render and run_test
+   serve 12 x 512x960 views a scene. Twice, with the same seed: as the
+   YAML stands (bf16) and with encoder.compute_dtype and
+   sweep_gather_dtype float32, counters 0 just before and read just after
+   each (kernel A's both passes and the chained composite must have
+   launched, the flat composite not at all). Checks: scores_all_avg.json
+   (psnr, ssim), benchmark.json (4 encoder and 8 decoder entries),
+   peak_memory.json and 2 PNGs a scene written; the encoder's depths and
+   means and the renders finite; bf16 vs float32 over the 4 scenes: the
+   depths' median relative error < 2 % and the means' median error < 2 %
+   of their largest magnitude (the JAX package's bf16 bound,
+   tests/test_models.py::test_encoder_bf16_compute_parity). Prints for
+   each precision run_test's encoder ms and decode ms per target view
+   (its summary, which skips the first entry of each tag, and scenes 2-4
+   from benchmark.json), the encoder by part (one more pass on the last
+   scene), the peak GiB of the card's allocator, and the PSNR of the bf16
+   render against the float32 one.
 
 The line before the card line is a JSON object {"kernels": [...]}; the card
 line is nvidia-smi's name and power limit; the last line is
@@ -164,6 +191,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from unittest import mock
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -196,6 +224,14 @@ MAX_INSTANCES_PER_VIEW = 300_000_000
 # training re10k_720p_fast: from this many context views every view of 491,520
 # gaussians per view and prediction stays on the grouped route (>= 2^21)
 RE10K_TRAIN_MIN_CONTEXT = 5
+# serving through the CLI: configs/re10k_720p_fast.yaml as it stands (bf16) and
+# with its precision policy off; a synthetic re10k test chunk of CLI_SCENES
+# scenes of 14 JPEG frames at 720x1280 (context 0-11, targets 12-13)
+REPO = Path(__file__).resolve().parent
+RE10K_YAML = REPO / "configs" / "re10k_720p_fast.yaml"
+FLOAT32 = ["encoder.compute_dtype=float32", "encoder.sweep_gather_dtype=float32"]
+CLI_SCENES = 4
+CLI_RAW_SHAPE = (720, 1280)
 # configs/re10k_small.yaml: B = 8 as 2 microbatches, 2 context + 4 targets at 256x256
 SMALL_SHAPE = (256, 256)
 SMALL_BATCH, SMALL_ACCUM = 8, 2
@@ -591,10 +627,10 @@ def gated_hits(torch, rows, inst, n_c):
     return int(hits)
 
 
-def re10k_views(torch, rng, v, dev):
+def re10k_cameras(rng, v):
     """Cameras strung along a line (a walk through a room), each turned a
-    little, looking down +z (c2w); normalized 16:9 intrinsics; near 0.5, far
-    100 as configs/re10k_720p_fast.yaml. No two are equally far from a third."""
+    little, looking down +z: c2w extrinsics (1, v, 4, 4) and normalized 16:9
+    intrinsics (1, v, 3, 3). No two are equally far from a third."""
     import numpy as np
 
     extr = np.tile(np.eye(4, dtype=np.float32), (1, v, 1, 1))
@@ -607,6 +643,15 @@ def re10k_views(torch, rng, v, dev):
     extr[..., 1, 3] = rng.uniform(-0.05, 0.05, (1, v))
     extr[..., 2, 3] = rng.uniform(-0.1, 0.1, (1, v))
     intr = np.tile(np.array([[0.5, 0, 0.5], [0, 0.889, 0.5], [0, 0, 1]], np.float32), (1, v, 1, 1))
+    return extr, intr
+
+
+def re10k_views(torch, rng, v, dev):
+    """``re10k_cameras`` on the card with near 0.5, far 100 as
+    configs/re10k_720p_fast.yaml."""
+    import numpy as np
+
+    extr, intr = re10k_cameras(rng, v)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
     return {
         "extrinsics": t(extr), "intrinsics": t(intr),
@@ -615,15 +660,50 @@ def re10k_views(torch, rng, v, dev):
 
 
 def re10k_encoder_cfg():
-    """configs/re10k_720p_fast.yaml, encoder section. Its compute_dtype and
-    sweep_gather_dtype (bfloat16) are the JAX package's precision policy,
-    which the port does not have: float32 throughout."""
-    from my_depthsplat_torch.models import EncoderDepthSplatCfg
+    """configs/re10k_720p_fast.yaml's encoder section with its precision
+    policy off (float32), as the slices before the CLI serve and train it."""
+    from my_depthsplat_torch.config import load_config
 
-    return EncoderDepthSplatCfg(
-        depth_branch="unimatch", num_scales=2, upsample_factor=4, lowest_feature_resolution=8,
-        num_depth_candidates=128, costvolume_unet_feat_dim=128, monodepth_vit_type="vitb",
-    )
+    return load_config(RE10K_YAML, FLOAT32).encoder
+
+
+def write_re10k_test_chunk(torch, root):
+    """A seeded re10k test chunk under ``root``: CLI_SCENES scenes of 14
+    JPEG frames at 720x1280 (smooth random images: 45x80 noise upsampled),
+    cameras as ``re10k_cameras`` (12 context along the line, then 2
+    targets), and an evaluation index with context frames 0-11 and targets
+    12-13. Returns the CLI overrides that point the YAML at them."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(800)
+    (root / "re10k" / "test").mkdir(parents=True)
+    scenes, index = [], {}
+    h, w = CLI_RAW_SHAPE
+    for s in range(CLI_SCENES):
+        c2w, intr = (np.concatenate(x, axis=1) for x in zip(re10k_cameras(rng, 12), re10k_cameras(rng, 2)))
+        w2c = np.linalg.inv(c2w[0])
+        cams = np.zeros((14, 18), np.float32)
+        cams[:, :4] = intr[0][:, [0, 1, 0, 1], [0, 1, 2, 2]]
+        cams[:, 6:] = w2c[:, :3].reshape(14, 12)
+        images = []
+        for _ in range(14):
+            noise = (rng.uniform(0, 1, (45, 80, 3)) * 255).astype(np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(noise).resize((w, h), Image.BICUBIC).save(buf, format="JPEG", quality=90)
+            images.append(torch.frombuffer(bytearray(buf.getvalue()), dtype=torch.uint8))
+        key = f"cli{s}"
+        scenes.append({"key": key, "cameras": torch.from_numpy(cams), "images": images})
+        index[key] = {"context": list(range(12)), "target": [12, 13]}
+    torch.save(scenes, root / "re10k" / "test" / "000000.torch")
+    (root / "index.json").write_text(json.dumps(index))
+    return [
+        f"dataset.roots=[{root / 're10k'}]",
+        f"dataset.view_sampler_args.index_path={root / 'index.json'}",
+        "test.eval_time_skip_steps=1",
+    ]
 
 
 def project_view(torch, gaussians, views, view, shape):
@@ -644,6 +724,49 @@ def project_view(torch, gaussians, views, view, shape):
     )
 
 
+def encoder_by_part(torch, encoder, context):
+    """ms of one UniMatch encoder pass by part, each part's forward timed on
+    the host clock between synchronises, and the whole pass ("whole")."""
+    from my_depthsplat_torch.models import unimatch as unimatch_mod
+
+    def lap(fn):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t_a) * 1e3
+
+    parts: dict[str, float] = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            result, ms = lap(lambda: fn(*a, **k))
+            parts[name] = parts.get(name, 0.0) + ms
+            return result
+        return run
+
+    dp = encoder.depth_predictor
+    hooked = (
+        ("cnn", dp.backbone), ("transformer", dp.transformer), ("vit", dp.pretrained),
+        ("pyramids", dp.mv_pyramid), ("pyramids", dp.mono_pyramid), ("unets", dp.regressor[0]),
+        ("unets", dp.regressor[1]), ("upsampler", dp.upsampler),
+        ("regressor/head", encoder.gaussian_regressor), ("regressor/head", encoder.gaussian_head),
+    )
+    with torch.no_grad(), contextlib.ExitStack() as stack:
+        for name, mod in hooked:
+            stack.enter_context(mock.patch.object(mod, "forward", timed(name, mod.forward)))
+        stack.enter_context(
+            mock.patch.object(
+                unimatch_mod, "plane_sweep_correlation",
+                timed("cost volumes", unimatch_mod.plane_sweep_correlation),
+            )
+        )
+        _, whole = lap(lambda: encoder(context))
+    parts["other"] = whole - sum(parts.values())
+    parts["whole"] = whole
+    return parts
+
+
 def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
     """Phases 11-12 and the chained composite's and kernel A's timings at
     the re10k shapes: returns the launch counts of the serving run, the
@@ -652,7 +775,6 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
     import numpy as np
 
     from my_depthsplat_torch.models import DecoderSplattingCfg, EncoderDepthSplat, decode_splatting
-    from my_depthsplat_torch.models import unimatch as unimatch_mod
     from my_depthsplat_torch.render import pallas_raster as raster_mod
     from my_depthsplat_torch.render.camera import TILE_X, TILE_Y
     from my_depthsplat_torch.render.expand import count_pass, expand_plain, expand_tiles
@@ -791,36 +913,10 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
         del served, out, dec
 
         # encoder time by part: one more pass with synchronising hooks
-        parts: dict[str, float] = {}
-
-        def timed(name, fn):
-            def run(*a, **k):
-                result, ms = lap(lambda: fn(*a, **k))
-                parts[name] = parts.get(name, 0.0) + ms
-                return result
-            return run
-
-        dp = encoder.depth_predictor
-        hooked = (
-            ("cnn", dp.backbone), ("transformer", dp.transformer), ("vit", dp.pretrained),
-            ("pyramids", dp.mv_pyramid), ("pyramids", dp.mono_pyramid), ("unets", dp.regressor[0]),
-            ("unets", dp.regressor[1]), ("upsampler", dp.upsampler),
-            ("regressor/head", encoder.gaussian_regressor), ("regressor/head", encoder.gaussian_head),
-        )
-        with contextlib.ExitStack() as stack:
-            for name, mod in hooked:
-                stack.enter_context(mock.patch.object(mod, "forward", timed(name, mod.forward)))
-            stack.enter_context(
-                mock.patch.object(
-                    unimatch_mod, "plane_sweep_correlation",
-                    timed("cost volumes", unimatch_mod.plane_sweep_correlation),
-                )
-            )
-            _, whole = lap(lambda: encoder(requests[0][0]))
-        parts["other"] = whole - sum(parts.values())
+        parts = encoder_by_part(torch, encoder, requests[0][0])
         print(
-            f"re10k_720p_fast encoder by part (host clock around synchronised parts, one pass, {whole:.1f} ms): "
-            + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f" ms on {card}"
+            f"re10k_720p_fast encoder by part (host clock around synchronised parts, one pass, "
+            f"{parts.pop('whole'):.1f} ms): " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f" ms on {card}"
         )
         del encoder
         torch.cuda.empty_cache()
@@ -1598,6 +1694,130 @@ def train_re10k_small(torch, dev, card, reset_counters, read_counters):
     return launches, timing
 
 
+def serve_cli(torch, card, reset_counters, read_counters):
+    """Phase 18: configs/re10k_720p_fast.yaml served through the port's CLI
+    (``my_depthsplat_torch.main.main``: load_config, the re10k reader, the
+    evaluation sampler, the crop and patch shims, the encoder under the
+    precision policy, the grouped render, run_test), once as the YAML
+    stands (bf16) and once with the policy off (float32), same seed. The
+    encoder's depths and means and the renders are copied to pinned host
+    buffers, asynchronously, as each call returns (inside its timed block).
+    Returns the launch counts and the printed figures of both runs."""
+    import shutil
+
+    import numpy as np
+
+    from my_depthsplat_torch import main as cli
+    from my_depthsplat_torch.eval import compute_psnr
+    from my_depthsplat_torch.eval import runner as runner_mod
+    from my_depthsplat_torch.models.precision import cast_network_inputs, resolve_dtype
+
+    root = REPO / "build" / "serve_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    h, w = RE10K_SHAPE
+    n_gauss = RE10K_CONTEXT * h * w
+    real_apply, real_decode = cli.apply_with_precision, runner_mod.decode_splatting
+    runs = {}
+    try:
+        data = write_re10k_test_chunk(torch, root)
+        for name, extra in (("bfloat16", []), ("float32", FLOAT32)):
+            shapes = {"depths": (1, RE10K_CONTEXT, h, w), "means": (1, n_gauss, 3), "color": (1, RE10K_TARGET, h, w, 3)}
+            host = {k: [torch.empty(v, pin_memory=True) for _ in range(CLI_SCENES)] for k, v in shapes.items()}
+            seen = {k: 0 for k in shapes}
+            last = {}
+
+            def keep(key, t):
+                host[key][seen[key]].copy_(t, non_blocking=True)
+                seen[key] += 1
+
+            def recording_apply(model, compute_dtype, context, **kwargs):
+                last["call"] = (model, compute_dtype, context)
+                out = real_apply(model, compute_dtype, context, **kwargs)
+                keep("depths", out["depths"])
+                keep("means", out["gaussians"].means)
+                return out
+
+            def recording_decode(*args, **kwargs):
+                dec = real_decode(*args, **kwargs)
+                keep("color", dec.color)
+                return dec
+
+            out_dir = root / name
+            with mock.patch.object(cli, "apply_with_precision", recording_apply), \
+                    mock.patch.object(runner_mod, "decode_splatting", recording_decode):
+                reset_counters()
+                t_a = time.perf_counter()
+                result = cli.main(["--config", str(RE10K_YAML), *data, f"output_dir={out_dir}", *extra])
+                wall = time.perf_counter() - t_a
+                launches = read_counters()
+            torch.cuda.synchronize()
+            check(seen == {k: CLI_SCENES for k in shapes}, f"CLI {name}: recorded {seen}")
+            for k, bufs in host.items():
+                check(all(bool(torch.isfinite(b).all()) for b in bufs), f"CLI {name}: non-finite {k}")
+            test_dir = out_dir / "test"
+            avg = json.loads((test_dir / "scores_all_avg.json").read_text())
+            check(set(avg) == {"psnr", "ssim"} and all(np.isfinite(v) for v in avg.values()), f"CLI {name}: scores {avg}")
+            bench = json.loads((test_dir / "benchmark.json").read_text())
+            check(len(bench["encoder"]) == CLI_SCENES and len(bench["decoder"]) == CLI_SCENES * RE10K_TARGET,
+                  f"CLI {name}: benchmark.json {({k: len(v) for k, v in bench.items()})}")
+            memory = json.loads((test_dir / "peak_memory.json").read_text())["device_0"]
+            pngs = sorted(p.relative_to(test_dir).as_posix() for p in test_dir.glob("*/color/*.png"))
+            check(len(pngs) == CLI_SCENES * RE10K_TARGET, f"CLI {name}: {len(pngs)} PNGs")
+            check(launches["expand"] > 0 and launches["expand_write"] > 0 and launches["composite_fwd_chained"] > 0,
+                  f"CLI {name}: kernel A or the chained composite did not launch: {launches}")
+            check(launches["composite_fwd"] == 0, f"CLI {name}: the flat composite launched at G >= 2^21: {launches}")
+            # the last scene's encoder again, by part (the module run_test served)
+            model, compute_dtype, context = last.pop("call")
+            parts = encoder_by_part(torch, *cast_network_inputs(model, context, resolve_dtype(compute_dtype)))
+            del model, context
+            print(
+                f"CLI re10k_720p_fast encoder by part, {name} (host clock around synchronised parts, one pass, "
+                f"{parts['whole']:.1f} ms): " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items() if k != "whole")
+                + f" ms on {card}"
+            )
+            # run_test's summary skips its first entry of each tag: the first
+            # scene's encoder, but only half of its decode (one entry per view)
+            runs[name] = {
+                "encoder_by_part_ms": parts,
+                "summary_encoder_ms": result["timing"]["encoder"] * 1e3,
+                "summary_decode_ms_per_view": result["timing"]["decoder"] * 1e3,
+                "encoder_ms": statistics.mean(bench["encoder"][1:]) * 1e3,
+                "decode_ms_per_view": statistics.mean(bench["decoder"][RE10K_TARGET:]) * 1e3,
+                "peak_gib": memory["max_memory_allocated"] / 2**30,
+                "wall_s": wall, "scores": result["scores"], "launches": launches, "host": host,
+            }
+            r = runs[name]
+            print(
+                f"CLI serving re10k_720p_fast, {name}: run_test's summary (first entry of each tag skipped) "
+                f"encoder {r['summary_encoder_ms']:.1f} ms, decode {r['summary_decode_ms_per_view']:.1f} ms per "
+                f"target view; scenes 2-{CLI_SCENES} (benchmark.json) encoder {r['encoder_ms']:.1f} ms, decode "
+                f"{r['decode_ms_per_view']:.1f} ms per target view ({RE10K_TARGET} a scene); peak "
+                f"{r['peak_gib']:.2f} GiB; {CLI_SCENES} scenes in {wall:.1f} s wall; psnr {avg['psnr']:.3f} ssim "
+                f"{avg['ssim']:.4f} against the target images (random weights); launches {launches} on {card}"
+            )
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    bf, f32 = runs["bfloat16"]["host"], runs["float32"]["host"]
+    d_bf, d_f32 = torch.stack(bf["depths"]), torch.stack(f32["depths"])
+    depth_rel = float(((d_bf - d_f32).abs() / d_f32.abs()).median())
+    m_bf, m_f32 = torch.stack(bf["means"]), torch.stack(f32["means"])
+    means_rel = float((m_bf - m_f32).abs().median() / m_f32.abs().max())
+    c_bf = torch.stack(bf["color"]).reshape(-1, h, w, 3)
+    c_f32 = torch.stack(f32["color"]).reshape(-1, h, w, 3)
+    render_psnr = float(compute_psnr(c_f32, c_bf).mean())
+    print(
+        f"CLI bf16 vs float32 over {CLI_SCENES} scenes: depth median relative error {depth_rel:.5f} (limit 0.02), "
+        f"means median error / max |mean| {means_rel:.6f} (limit 0.02), bf16 render vs float32 render "
+        f"PSNR {render_psnr:.2f} dB"
+    )
+    check(depth_rel < 0.02, f"CLI bf16 depth median relative error {depth_rel} >= 0.02")
+    check(means_rel < 0.02, f"CLI bf16 means median error {means_rel} >= 0.02 of max |mean|")
+    for r in runs.values():
+        del r["host"]
+    return {**runs, "depth_median_rel": depth_rel, "means_median_rel": means_rel, "render_psnr_db": render_psnr}
+
+
 def main() -> int:
     import torch
 
@@ -1691,6 +1911,11 @@ def main() -> int:
                 mock.patch.object(raster_mod, "composite_bwd", composite_bwd_plain), \
                 mock.patch.object(raster_mod, "scatter_reduce", scatter_reduce_plain):
             yield
+
+    # ---- serving re10k_720p_fast through the CLI, bf16 and float32 (first:
+    # its peak memory is the CLI's own)
+    cli = serve_cli(torch, card, reset_counters, read_counters)
+    torch.cuda.empty_cache()
 
     # ---- serving path at full width (counters 0 just before, read just after)
     cfg = EncoderDepthSplatCfg(depth_branch="promptda", monodepth_vit_type="vits")
@@ -2007,6 +2232,8 @@ def main() -> int:
             "launches_training": train_launches["expand"], "launches_re10k": re10k_launches["expand"],
             "launches_re10k_training": re10k_train_launches["expand"], "launches_re10k_small": small_launches["expand"],
             "re10k_groups": expand_re10k, "re10k_trained_view_layouts": trained_layouts,
+            **{f"launches_cli_{k}": cli[k]["launches"]["expand"] for k in ("bfloat16", "float32")},
+            **{f"write_launches_cli_{k}": cli[k]["launches"]["expand_write"] for k in ("bfloat16", "float32")},
         },
         {
             "name": "composite_fwd", "route": "cuda", "source": "my_depthsplat_torch/csrc/composite_fwd.cu",
@@ -2032,7 +2259,8 @@ def main() -> int:
             "launches_re10k_small": small_launches["scatter_reduce"], "re10k_small": small_timing["scatter_reduce"],
         },
         {**chained_entry, "launches_re10k_training": re10k_train_launches["composite_fwd_chained"],
-         "re10k_training": chained_training},
+         "re10k_training": chained_training,
+         **{f"launches_cli_{k}": cli[k]["launches"]["composite_fwd_chained"] for k in ("bfloat16", "float32")}},
         row5_entry,
     ]
     print(json.dumps({"kernels": kernels}))

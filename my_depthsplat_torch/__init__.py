@@ -9,10 +9,15 @@ library only. Layout mirrors the reference package:
 - ``gaussians`` — pixel-aligned Gaussian parameterization + SH
 - ``render``    — tile rasterizer: projection, tile expansion (CUDA kernel),
   binning, tile composite (CUDA kernel)
-- ``models``    — DINOv2 ViT, PromptDA depth branch, encoder, decoder
-- ``ops``       — resizes and the CUDA build/load helper
+- ``models``    — DINOv2 ViT, PromptDA and UniMatch depth branches, encoder,
+  decoder, the bf16 precision policy
+- ``ops``       — resizes, the plane sweep and the CUDA build/load helper
 - ``convert``   — flax parameter trees -> the port's modules
 - ``csrc``      — CUDA C++ kernel sources, built with nvcc at first use
+- ``train``     — losses, LPIPS, optimizer, the training step, checkpoints
+- ``data``      — the re10k reader, view samplers, shims, the batch loader
+- ``eval``      — metrics, the benchmarker and the test-mode runner
+- ``config``, ``main`` — YAML configurations and the test-mode CLI
 
 Public entry points keep the reference's channels-last layout: images
 (B, V, H, W, 3), gaussians (B, G, ...). Internal modules are NCHW. Entry

@@ -16,6 +16,7 @@ from torch import Tensor
 from ..gaussians.types import Gaussians
 from ..render import DepthRenderingMode, render, render_depth
 from ..utils.shapes import assert_shapes, check_gaussians
+from .encoder import check_fixed_keys
 
 
 class DecoderOutput(NamedTuple):
@@ -29,6 +30,21 @@ class DecoderOutput(NamedTuple):
 @dataclass(frozen=True)
 class DecoderSplattingCfg:
     background_color: tuple[float, float, float] = (0.0, 0.0, 0.0)
+    # The JAX package's render route and its TPU layout budgets. The port has
+    # one route (the CUDA kernels, or their plain versions on CPU tensors)
+    # and allocates dynamically, so it accepts these at their defaults only.
+    backend: str = "auto"
+    instance_budget_per_gaussian: float | None = 6.0
+    big_tile_cap: int | None = None
+
+    def __post_init__(self) -> None:
+        check_fixed_keys(self, _TPU_ONLY)
+
+
+_WHY = "a TPU-only knob; ROADMAP.md: port the semantics, not the TPU workarounds"
+_TPU_ONLY = {
+    "backend": ("auto", _WHY), "instance_budget_per_gaussian": (6.0, _WHY), "big_tile_cap": (None, _WHY)
+}
 
 
 def decode_splatting(

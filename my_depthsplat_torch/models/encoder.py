@@ -20,10 +20,16 @@ losses.
 Submodule names follow the reference checkpoint (``depth_predictor``,
 ``gaussian_regressor.{0,2}``, ``gaussian_head.{0,2}``).
 
-Everything runs in float32. The JAX package's precision policy
-(``compute_dtype`` / ``sweep_gather_dtype: bfloat16``, which
-configs/re10k_720p_fast.yaml turns on) is not ported: the configuration has
-no such fields here, and ROADMAP.md queues them.
+The encoder computes in the dtype of its parameters and inputs: the
+drivers apply ``compute_dtype`` through ``models.precision.
+apply_with_precision`` (bf16 parameters and images, float32 cameras,
+float32 outputs), as the JAX package's drivers do. ``sweep_gather_dtype``
+rounds the plane sweep's gathered features to bf16 (``ops/grid_sample.py``).
+
+The configuration carries every key of the JAX package's, so the YAMLs in
+configs/ load; a key the port holds at one value (a constant below, or a
+feature not ported) is accepted at that value only, and any other raises
+naming the ROADMAP.md item that queues it.
 """
 
 from __future__ import annotations
@@ -47,15 +53,53 @@ from .unimatch import MultiViewUniMatch
 from .vit import VIT_CONFIGS
 
 
+# What every configuration of the reference leaves at its default.
+FEATURE_PROJ_CHANNELS = 64  # ViT features wider than this are 1x1-projected to it
+LOCAL_MV_MATCH = 2  # with more than 3 views, each matches its 2 nearest cameras
+ATTN_SPLITS = 2  # window splits per side in the multi-view transformer
+SUPERVISE_INTERMEDIATE_DEPTH = True  # training stacks every depth prediction's gaussians
+
+_UNREACHED = "queued in ROADMAP.md queue 1 item 10 (what no configuration reaches)"
+_MULTI_DEVICE = "queued in ROADMAP.md queue 1 item 11 (multi-device)"
+# JAX configuration key -> (the one value the port accepts, why)
+_FIXED_KEYS = {
+    "num_surfaces": (1, _UNREACHED),
+    "supervise_intermediate_depth": (SUPERVISE_INTERMEDIATE_DEPTH, _UNREACHED),
+    "return_depth": (True, _UNREACHED),
+    "costvolume_unet_channel_mult": ((1, 1, 1), _UNREACHED),
+    "multiview_trans_attn_split": (ATTN_SPLITS, _UNREACHED),
+    "regressor_feature_channels": (FEATURE_PROJ_CHANNELS, _UNREACHED),
+    "local_mv_match": (LOCAL_MV_MATCH, _UNREACHED),
+    "spmd_depth_axis": (None, _MULTI_DEVICE),
+    "spmd_view_axis": (None, _MULTI_DEVICE),
+    "sweep_mode": ("gather", _UNREACHED),
+    "sweep_window": (6, _UNREACHED),
+    "sweep_window_groups_scale0": (0, _UNREACHED),
+}
+DTYPES = ("float32", "bfloat16")
+
+
+def check_fixed_keys(cfg: Any, fixed: dict[str, tuple[Any, str]]) -> None:
+    """Raise where ``cfg`` sets a key of ``fixed`` to another value."""
+    for key, (value, why) in fixed.items():
+        got = getattr(cfg, key)
+        if (tuple(got) if isinstance(value, tuple) else got) != value:
+            raise NotImplementedError(
+                f"{type(cfg).__name__}.{key}={got!r}: the port supports {value!r} only ({why})"
+            )
+
+
 @dataclass(frozen=True)
 class EncoderDepthSplatCfg:
-    depth_branch: str = "promptda"
+    depth_branch: str = "unimatch"  # or "promptda"
     gaussian_adapter: GaussianAdapterCfg = field(
         default_factory=lambda: GaussianAdapterCfg(1e-10, 3.0, 2)
     )
+    num_surfaces: int = 1
     gaussian_regressor_channels: int = 64
     init_sh_input_img: bool = True
-    monodepth_vit_type: str = "vits"
+    supervise_intermediate_depth: bool = SUPERVISE_INTERMEDIATE_DEPTH
+    return_depth: bool = True
     # Depth-only pre-training (the depth loss in place of the render loss):
     # not ported yet; train.make_train_step refuses it.
     train_depth_only: bool = False
@@ -65,15 +109,31 @@ class EncoderDepthSplatCfg:
     lowest_feature_resolution: int = 4
     num_depth_candidates: int = 128
     costvolume_unet_feat_dim: int = 128
+    costvolume_unet_channel_mult: tuple[int, ...] = (1, 1, 1)
     costvolume_unet_attn_res: tuple[int, ...] = ()
+    multiview_trans_attn_split: int = ATTN_SPLITS
+    monodepth_vit_type: str = "vits"
+    regressor_feature_channels: int | None = FEATURE_PROJ_CHANNELS
+    local_mv_match: int = LOCAL_MV_MATCH
+    spmd_depth_axis: str | None = None
+    spmd_view_axis: str | None = None
+    # plane-sweep gather precision: "float32" (reference-exact) | "bfloat16"
+    sweep_gather_dtype: str = "float32"
+    sweep_mode: str = "gather"
+    sweep_window: int = 6
+    sweep_window_groups_scale0: int = 0
+    # Network compute precision, applied by the drivers
+    # (models.precision.apply_with_precision): "float32" | "bfloat16".
+    compute_dtype: str = "float32"
+    # the batch shim's crop multiple is shim_patch_size * downscale_factor
+    shim_patch_size: int = 4
+    downscale_factor: int = 4
 
-
-# What every configuration of the reference leaves at its default; they become
-# fields of the configuration when a ported configuration sets them.
-FEATURE_PROJ_CHANNELS = 64  # ViT features wider than this are 1x1-projected to it
-LOCAL_MV_MATCH = 2  # with more than 3 views, each matches its 2 nearest cameras
-ATTN_SPLITS = 2  # window splits per side in the multi-view transformer
-SUPERVISE_INTERMEDIATE_DEPTH = True  # training stacks every depth prediction's gaussians
+    def __post_init__(self) -> None:
+        check_fixed_keys(self, _FIXED_KEYS)
+        for key in ("compute_dtype", "sweep_gather_dtype"):
+            if getattr(self, key) not in DTYPES:
+                raise ValueError(f"{key}={getattr(self, key)!r}: one of {DTYPES}")
 
 
 def knn_view_indices(extrinsics: Tensor, k: int) -> Tensor:
@@ -132,6 +192,7 @@ class EncoderDepthSplat(nn.Module):
                 vit_type=cfg.monodepth_vit_type,
                 unet_channels=cfg.costvolume_unet_feat_dim,
                 unet_attn_resolutions=tuple(cfg.costvolume_unet_attn_res),
+                sweep_gather_dtype=cfg.sweep_gather_dtype,
             )
             if embed > FEATURE_PROJ_CHANNELS:
                 self.feature_proj = Conv(embed, FEATURE_PROJ_CHANNELS, 1, padding=0)
@@ -200,7 +261,7 @@ class EncoderDepthSplat(nn.Module):
         xy, _ = sample_image_grid((h, w), device=images.device)
         xy = xy.reshape(h * w, 1, 2)
         offset = torch.sigmoid(raw[..., :2])
-        pixel_size = images.new_tensor([1.0 / w, 1.0 / h])
+        pixel_size = torch.tensor([1.0 / w, 1.0 / h], device=images.device)  # float32 geometry
         xy_ray = xy[None, None] + (offset - 0.5) * pixel_size
 
         gaussians = adapt_gaussians(

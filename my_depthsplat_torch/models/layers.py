@@ -7,6 +7,13 @@ from an explicit ``torch.Generator``: lecun-normal kernels, zero biases,
 unit LayerNorm scales, and zero kernels where a layer is marked
 ``zero_init``; modules with parameters of their own implement
 ``init_extra(generator)``.
+
+Each layer computes in the promoted type of its input and its weights, as
+flax's layers do (``promote_dtype``): bf16 weights on a float32 input
+compute in float32, and torch, which would raise on the mismatch, is given
+both in that type. Norms take their statistics in float32 at least, as
+flax's ``_compute_stats`` does, and return the promoted type. In float32
+every cast is a no-op.
 """
 
 from __future__ import annotations
@@ -15,6 +22,22 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch import Tensor
+
+
+def promote(x: Tensor, weight: Tensor, bias: Tensor | None = None) -> tuple[Tensor, Tensor, Tensor | None]:
+    """x, weight and bias in their promoted floating type."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    return x.to(dt), weight.to(dt), None if bias is None else bias.to(dt)
+
+
+def norm_f32(fn, x: Tensor, shape, weight: Tensor, bias: Tensor, eps: float) -> Tensor:
+    """``fn(x, shape, weight, bias, eps)`` (``F.layer_norm``, ``F.group_norm``)
+    computed in float32, returned in the promoted type of x and the affine
+    parameters."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    return fn(x.float(), shape, weight.float(), bias.float(), eps).to(dt)
 
 
 class Conv(nn.Conv2d):
@@ -41,6 +64,21 @@ class Conv(nn.Conv2d):
         )
         self.zero_init = zero_init
 
+    def forward(self, x: Tensor) -> Tensor:
+        return self._conv_forward(*promote(x, self.weight, self.bias))
+
+
+class Conv1d(nn.Conv1d):
+    """Conv1d (1x1 projections over token sequences), dtype-promoting."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
+                 zero_init: bool = False):
+        super().__init__(in_channels, out_channels, kernel_size)
+        self.zero_init = zero_init
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self._conv_forward(*promote(x, self.weight, self.bias))
+
 
 class ConvTranspose(nn.ConvTranspose2d):
     """ConvTranspose2d(kernel=stride, padding=0) as used by the DPT resize."""
@@ -49,12 +87,19 @@ class ConvTranspose(nn.ConvTranspose2d):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride)
         self.zero_init = False
 
+    def forward(self, x: Tensor) -> Tensor:
+        x, w, b = promote(x, self.weight, self.bias)
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding)
+
 
 class Dense(nn.Linear):
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  zero_init: bool = False):
         super().__init__(in_features, out_features, bias=bias)
         self.zero_init = zero_init
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.linear(*promote(x, self.weight, self.bias))
 
 
 class ViewGroupNorm(nn.GroupNorm):
@@ -69,12 +114,16 @@ class ViewGroupNorm(nn.GroupNorm):
         bv, c, h, w = x.shape
         b = bv // views
         y = x.reshape(b, views, c, h * w).transpose(1, 2).reshape(b, c, views * h * w)
-        y = super().forward(y)
+        y = norm_f32(F.group_norm, y, self.num_groups, self.weight, self.bias, self.eps)
         return y.reshape(b, c, views, h * w).transpose(1, 2).reshape(bv, c, h, w)
 
 
-def LayerNorm(channels: int, eps: float = 1e-5) -> nn.LayerNorm:
-    return nn.LayerNorm(channels, eps=eps)
+class LayerNorm(nn.LayerNorm):
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__(channels, eps=eps)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return norm_f32(F.layer_norm, x, self.normalized_shape, self.weight, self.bias, self.eps)
 
 
 class MLP(nn.Module):

@@ -25,7 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch import Tensor
 
-from .layers import Conv, ViewGroupNorm
+from .layers import Conv, Conv1d, ViewGroupNorm
 
 
 class ResBlock(nn.Module):
@@ -55,9 +55,8 @@ class AttentionBlock(nn.Module):
         super().__init__()
         self.num_heads = max(channels // num_head_channels, 1)
         self.norm = ViewGroupNorm(32, channels)
-        self.qkv = nn.Conv1d(channels, 3 * channels, 1)
-        self.proj_out = nn.Conv1d(channels, channels, 1)
-        self.proj_out.zero_init = True
+        self.qkv = Conv1d(channels, 3 * channels)
+        self.proj_out = Conv1d(channels, channels, zero_init=True)
 
     def forward(self, x: Tensor, views: int) -> Tensor:
         bv, c, h, w = x.shape
@@ -65,7 +64,7 @@ class AttentionBlock(nn.Module):
         tokens = self.norm(x, views).reshape(b, views, c, h * w).transpose(1, 2).reshape(b, c, -1)
         ch = c // self.num_heads
         q, k, v = self.qkv(tokens).reshape(b * self.num_heads, 3 * ch, -1).split(ch, dim=1)
-        scale = ch**-0.25
+        scale = torch.tensor(float(ch), dtype=x.dtype).sqrt().sqrt().reciprocal()  # in x's dtype
         weight = torch.softmax(torch.einsum("bct,bcs->bts", q * scale, k * scale), dim=-1)
         out = self.proj_out(torch.einsum("bts,bcs->bct", weight, v).reshape(b, c, -1))
         return x + out.reshape(b, c, views, h * w).transpose(1, 2).reshape(bv, c, h, w)

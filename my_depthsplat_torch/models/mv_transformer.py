@@ -74,7 +74,7 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, mask: Tensor | None = None) -> Tens
     """Single-head attention over the second-to-last axis."""
     scores = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
     if mask is not None:
-        scores = scores + mask
+        scores = scores + mask.to(scores.dtype)
     return torch.softmax(scores, dim=-1) @ v
 
 

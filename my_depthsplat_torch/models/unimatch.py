@@ -19,9 +19,10 @@ channels-last. Submodule names follow the reference state dict
 ``regressor.{i}.{0,1,3,4}``, ``regressor_residual.{i}``,
 ``depth_head.{i}.{0,2}``, ``upsampler``).
 
-Left out, and queued in ROADMAP.md: the mesh-sharded variants (``spmd_*``),
-the window sweep (``sweep_mode="window"``) and the bfloat16 gather
-(``sweep_gather_dtype``).
+``sweep_gather_dtype="bfloat16"`` gathers the plane sweep's features as
+bf16 (``ops/grid_sample.py``). Left out, and queued in ROADMAP.md: the
+mesh-sharded variants (``spmd_*``) and the window sweep
+(``sweep_mode="window"``).
 """
 
 from __future__ import annotations
@@ -81,8 +82,12 @@ class MultiViewUniMatch(nn.Module):
         vit_type: str = "vits",
         unet_channels: int = 128,
         unet_attn_resolutions: tuple[int, ...] = (),
+        sweep_gather_dtype: str = "float32",
     ):
         super().__init__()
+        if sweep_gather_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"sweep_gather_dtype={sweep_gather_dtype!r}: 'float32' or 'bfloat16'")
+        self.gather_dtype = torch.bfloat16 if sweep_gather_dtype == "bfloat16" else None
         if num_scales not in (1, 2):
             raise ValueError(f"num_scales={num_scales}: one or two scales are supported")
         self.num_scales = num_scales
@@ -220,7 +225,7 @@ class MultiViewUniMatch(nn.Module):
             corr = plane_sweep_correlation(
                 src_feats.reshape(bv * m, c, hs, ws), per_pair(feats),
                 per_pair(intr_s.reshape(bv, 3, 3)), rel_pose.reshape(bv * m, 4, 4),
-                1.0 / per_pair(cand),
+                1.0 / per_pair(cand), gather_dtype=self.gather_dtype,
             )
             cost = (corr.reshape(bv, m, num_d, hs, ws) / c**0.5).mean(dim=1)
 

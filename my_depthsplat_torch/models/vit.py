@@ -17,6 +17,7 @@ import torch.nn as nn
 from torch import Tensor
 
 from ..ops.interpolate import resize_bicubic
+from .layers import Conv, Dense, LayerNorm
 
 
 @dataclass(frozen=True)
@@ -51,7 +52,7 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def normalize_imagenet(images: Tensor) -> Tensor:
-    """ImageNet normalisation of NCHW images."""
+    """ImageNet normalisation of NCHW images, in the images' dtype."""
     mean = images.new_tensor(IMAGENET_MEAN)[:, None, None]
     std = images.new_tensor(IMAGENET_STD)[:, None, None]
     return (images - mean) / std
@@ -60,7 +61,7 @@ def normalize_imagenet(images: Tensor) -> Tensor:
 class PatchEmbed(nn.Module):
     def __init__(self, dim: int, patch: int):
         super().__init__()
-        self.proj = nn.Conv2d(3, dim, patch, stride=patch)
+        self.proj = Conv(3, dim, patch, stride=patch, padding=0)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.proj(x).flatten(2).transpose(1, 2)  # (B, N, C)
@@ -83,8 +84,8 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Dense(dim, 3 * dim)
+        self.proj = Dense(dim, dim)
 
     def forward(self, x: Tensor) -> Tensor:
         b, n, c = x.shape
@@ -98,9 +99,9 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
+        self.fc1 = Dense(dim, hidden)
         self.act = nn.GELU()
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc2 = Dense(hidden, dim)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.fc2(self.act(self.fc1(x)))
@@ -110,10 +111,10 @@ class Block(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         c = cfg.embed_dim
-        self.norm1 = nn.LayerNorm(c, eps=1e-6)
+        self.norm1 = LayerNorm(c, eps=1e-6)
         self.attn = Attention(c, cfg.num_heads)
         self.ls1 = LayerScale(c, cfg.layerscale_init)
-        self.norm2 = nn.LayerNorm(c, eps=1e-6)
+        self.norm2 = LayerNorm(c, eps=1e-6)
         self.mlp = Mlp(c, int(c * cfg.mlp_ratio))
         self.ls2 = LayerScale(c, cfg.layerscale_init)
 
@@ -132,7 +133,7 @@ class DinoViT(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c))
         self.pos_embed = nn.Parameter(torch.zeros(1, base * base + 1, c))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
-        self.norm = nn.LayerNorm(c, eps=1e-6)
+        self.norm = LayerNorm(c, eps=1e-6)
 
     def init_extra(self, generator: torch.Generator) -> None:
         nn.init.normal_(self.cls_token, std=1e-6, generator=generator)

@@ -19,6 +19,14 @@ scale of a 512x960 view, 72 GB for the 24 pairs of 12 views), and its
 backward gathers each chunk's taps again. The warp's inputs (candidates,
 pose, intrinsics) get no gradient: the JAX package's callers feed it
 constants and stopped estimates.
+
+``gather_dtype=torch.bfloat16`` rounds the features to bf16 before the
+gather and the dot (the JAX package's ``sweep_gather_dtype``); bf16 features
+(bf16 network compute) are gathered as bf16 whatever the setting. The
+interpolation weights and the accumulation stay float32: each tap's bf16
+rows are widened to float32 for the dot, whose products of bf16 values are
+exact in float32, as the JAX package's ``preferred_element_type=float32``
+dot computes them. The backward is float32 only.
 """
 
 from __future__ import annotations
@@ -54,10 +62,11 @@ def _chunks(src, ref, intrinsics, pose, depth, clamp_min_depth):
     """Per chunk of pairs: its slice, the source features as pixel-major
     rows (k*HW, C), the reference rows (k, HW, C), and per bilinear tap the
     row index (k, D, HW) and the weight (k, D, HW), zero for a tap outside
-    the image."""
+    the image. The chunk is sized by the gathered rows' bytes in the
+    features' dtype."""
     n, d, h, w = depth.shape
     c = src.shape[1]
-    step = max(1, SWEEP_CHUNK_BYTES // (4 * d * h * w * c))
+    step = max(1, SWEEP_CHUNK_BYTES // (src.element_size() * d * h * w * c))
     for i in range(0, n, step):
         sl = slice(i, i + step)
         k = src[sl].shape[0]
@@ -96,9 +105,10 @@ class _PlaneSweep(torch.autograd.Function):
         out = []
         for _, table, ref_rows, taps in _chunks(src, ref, intrinsics, pose, depth, clamp_min_depth):
             k = ref_rows.shape[0]
-            cost = src.new_zeros(k, d, h * w)
+            ref_rows = ref_rows.float()
+            cost = ref_rows.new_zeros(k, d, h * w)
             for idx, wgt in taps:
-                vals = table[idx.reshape(-1)].reshape(k, d, h * w, c)
+                vals = table[idx.reshape(-1)].reshape(k, d, h * w, c).float()
                 cost = cost + torch.einsum("kpc,kdpc->kdp", ref_rows, vals) * wgt
             out.append(cost.reshape(k, d, h, w))
         return torch.cat(out)
@@ -106,6 +116,11 @@ class _PlaneSweep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_cost):
         src, ref, intrinsics, pose, depth = ctx.saved_tensors
+        if src.dtype != torch.float32:
+            raise NotImplementedError(
+                "plane_sweep_correlation's backward is float32 only: the bf16 training "
+                "step is queued in ROADMAP.md queue 1 item 2"
+            )
         n, d, h, w = depth.shape
         c = src.shape[1]
         g_cost = g_cost.reshape(n, d, h * w)
@@ -130,9 +145,14 @@ def plane_sweep_correlation(
     pose: Tensor,  # (N, 4, 4) reference camera -> source camera
     depth: Tensor,  # (N, D, H, W) depth candidates per reference pixel
     clamp_min_depth: float = 1e-3,
+    gather_dtype: torch.dtype | None = None,
 ) -> Tensor:
-    """sum_c ref[p, c] * bilinear(src)[warp_d(p), c] -> (N, D, H, W); not
-    divided by sqrt(C). The (N, D, H, W, C) warped tensor exists only for a
-    chunk of the N pairs at a time, one bilinear tap at a time, in the
-    forward and again in the backward."""
-    return _PlaneSweep.apply(src, ref, intrinsics, pose, depth, clamp_min_depth)
+    """sum_c ref[p, c] * bilinear(src)[warp_d(p), c] -> (N, D, H, W) in
+    src's dtype; not divided by sqrt(C). The (N, D, H, W, C) warped tensor
+    exists only for a chunk of the N pairs at a time, one bilinear tap at a
+    time, in the forward and again in the backward. ``gather_dtype=
+    torch.bfloat16`` gathers bf16 features (module docstring)."""
+    out_dtype = src.dtype
+    if gather_dtype == torch.bfloat16 or src.dtype == torch.bfloat16:
+        src, ref = src.to(torch.bfloat16), ref.to(torch.bfloat16)
+    return _PlaneSweep.apply(src, ref, intrinsics, pose, depth, clamp_min_depth).to(out_dtype)

@@ -23,6 +23,8 @@ class LossCfg:
     # Step from which LPIPS contributes (loss_lpips.py:46-48); the reference
     # experiments apply it from step 0.
     lpips_apply_after_step: int = 0
+    # LPIPS weights file (train/lpips_io.py); None: no LPIPS term or metric.
+    lpips_weights: str | None = None
     l1_loss: bool = False
     clamp_large_error: float = 0.0  # train_ignore_large_loss
     intermediate_loss_weight: float = 0.9

@@ -4,8 +4,8 @@ Port of my_depthsplat_tpu/train/lpips_io.py. Pretrained VGG/LPIPS weights
 do not ship with the repository, so the plumbing is load-if-present: when
 ``build_lpips`` is given a weights file the net is built and loaded;
 otherwise LPIPS stays off (with a warning when a file was named). The
-reference's ``loss.lpips_weights`` option names that file in its train
-loop, which is not ported yet; the caller passes the path here.
+configuration's ``loss.lpips_weights`` names that file (``main.test`` reads
+it for the LPIPS metric).
 """
 
 from __future__ import annotations

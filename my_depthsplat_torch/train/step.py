@@ -70,6 +70,12 @@ def make_train_step(
             "encoder.train_depth_only: the depth-only loss is queued in ROADMAP.md "
             "(module queue); only the render loss is ported"
         )
+    if (cfg.encoder.compute_dtype, cfg.encoder.sweep_gather_dtype) != ("float32", "float32"):
+        raise NotImplementedError(
+            f"encoder.compute_dtype={cfg.encoder.compute_dtype!r}, sweep_gather_dtype="
+            f"{cfg.encoder.sweep_gather_dtype!r}: the bf16 training step (float32 master "
+            "parameters) is queued in ROADMAP.md queue 1 item 2; training runs float32 only"
+        )
     dev = resolve_device(device)
 
     def init_fn(seed: int = 0) -> TrainState:

@@ -102,7 +102,7 @@ def test_slice_matches_jax(vitt):
     )
     assert int(dec_j.num_dropped) == 0
 
-    enc = EncoderDepthSplat(EncoderDepthSplatCfg(monodepth_vit_type=vitt), device="cpu")
+    enc = EncoderDepthSplat(EncoderDepthSplatCfg(depth_branch="promptda", monodepth_vit_type=vitt), device="cpu")
     load_flax_params(enc, params)
     with torch.no_grad():
         out_t = enc({k: torch.from_numpy(x) for k, x in ctx.items()})
@@ -128,7 +128,7 @@ def test_slice_matches_jax(vitt):
 def test_weight_round_trip(vitt):
     """port state_dict -> JAX converters (convert_promptda, convert_conv) ->
     load_flax_params gives back the same tensors."""
-    cfg = EncoderDepthSplatCfg(monodepth_vit_type=vitt)
+    cfg = EncoderDepthSplatCfg(depth_branch="promptda", monodepth_vit_type=vitt)
     src = EncoderDepthSplat(cfg, device="cpu", seed=1)
     sd = src.state_dict()
     pre = "depth_predictor."
@@ -149,7 +149,7 @@ def test_weight_round_trip(vitt):
 
 
 def test_seeded_init_is_deterministic_and_zero_rows(vitt):
-    cfg = EncoderDepthSplatCfg(monodepth_vit_type=vitt)
+    cfg = EncoderDepthSplatCfg(depth_branch="promptda", monodepth_vit_type=vitt)
     a = EncoderDepthSplat(cfg, device="cpu", seed=3).state_dict()
     b = EncoderDepthSplat(cfg, device="cpu", seed=3).state_dict()
     c = EncoderDepthSplat(cfg, device="cpu", seed=4).state_dict()

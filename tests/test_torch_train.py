@@ -228,7 +228,7 @@ def _to_torch(batch):
 def _train_cfg(vit_type, **kw):
     opt = OptimizerCfg(lr=2e-4, lr_monodepth=4e-6, total_steps=100)
     return TrainCfg(
-        encoder=EncoderDepthSplatCfg(monodepth_vit_type=vit_type),
+        encoder=EncoderDepthSplatCfg(depth_branch="promptda", monodepth_vit_type=vit_type),
         loss=LossCfg(lpips_weight=0.05, lpips_apply_after_step=0),
         optimizer=opt, **kw,
     )
