@@ -174,9 +174,46 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    (its summary, which skips the first entry of each tag, and scenes 2-4
    from benchmark.json), the encoder by part (one more pass on the last
    scene), the peak GiB of the card's allocator, and the PSNR of the bf16
-   render against the float32 one.
+   render against the float32 one;
+19. (after 18) configs/re10k_small.yaml trained through the CLI as it
+   stands (float32, B = 8 as 2 microbatches, 2 + 4 views at 256x256, LPIPS
+   0.05 with LPIPS(seed=1)'s weights written under build/): seeded
+   synthetic re10k train and test chunks (16 scenes of 32 and 2 of 48 JPEG
+   frames at 360x640), only the run's length overridden: 6 steps, validation every
+   3, the test split's evaluation at 6 on 2 scenes, a checkpoint every 3
+   kept to one; then checkpointing.resume=true to step 8. Counters 0 just
+   before and read just after each run: kernels A and B once per
+   microbatch, validation and test scene, C and D once per microbatch,
+   the chained ones never. Checks: metrics.jsonl with a finite loss/total
+   and grad_norm > 0 at steps 1-8, val/psnr at 3 and 6 and their panels,
+   finite test_step6 scores, one checkpoint kept after each run, the
+   resumed run's learning rates those of schedule_values at steps 6-7.
+   Prints each run's median step ms, peak GiB and wall time;
+20. configs/re10k_720p_fast.yaml fine-tuned in bf16 as its precision
+   policy sets it (float32 master parameters and AdamW): the first step's
+   loss at 6 context views within 2 % of float32's on the same batch and
+   weights; a memory probe of one bf16 step from 12 context views down to
+   6 (running out of memory is the probe's answer); then main.main on the
+   YAML with mode=train, the bounded sampler (boundedv2: the one that takes
+   a count of context views) set to the views that fit and 2 targets, on a
+   seeded train chunk (2 scenes of 16 JPEG frames at 720x1280), 1 + 3
+   steps, counters 0 just before and read just after: per rendered view,
+   kernel A and the chained forward for each group up to the first after
+   which no pixel is live (an independent walk over every group after
+   each step), A's count pass on the next group, and A, row 5 and D for
+   each live group in the backward. Checks: finite logs with grad_norm > 0
+   and loss/intermediate, master parameters float32 and all changed. One
+   step taken apart afterwards. Prints the views that fit, the step ms,
+   the encoder's forward and backward ms and the peak GiB;
+21. depth-only training of the PromptDA arm at the arkit_promptda shapes
+   (ViT-S, B = 14, 2 context views at 192x192, a seeded sparse 48x48 LiDAR
+   depth as prompt and GT): 1 + 2 steps, counters 0 just before and read
+   just after: every render kernel launched 0 times; loss finite, every
+   parameter changed.
 
-The line before the card line is a JSON object {"kernels": [...]}; the card
+Phases 18-21 run first, in that order, after the build; then 4-17. The
+line before the card line is a JSON object {"kernels": [...]} (with each
+kernel's launches on the paths of phases 19-21); the card
 line is nvidia-smi's name and power limit; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -235,6 +272,20 @@ CLI_RAW_SHAPE = (720, 1280)
 # configs/re10k_small.yaml: B = 8 as 2 microbatches, 2 context + 4 targets at 256x256
 SMALL_SHAPE = (256, 256)
 SMALL_BATCH, SMALL_ACCUM = 8, 2
+# training re10k_small through the CLI: synthetic re10k chunks at re10k's
+# 360x640; the train split holds two batches of scenes (the loader starts
+# each epoch's batches afresh) with room for the warm-up's context gaps of
+# 18-28 frames, the test split's bounded sampler takes context frames 0 and
+# 45 and every frame between as targets
+SMALL_YAML = REPO / "configs" / "re10k_small.yaml"
+SMALL_RAW_SHAPE = (360, 640)
+SMALL_TRAIN_SCENES, SMALL_TRAIN_FRAMES = 16, 32
+SMALL_TEST_SCENES, SMALL_TEST_FRAMES = 2, 48
+SMALL_CLI_STEPS, SMALL_CLI_RESUMED_STEPS = 6, 8
+# fine-tuning re10k_720p_fast in bf16 through the CLI: the memory probe goes
+# down to BF16_MIN_CONTEXT views; scenes of BF16_FRAMES frames at 720x1280
+BF16_MIN_CONTEXT = 6
+BF16_FRAMES = 16
 
 
 def fail(msg: str) -> None:
@@ -667,33 +718,118 @@ def re10k_encoder_cfg():
     return load_config(RE10K_YAML, FLOAT32).encoder
 
 
+def re10k_train_batch(torch, v, dev):
+    """A seeded re10k_720p_fast training batch: B = 1, ``v`` context views
+    and RE10K_TARGET targets at 512x960, random images."""
+    import numpy as np
+
+    h, w = RE10K_SHAPE
+    rng = np.random.default_rng(500)
+    batch = {"context": re10k_views(torch, rng, v, dev), "target": re10k_views(torch, rng, RE10K_TARGET, dev)}
+    for side, n in (("context", v), ("target", RE10K_TARGET)):
+        batch[side]["image"] = torch.from_numpy(rng.uniform(0, 1, (1, n, h, w, 3)).astype(np.float32)).to(dev)
+    return batch
+
+
+def fit_context_views(torch, card, label, state, train_step, make_batch, least):
+    """How many context views one training step fits in the card's memory:
+    RE10K_CONTEXT as configured, else the largest count from ``least`` that
+    fits (bisection). A step that runs out of memory is the probe's answer,
+    not a failure. Returns the count and the peak GiB of each probed count
+    (None: out of memory)."""
+
+    def peak_of_step(v):
+        batch = make_batch(v)
+        base = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            train_step(state, batch)
+            torch.cuda.synchronize()
+            peak, why = torch.cuda.max_memory_allocated() / 2**30, ""
+        except torch.cuda.OutOfMemoryError as err:
+            peak, why = None, str(err).split(". Of the allocated")[0]
+        del batch
+        state.optimizer.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(
+            f"{label}, memory probe: {v} context views -> "
+            + (f"out of memory ({why}; {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated at most)"
+               if peak is None else f"peak {peak:.2f} GiB") + f"; {base:.2f} GiB held before the step on {card}"
+        )
+        return peak
+
+    probes = {RE10K_CONTEXT: peak_of_step(RE10K_CONTEXT)}
+    v = RE10K_CONTEXT
+    if probes[v] is None:
+        lo, hi = least - 1, RE10K_CONTEXT  # lo: fits (sentinel); hi: does not
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            probes[mid] = peak_of_step(mid)
+            lo, hi = (mid, hi) if probes[mid] is not None else (lo, mid)
+        v = lo
+        check(v >= least, f"{label}: no training step from {least} context views fits: {probes}")
+    return v, probes
+
+
+def jpeg_frame(torch, rng, shape):
+    """A smooth random JPEG frame at ``shape`` (noise at 1/16 upsampled) as
+    the re10k chunks hold it: a uint8 tensor of the file's bytes."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    h, w = shape
+    noise = (rng.uniform(0, 1, (h // 16, w // 16, 3)) * 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(noise).resize((w, h), Image.BICUBIC).save(buf, format="JPEG", quality=90)
+    return torch.frombuffer(bytearray(buf.getvalue()), dtype=torch.uint8)
+
+
+def camera_table(c2w, intr):
+    """(1, n, 4, 4) c2w and (1, n, 3, 3) normalized intrinsics -> the re10k
+    chunk's (n, 18) camera rows: fx, fy, cx, cy, 2 unused, w2c's 3x4."""
+    import numpy as np
+
+    n = c2w.shape[1]
+    cams = np.zeros((n, 18), np.float32)
+    cams[:, :4] = intr[0][:, [0, 1, 0, 1], [0, 1, 2, 2]]
+    cams[:, 6:] = np.linalg.inv(c2w[0])[:, :3].reshape(n, 12)
+    return cams
+
+
+def write_re10k_chunk(torch, path, n_scenes, n_frames, shape, seed):
+    """A seeded re10k chunk at ``path``: ``n_scenes`` scenes (keys
+    ``{split}{s}`` after the chunk's directory) of ``n_frames`` JPEG frames at
+    ``shape``, the cameras strung along a line in frame order
+    (``re10k_cameras``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    scenes = []
+    for s in range(n_scenes):
+        cams = camera_table(*re10k_cameras(rng, n_frames))
+        images = [jpeg_frame(torch, rng, shape) for _ in range(n_frames)]
+        scenes.append({"key": f"{path.parent.name}{s}", "cameras": torch.from_numpy(cams), "images": images})
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(scenes, path)
+
+
 def write_re10k_test_chunk(torch, root):
     """A seeded re10k test chunk under ``root``: CLI_SCENES scenes of 14
     JPEG frames at 720x1280 (smooth random images: 45x80 noise upsampled),
     cameras as ``re10k_cameras`` (12 context along the line, then 2
     targets), and an evaluation index with context frames 0-11 and targets
     12-13. Returns the CLI overrides that point the YAML at them."""
-    import io
-
     import numpy as np
-    from PIL import Image
 
     rng = np.random.default_rng(800)
     (root / "re10k" / "test").mkdir(parents=True)
     scenes, index = [], {}
-    h, w = CLI_RAW_SHAPE
     for s in range(CLI_SCENES):
-        c2w, intr = (np.concatenate(x, axis=1) for x in zip(re10k_cameras(rng, 12), re10k_cameras(rng, 2)))
-        w2c = np.linalg.inv(c2w[0])
-        cams = np.zeros((14, 18), np.float32)
-        cams[:, :4] = intr[0][:, [0, 1, 0, 1], [0, 1, 2, 2]]
-        cams[:, 6:] = w2c[:, :3].reshape(14, 12)
-        images = []
-        for _ in range(14):
-            noise = (rng.uniform(0, 1, (45, 80, 3)) * 255).astype(np.uint8)
-            buf = io.BytesIO()
-            Image.fromarray(noise).resize((w, h), Image.BICUBIC).save(buf, format="JPEG", quality=90)
-            images.append(torch.frombuffer(bytearray(buf.getvalue()), dtype=torch.uint8))
+        cams = camera_table(*(np.concatenate(x, axis=1) for x in zip(re10k_cameras(rng, 12), re10k_cameras(rng, 2))))
+        images = [jpeg_frame(torch, rng, CLI_RAW_SHAPE) for _ in range(14)]
         key = f"cli{s}"
         scenes.append({"key": key, "cameras": torch.from_numpy(cams), "images": images})
         index[key] = {"context": list(range(12)), "target": [12, 13]}
@@ -1181,11 +1317,7 @@ def train_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
     init_fn, train_step = make_train_step(train_cfg, lpips=LPIPS(seed=1), device=dev)
 
     def make_batch(v):
-        rng = np.random.default_rng(500)
-        batch = {"context": re10k_views(torch, rng, v, dev), "target": re10k_views(torch, rng, RE10K_TARGET, dev)}
-        for side, n in (("context", v), ("target", RE10K_TARGET)):
-            batch[side]["image"] = torch.from_numpy(rng.uniform(0, 1, (1, n, h, w, 3)).astype(np.float32)).to(dev)
-        return batch
+        return re10k_train_batch(torch, v, dev)
 
     def lap(fn):
         torch.cuda.synchronize()
@@ -1199,37 +1331,9 @@ def train_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
     # every view on the grouped route); a step that runs out of memory is
     # this probe's answer, not a failure
     probe_state = init_fn(seed=0)
-
-    def peak_of_step(v):
-        batch = make_batch(v)
-        base = torch.cuda.memory_allocated() / 2**30
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            lap(lambda: train_step(probe_state, batch))
-            peak, why = torch.cuda.max_memory_allocated() / 2**30, ""
-        except torch.cuda.OutOfMemoryError as err:
-            peak, why = None, str(err).split(". Of the allocated")[0]
-        del batch
-        probe_state.optimizer.zero_grad(set_to_none=True)
-        gc.collect()
-        torch.cuda.empty_cache()
-        print(
-            f"re10k_720p_fast training, memory probe: {v} context views -> "
-            + (f"out of memory ({why}; {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated at most)"
-               if peak is None else f"peak {peak:.2f} GiB") + f"; {base:.2f} GiB held before the step on {card}"
-        )
-        return peak
-
-    probes = {RE10K_CONTEXT: peak_of_step(RE10K_CONTEXT)}
-    v = RE10K_CONTEXT
-    if probes[v] is None:
-        lo, hi = RE10K_TRAIN_MIN_CONTEXT - 1, RE10K_CONTEXT  # lo: fits (sentinel); hi: does not
-        while hi - lo > 1:
-            mid = (lo + hi) // 2
-            probes[mid] = peak_of_step(mid)
-            lo, hi = (mid, hi) if probes[mid] is not None else (lo, mid)
-        v = lo
-        check(v >= RE10K_TRAIN_MIN_CONTEXT, f"no training step from {RE10K_TRAIN_MIN_CONTEXT} context views fits: {probes}")
+    v, probes = fit_context_views(
+        torch, card, "re10k_720p_fast training", probe_state, train_step, make_batch, RE10K_TRAIN_MIN_CONTEXT
+    )
     del probe_state
     gc.collect()
     torch.cuda.empty_cache()
@@ -1818,6 +1922,392 @@ def serve_cli(torch, card, reset_counters, read_counters):
     return {**runs, "depth_median_rel": depth_rel, "means_median_rel": means_rel, "render_psnr_db": render_psnr}
 
 
+@contextlib.contextmanager
+def timed_train_steps(torch, cli, step_ms, after=None):
+    """The CLI's ``make_train_step`` patched so that each train step is
+    timed on the host clock between synchronisations (ms appended to
+    ``step_ms``), then ``after(state)`` is called, outside the time."""
+    real = cli.make_train_step
+
+    def make(*args, **kwargs):
+        init_fn, step = real(*args, **kwargs)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            logs = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t_a) * 1e3)
+            if after is not None:
+                after(state)
+            return logs
+
+        timed.loss_fn = step.loss_fn
+        return init_fn, timed
+
+    with mock.patch.object(cli, "make_train_step", make):
+        yield
+
+
+def read_metrics(path):
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def train_cli_small(torch, card, reset_counters, read_counters):
+    """Phase 19: configs/re10k_small.yaml trained through the port's CLI as
+    it stands (float32, B = 8 as 2 microbatches, 2 + 4 views at 256x256,
+    LPIPS 0.05 with the weights of LPIPS(seed=1) written under build/):
+    6 steps with validation at 3 and 6, the test split's evaluation at 6 on 2
+    scenes and a checkpoint every 3 steps kept to one, then resumed to step
+    8. Counters 0 just before and read just after each run. Returns both
+    runs' launch counts and figures."""
+    import shutil
+
+    import numpy as np
+
+    from my_depthsplat_torch import main as cli
+    from my_depthsplat_torch.config import load_config
+    from my_depthsplat_torch.train import LPIPS, schedule_values
+
+    root = REPO / "build" / "train_cli_small"
+    shutil.rmtree(root, ignore_errors=True)
+    out = root / "run"
+    runs = {}
+    try:
+        for split, n, frames, seed in (
+            ("train", SMALL_TRAIN_SCENES, SMALL_TRAIN_FRAMES, 900), ("test", SMALL_TEST_SCENES, SMALL_TEST_FRAMES, 901),
+        ):
+            write_re10k_chunk(torch, root / "re10k" / split / "000000.torch", n, frames, SMALL_RAW_SHAPE, seed)
+        torch.save(LPIPS(seed=1).state_dict(), root / "lpips.pt")
+        common = [
+            f"dataset.roots=[{root / 're10k'}]", f"loss.lpips_weights={root / 'lpips.pt'}", f"output_dir={out}",
+            "trainer.val_check_interval=3", f"trainer.test_eval_interval={SMALL_CLI_STEPS}",
+            "trainer.test_eval_max_scenes=2", "checkpointing.every_n_train_steps=3", "checkpointing.save_top_k=1",
+            "trainer.print_log_every_n_steps=1",
+        ]
+        for name, extra in (
+            ("first", [f"trainer.max_steps={SMALL_CLI_STEPS}"]),
+            ("resumed", ["checkpointing.resume=true", f"trainer.max_steps={SMALL_CLI_RESUMED_STEPS}"]),
+        ):
+            step_ms = []
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with timed_train_steps(torch, cli, step_ms):
+                reset_counters()
+                t_a = time.perf_counter()
+                state = cli.main(["--config", str(SMALL_YAML), *common, *extra])
+                wall = time.perf_counter() - t_a
+                launches = read_counters()
+            runs[name] = {
+                "launches": launches, "step_ms": step_ms, "wall_s": wall, "step": state.step,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "checkpoints": sorted(p.name for p in (out / "checkpoints").iterdir()),
+            }
+            del state
+        metrics = read_metrics(out / "metrics.jsonl")
+        test_scores = json.loads((out / f"test_step{SMALL_CLI_STEPS}" / "scores_all_avg.json").read_text())
+        panels = sorted(p.name for p in (out / "images").iterdir())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    first, resumed = runs["first"], runs["resumed"]
+    print(f"CLI training re10k_small: launches {first['launches']}, resumed {resumed['launches']}")
+    train_logs = [r for r in metrics if "loss/total" in r]
+    steps = list(range(1, SMALL_CLI_RESUMED_STEPS + 1))
+    check([r["step"] for r in train_logs] == steps, f"CLI re10k_small: logged steps {[r['step'] for r in train_logs]}")
+    for r in train_logs:
+        check(np.isfinite(r["loss/total"]) and r["grad_norm"] > 0, f"CLI re10k_small step {r['step']}: {r}")
+    val = [(r["step"], r["val/psnr"]) for r in metrics if "val/psnr" in r]
+    check([k for k, _ in val] == [3, 6] and np.isfinite([x for _, x in val]).all(), f"CLI re10k_small: val/psnr {val}")
+    check(panels == ["val_comparison_00000003.png", "val_comparison_00000006.png"], f"CLI re10k_small: panels {panels}")
+    check(set(test_scores) == {"psnr", "ssim", "lpips"} and np.isfinite(list(test_scores.values())).all(),
+          f"CLI re10k_small: test_step{SMALL_CLI_STEPS} scores {test_scores}")
+    check([r["step"] for r in metrics if "test/psnr" in r] == [SMALL_CLI_STEPS], "CLI re10k_small: test/psnr not logged")
+    check(first["checkpoints"] == [f"step_{SMALL_CLI_STEPS}.pt"] and first["step"] == SMALL_CLI_STEPS,
+          f"CLI re10k_small: checkpoints {first['checkpoints']} at step {first['step']}")
+    check(resumed["checkpoints"] == [f"step_{SMALL_CLI_RESUMED_STEPS}.pt"] and resumed["step"] == SMALL_CLI_RESUMED_STEPS,
+          f"CLI re10k_small resumed: checkpoints {resumed['checkpoints']} at step {resumed['step']}")
+    optimizer = load_config(SMALL_YAML).optimizer
+    for r in train_logs[SMALL_CLI_STEPS:]:
+        want = schedule_values(optimizer, r["step"] - 1)
+        check(all(abs(r[k] / want[k] - 1) <= 1e-6 for k in want), f"CLI re10k_small resumed step {r['step']}: lr {r} vs {want}")
+    # kernels A and B once per microbatch, per validation and per test
+    # scene (46 targets in one render); C and D once per microbatch
+    renders = SMALL_ACCUM * SMALL_CLI_STEPS
+    fwd = renders + 2 + 2
+    want = {"expand": fwd, "expand_write": fwd, "composite_fwd": fwd, "composite_bwd": renders, "scatter_reduce": renders,
+            "composite_fwd_chained": 0, "composite_bwd_chained": 0}
+    check(first["launches"] == want, f"CLI re10k_small: launches {first['launches']}, expected {want}")
+    renders = SMALL_ACCUM * (SMALL_CLI_RESUMED_STEPS - SMALL_CLI_STEPS)
+    want = {k: (renders if "chained" not in k else 0) for k in want}
+    check(resumed["launches"] == want, f"CLI re10k_small resumed: launches {resumed['launches']}, expected {want}")
+    for name, r in runs.items():
+        r["step_ms_median"] = statistics.median(r["step_ms"][1:])
+        print(
+            f"CLI training re10k_small, {name}: {len(r['step_ms'])} steps, step {r['step_ms_median']:.1f} ms (median after "
+            f"the first; host clock around synchronised steps), first step {r['step_ms'][0]:.1f} ms, peak "
+            f"{r['peak_gib']:.2f} GiB, {r['wall_s']:.1f} s wall (data, validation, test evaluation and checkpoints "
+            f"included) on {card}"
+        )
+    print(
+        f"CLI training re10k_small: loss/total {train_logs[0]['loss/total']:.6f} -> {train_logs[-1]['loss/total']:.6f}, "
+        f"val/psnr {val}, test_step{SMALL_CLI_STEPS} {test_scores}"
+    )
+    return runs
+
+
+def train_cli_bf16(torch, dev, card, reset_counters, read_counters, uncounted):
+    """Phase 20: configs/re10k_720p_fast.yaml fine-tuned in bf16 as its
+    precision policy sets it. A memory probe of one bf16 step from 12
+    context views down to BF16_MIN_CONTEXT; the first step's loss at 6
+    views in bf16 against float32 on the same batch and weights; then
+    ``main.main`` on the YAML with mode=train and the bounded sampler set to
+    the views that fit and 2 targets at 512x960, 1 + 3 steps, counters 0
+    just before and read just after, each rendered view's launches held
+    against the walk over every group; then one step taken apart. Returns
+    the launch counts and the figures."""
+    import shutil
+
+    import numpy as np
+
+    from my_depthsplat_torch import main as cli
+    from my_depthsplat_torch.config import load_config
+    from my_depthsplat_torch.models import EncoderDepthSplat, decode_splatting
+    from my_depthsplat_torch.models.precision import apply_with_precision
+    from my_depthsplat_torch.render import pallas_raster as raster_mod
+    from my_depthsplat_torch.train import LPIPS, TrainCfg, compute_losses, make_train_step
+
+    shape = RE10K_SHAPE
+    h, w = shape
+    slots = raster_mod._CHAIN_GROUP_SLOTS
+    cams = ("extrinsics", "intrinsics", "near", "far")
+    yaml_cfg = load_config(RE10K_YAML, ["mode=train"])
+    lpips = LPIPS(seed=1)
+
+    def step_fns(encoder_cfg):
+        cfg = TrainCfg(encoder=encoder_cfg, decoder=yaml_cfg.decoder, loss=yaml_cfg.loss, optimizer=yaml_cfg.optimizer)
+        return make_train_step(cfg, lpips=lpips, device=dev)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # per rendered view: the largest n_contrib of each composited group, and
+    # the inputs of the walk over every group, made after each step
+    maxima, stash, expected = [], [], []
+    backward = raster_mod._GroupedComposite.backward
+
+    def read_maxima(ctx, g_img):
+        maxima.append([n.amax() for n in ctx.saved_tensors[3:]])
+        stash.append((ctx.saved_tensors[0].detach(), ctx.per_group))
+        return backward(ctx, g_img)
+
+    def walk(_state=None):
+        with torch.no_grad(), uncounted():
+            expected.extend(groups_to_composite(live_after_groups(torch, r, pg, slots, shape)) for r, pg in stash)
+        stash.clear()
+
+    # ---- the first step's loss at 6 context views, bf16 vs float32, same batch and weights
+    batch = re10k_train_batch(torch, BF16_MIN_CONTEXT, dev)
+    first_loss = {}
+    for name, enc in (("bfloat16", yaml_cfg.encoder), ("float32", load_config(RE10K_YAML, FLOAT32).encoder)):
+        init_fn, train_step = step_fns(enc)
+        state = init_fn(seed=0)
+        with torch.no_grad():
+            first_loss[name] = float(train_step.loss_fn(state, batch)[0])
+        del state
+        free()
+    del batch
+    loss_rel = abs(first_loss["bfloat16"] / first_loss["float32"] - 1)
+    print(
+        f"re10k_720p_fast first step's loss at {BF16_MIN_CONTEXT} context views: bf16 {first_loss['bfloat16']:.6f}, "
+        f"float32 {first_loss['float32']:.6f}, relative difference {loss_rel:.5f} (limit 0.02)"
+    )
+    check(loss_rel < 0.02, f"bf16 first-step loss differs from float32's by {loss_rel}")
+
+    # ---- how many context views one bf16 step fits (the backward read as
+    # the main path reads it below, so that its peak counts)
+    init_fn, train_step = step_fns(yaml_cfg.encoder)
+    probe_state = init_fn(seed=0)
+    def probe_step(state, batch):
+        try:
+            train_step(state, batch)
+        finally:
+            stash.clear()
+            maxima.clear()
+
+    with mock.patch.object(raster_mod._GroupedComposite, "backward", staticmethod(read_maxima)):
+        v, probes = fit_context_views(
+            torch, card, "re10k_720p_fast bf16 training", probe_state, probe_step,
+            lambda n: re10k_train_batch(torch, n, dev), BF16_MIN_CONTEXT,
+        )
+    del probe_state, init_fn, train_step
+    free()
+    n_groups = -(-(v * h * w) // slots)
+    views = 2 * RE10K_TARGET  # two depth predictions x the target views
+    print(
+        f"bf16 training re10k_720p_fast: {v} of {RE10K_CONTEXT} context views fit one step (probe {probes}), "
+        f"{n_groups} depth groups per rendered view"
+    )
+
+    # ---- the main path: main.main on the YAML with mode=train
+    root = REPO / "build" / "train_cli_bf16"
+    shutil.rmtree(root, ignore_errors=True)
+    steps = 1 + TRAIN_STEPS
+    step_ms = []
+    try:
+        write_re10k_chunk(torch, root / "re10k" / "train" / "000000.torch", 2, BF16_FRAMES, CLI_RAW_SHAPE, 902)
+        torch.save(lpips.state_dict(), root / "lpips.pt")
+        gap = BF16_FRAMES - 1
+        overrides = [
+            "mode=train", f"dataset.roots=[{root / 're10k'}]", "dataset.view_sampler=boundedv2",
+            f"dataset.view_sampler_args={{num_context_views: {v}, num_target_views: {RE10K_TARGET}, "
+            f"min_distance_between_context_views: {gap}, max_distance_between_context_views: {gap}}}",
+            f"loss.lpips_weights={root / 'lpips.pt'}", f"output_dir={root / 'run'}", f"trainer.max_steps={steps}",
+            "trainer.print_log_every_n_steps=1",
+        ]
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(raster_mod._GroupedComposite, "backward", staticmethod(read_maxima)), \
+                timed_train_steps(torch, cli, step_ms, after=walk):
+            reset_counters()
+            t_a = time.perf_counter()
+            state = cli.main(["--config", str(RE10K_YAML), *overrides])
+            wall = time.perf_counter() - t_a
+            launches = read_counters()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        metrics = read_metrics(root / "run" / "metrics.jsonl")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    maxima = [torch.stack(m).tolist() for m in maxima]
+    check(len(maxima) == len(expected) == steps * views, f"{len(maxima)} views rendered, {len(expected)} walked")
+    composited = [len(m) for m in maxima]
+    n_live = sum(sum(x > 0 for x in m) for m in maxima)
+    n_stopped = sum(n < n_groups for n in expected)
+    want = {
+        "expand": sum(expected) + n_stopped + n_live, "expand_write": sum(expected) + n_live,
+        "composite_fwd_chained": sum(expected), "composite_bwd_chained": n_live, "scatter_reduce": n_live,
+        "composite_fwd": 0, "composite_bwd": 0,
+    }
+    print(
+        f"bf16 training re10k_720p_fast through the CLI: {steps} steps, launches {launches}; groups composited per "
+        f"rendered view {composited}, by the walk over every group {expected} of {n_groups}; live groups "
+        f"{[[k for k, x in enumerate(m) if x > 0] for m in maxima]}"
+    )
+    check(composited == expected, "bf16 training: a view's forward composited another number of groups")
+    check(launches == want, f"bf16 training: launches {launches}, expected {want}")
+    check(state.step == steps, f"bf16 training: state.step {state.step}")
+    logs = [r for r in metrics if "loss/total" in r]
+    check([r["step"] for r in logs] == list(range(1, steps + 1)), f"bf16 training: logged steps {[r['step'] for r in logs]}")
+    for r in logs:
+        check("loss/intermediate" in r and all(np.isfinite(x) for x in r.values()) and r["grad_norm"] > 0,
+              f"bf16 training step {r['step']}: {r}")
+    params = dict(state.model.named_parameters())
+    check(all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in params.values()),
+          "bf16 training: a master parameter is not float32 or not finite")
+    fresh = dict(EncoderDepthSplat(yaml_cfg.encoder, device=dev, seed=yaml_cfg.seed).named_parameters())
+    moved = sum(not torch.equal(p, fresh[k]) for k, p in params.items())
+    check(moved == len(params), f"bf16 training: {len(params) - moved} of {len(params)} parameters did not change")
+    del fresh, params
+    free()
+
+    # ---- one step taken apart (encoder under the policy, render, losses)
+    batch = re10k_train_batch(torch, v, dev)
+
+    def lap(fn):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t_a) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    out, enc_f = lap(lambda: apply_with_precision(state.model, "bfloat16", batch["context"], training=True))
+    gs = out["gaussians"]
+    leaves = [gs.means, gs.covariances, gs.harmonics, gs.opacities]
+    tgt = {k: torch.cat([batch["target"][k]] * gs.means.shape[0]) for k in cams}
+    dec, dec_f = lap(lambda: decode_splatting(yaml_cfg.decoder, gs, *(tgt[k] for k in cams), shape))
+    (total, _), loss_f = lap(
+        lambda: compute_losses(yaml_cfg.loss, dec.color, batch["target"]["image"], state.step, state.lpips)
+    )
+    (g_color,), loss_b = lap(lambda: torch.autograd.grad(total, dec.color))
+    g_leaves, dec_b = lap(lambda: torch.autograd.grad(dec.color, leaves, g_color))
+    _, enc_b = lap(lambda: torch.autograd.backward(leaves, g_leaves))
+    split_gib = torch.cuda.max_memory_allocated() / 2**30
+    del out, gs, leaves, dec, total, g_color, g_leaves, state, batch
+    free()
+    step_median = statistics.median(step_ms[1:])
+    print(
+        f"bf16 training re10k_720p_fast through the CLI: {v} context views + {RE10K_TARGET} targets at {h}x{w}, step "
+        f"{step_median:.1f} ms (median of steps 2-{steps}, host clock around synchronised steps; first "
+        f"{step_ms[0]:.1f}), peak {peak_gib:.2f} GiB, {wall:.1f} s wall; one step taken apart: encoder forward "
+        f"{enc_f:.1f} ms, backward {enc_b:.1f} ms, render {dec_f:.1f} + {dec_b:.1f}, losses {loss_f:.1f} + "
+        f"{loss_b:.1f} (peak {split_gib:.2f} GiB); loss/total {logs[0]['loss/total']:.6f} -> "
+        f"{logs[-1]['loss/total']:.6f} on {card}"
+    )
+    return {
+        "launches": launches, "context_views": v, "probe_peak_gib": probes, "step_ms": step_ms,
+        "step_ms_median": step_median, "peak_gib": peak_gib, "wall_s": wall, "encoder_forward_ms": enc_f,
+        "encoder_backward_ms": enc_b, "render_ms": [dec_f, dec_b], "losses_ms": [loss_f, loss_b],
+        "first_loss": first_loss, "first_loss_rel": loss_rel,
+    }
+
+
+def train_depth_only(torch, dev, card, reset_counters, read_counters):
+    """Phase 21: depth-only training of the PromptDA arm at the
+    arkit_promptda shapes (ViT-S, B = 14, 2 context views at 192x192) with
+    a seeded sparse LiDAR depth (48x48, a tenth of it invalid) as prompt and
+    GT: 1 + 2 steps, counters 0 just before and read just after; no render
+    kernel may launch. Returns the launch counts and the figures."""
+    import numpy as np
+
+    from my_depthsplat_torch.models import EncoderDepthSplatCfg
+    from my_depthsplat_torch.train import LossCfg, OptimizerCfg, TrainCfg, make_train_step
+
+    h, w = SHAPE
+    cfg = TrainCfg(
+        encoder=EncoderDepthSplatCfg(depth_branch="promptda", monodepth_vit_type="vits", train_depth_only=True),
+        loss=LossCfg(lpips_weight=0.05, lpips_apply_after_step=0),
+        optimizer=OptimizerCfg(lr=2e-4, lr_monodepth=4e-6, total_steps=300_000),
+    )
+    init_fn, train_step = make_train_step(cfg, device=dev)
+    state = init_fn(seed=0)
+    rng = np.random.default_rng(1000)
+    batch = {"context": context_views(torch, rng, TRAIN_BATCH, SHAPE, dev),
+             "target": look_at_views(torch, rng, TRAIN_BATCH, N_TARGET, dev)}
+    lidar = rng.uniform(1.0, 4.0, (TRAIN_BATCH, N_CONTEXT, 48, 48)) * (rng.uniform(size=(TRAIN_BATCH, N_CONTEXT, 48, 48)) > 0.1)
+    batch["context"]["depth"] = torch.from_numpy(lidar.astype(np.float32)).to(dev)
+    batch["target"]["image"] = torch.from_numpy(rng.uniform(0, 1, (TRAIN_BATCH, N_TARGET, h, w, 3)).astype(np.float32)).to(dev)
+    before = {k: p.detach().clone() for k, p in state.model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    steps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        logs = {k: float(x) for k, x in train_step(state, batch).items()}
+        torch.cuda.synchronize()
+        steps.append((logs, (time.perf_counter() - t_a) * 1e3))
+    launches = read_counters()
+    print(f"depth-only training (PromptDA ViT-S, B={TRAIN_BATCH}): launches {launches}")
+    check(all(n == 0 for n in launches.values()), f"depth-only training launched a render kernel: {launches}")
+    for i, (logs, ms) in enumerate(steps):
+        print(f"depth-only training step {i}: {ms:.1f} ms " + " ".join(f"{k}={x:.6g}" for k, x in sorted(logs.items())))
+        check("loss/depth_l1" in logs and all(np.isfinite(x) for x in logs.values()) and logs["grad_norm"] > 0,
+              f"depth-only training step {i}: {logs}")
+    moved = sum(not torch.equal(p, before[k]) for k, p in state.model.named_parameters())
+    check(moved == len(before), f"depth-only training: {len(before) - moved} of {len(before)} parameters did not change")
+    check(all(bool(torch.isfinite(p).all()) for p in state.model.parameters()), "depth-only training: non-finite parameter")
+    step_ms = statistics.median(ms for _, ms in steps[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"depth-only training: step {step_ms:.1f} ms (median of 2 after 1 warm-up), peak {peak:.2f} GiB on {card}")
+    del state, batch, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "peak_gib": peak}
+
+
 def main() -> int:
     import torch
 
@@ -1916,6 +2406,17 @@ def main() -> int:
     # its peak memory is the CLI's own)
     cli = serve_cli(torch, card, reset_counters, read_counters)
     torch.cuda.empty_cache()
+
+    # ---- training through the CLI (re10k_small; re10k_720p_fast in bf16)
+    # and depth-only training, each on its own peak memory
+    train_small = train_cli_small(torch, card, reset_counters, read_counters)
+    train_bf16 = train_cli_bf16(torch, dev, card, reset_counters, read_counters, uncounted)
+    depth_only = train_depth_only(torch, dev, card, reset_counters, read_counters)
+    new_paths = {
+        "launches_train_cli_small": train_small["first"]["launches"],
+        "launches_train_cli_small_resumed": train_small["resumed"]["launches"],
+        "launches_train_cli_720p_bf16": train_bf16["launches"], "launches_train_depth_only": depth_only["launches"],
+    }
 
     # ---- serving path at full width (counters 0 just before, read just after)
     cfg = EncoderDepthSplatCfg(depth_branch="promptda", monodepth_vit_type="vits")
@@ -2263,6 +2764,16 @@ def main() -> int:
          **{f"launches_cli_{k}": cli[k]["launches"]["composite_fwd_chained"] for k in ("bfloat16", "float32")}},
         row5_entry,
     ]
+    for entry, counter in zip(kernels, ("expand", "composite_fwd", "composite_bwd", "scatter_reduce",
+                                        "composite_fwd_chained", "composite_bwd_chained")):
+        entry.update({key: counts[counter] for key, counts in new_paths.items()})
+        if counter == "expand":
+            entry.update({f"write_{key}": counts["expand_write"] for key, counts in new_paths.items()})
+    kernels[0]["train_cli"] = {
+        "re10k_small": {k: {x: r[x] for x in ("step_ms_median", "peak_gib", "wall_s")} for k, r in train_small.items()},
+        "re10k_720p_fast_bf16": {k: x for k, x in train_bf16.items() if k != "launches"},
+        "depth_only": {k: x for k, x in depth_only.items() if k != "launches"},
+    }
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -3,8 +3,8 @@
 The port's own copy of my_depthsplat_tpu/config.py, with the same keys and
 defaults, so the YAMLs in configs/ load in both packages. Keys the port
 holds at one value raise at any other (``EncoderDepthSplatCfg``,
-``DecoderSplattingCfg``); the ``trainer`` group is carried for the train
-loop, which ``main`` refuses until it is ported.
+``DecoderSplattingCfg``); ``main.train`` refuses ``trainer.mesh_*``
+above one device.
 
 Replaces the reference's Hydra + dacite stack (config/*.yaml + src/config.py):
 - a RootCfg dataclass tree mirrors the reference's config groups

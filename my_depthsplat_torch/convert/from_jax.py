@@ -256,10 +256,11 @@ def encoder_state_dict(p: Mapping, module: nn.Module | None = None) -> dict[str,
     sd = {f"depth_predictor.{k}": v for k, v in depth.items()}
     if "feature_proj" in p:
         _put(sd, "feature_proj", _conv(p["feature_proj"]["Conv_0"]))
-    _put(sd, "gaussian_regressor.0", _conv(p["regressor0"]["Conv_0"]))
-    _put(sd, "gaussian_regressor.2", _conv(p["regressor1"]["Conv_0"]))
-    _put(sd, "gaussian_head.0", _conv(p["head0"]["Conv_0"]))
-    _put(sd, "gaussian_head.2", _conv(p["head1"]))
+    if "regressor0" in p:  # absent under train_depth_only, as in the module
+        _put(sd, "gaussian_regressor.0", _conv(p["regressor0"]["Conv_0"]))
+        _put(sd, "gaussian_regressor.2", _conv(p["regressor1"]["Conv_0"]))
+        _put(sd, "gaussian_head.0", _conv(p["head0"]["Conv_0"]))
+        _put(sd, "gaussian_head.2", _conv(p["head1"]))
     return sd
 
 

@@ -1,31 +1,40 @@
-"""CLI entry point: test-mode serving from a YAML configuration.
+"""CLI entry point: training and test-mode serving from a YAML configuration.
 
-Port of the serving half of my_depthsplat_tpu/main.py (``test``,
-:454-530): YAML + dot-overrides -> ``RootCfg`` -> the dataset with its view
-sampler and shims -> the encoder under the precision policy ->
-``decode_splatting`` -> ``run_test``'s scores and files:
+Port of my_depthsplat_tpu/main.py: YAML + dot-overrides -> ``RootCfg`` ->
+the dataset with its view sampler and shims -> the encoder under the
+precision policy, then either the train loop (``train``, :171-305) or
+``decode_splatting`` and ``run_test``'s scores and files (``test``,
+:454-530):
 
-    python -m my_depthsplat_torch.main --config configs/re10k_720p_fast.yaml \\
+    python -m my_depthsplat_torch.main --config configs/re10k_small.yaml \\
         'dataset.roots=[datasets/re10k]' output_dir=outputs/run
 
-It runs on the card (``test(cfg, device="cpu")`` runs the plain versions on
-the CPU). The encoder's weights are random from ``seed`` unless
-``checkpointing.load`` names one of the port's own checkpoints
-(``step_*.pt``, train/checkpoints.py). Not ported yet, and refused:
-``mode=train`` (ROADMAP.md queue 1 item 9) and the reference-format
-pretrained slots (item 7).
+It runs on the card (``train(cfg, device="cpu")`` and ``test(cfg,
+device="cpu")`` run the plain versions on the CPU). Training starts from
+random weights drawn from ``seed`` (or resumes from the newest
+``checkpoints/step_*.pt`` under ``output_dir`` with
+``checkpointing.resume``); it logs to ``metrics.jsonl``, validates every
+``trainer.val_check_interval`` steps, evaluates on the test split every
+``trainer.test_eval_interval`` steps and checkpoints every
+``checkpointing.every_n_train_steps``. Test mode serves random weights
+unless ``checkpointing.load`` names one of the port's own checkpoints.
+Not ported yet, and refused: the reference-format pretrained slots
+(ROADMAP.md queue 1 item 7) and more than one device (item 11).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import itertools
 import json
+import time
 from pathlib import Path
 
 import torch
 
-from .config import RootCfg, load_config
+from .config import RootCfg, load_config, to_dict
 from .data import (
     DataLoaderCfg,
     apply_bounds_shim,
@@ -34,11 +43,17 @@ from .data import (
     get_dataset,
     get_view_sampler,
 )
+from .eval.metrics import compute_psnr
 from .eval.runner import run_test
-from .models import EncoderDepthSplat
+from .models import EncoderDepthSplat, decode_splatting
 from .models.precision import apply_with_precision, resolve_dtype
+from .train import TrainCfg, TrainState, make_train_step
+from .train.checkpoints import checkpoint_step, find_latest_checkpoint, restore_checkpoint, save_checkpoint
 from .train.lpips_io import build_lpips
 from .utils.device import resolve_device
+from .utils.layout import add_border, hcat, vcat
+from .utils.logger import LocalLogger
+from .utils.vis_depth import viz_depth
 
 BATCH_KEYS = ("image", "extrinsics", "intrinsics", "near", "far", "depth")
 
@@ -76,15 +91,19 @@ def torch_batch(batch: dict, device: torch.device | str) -> dict:
     return {"context": conv(batch["context"]), "target": conv(batch["target"])}
 
 
-def _restore_encoder(cfg: RootCfg, encoder: EncoderDepthSplat) -> None:
-    """Pretrained weights: the port's own checkpoints only."""
-    ck = cfg.checkpointing
+def _refuse_pretrained_slots(cfg: RootCfg) -> None:
     for slot in ("pretrained_model", "pretrained_monodepth", "pretrained_depth", "pretrained_mvdepth"):
-        if getattr(ck, slot):
+        if getattr(cfg.checkpointing, slot):
             raise NotImplementedError(
                 f"checkpointing.{slot}: the reference-format pretrained loaders are queued "
                 "in ROADMAP.md queue 1 item 7 (checkpoints)"
             )
+
+
+def _restore_encoder(cfg: RootCfg, encoder: EncoderDepthSplat) -> None:
+    """Pretrained weights: the port's own checkpoints only."""
+    _refuse_pretrained_slots(cfg)
+    ck = cfg.checkpointing
     if not ck.load:
         return
     path = Path(ck.load)
@@ -133,17 +152,188 @@ def test(cfg: RootCfg, device: torch.device | str | None = None) -> dict:
     return result
 
 
-def main(argv: list[str] | None = None) -> dict:
+def train(cfg: RootCfg, device: torch.device | str | None = None) -> TrainState | None:
+    """The train loop (my_depthsplat_tpu/main.py:train): the state from
+    ``cfg.seed`` on the first batch, or restored from the newest checkpoint
+    with ``checkpointing.resume``; one ``train_step`` per batch of the train
+    split, whose bounded sampler reads the live step; a log line every
+    ``print_log_every_n_steps``, validation every ``val_check_interval``,
+    test-split evaluation every ``test_eval_interval`` (0: never), a
+    checkpoint every ``every_n_train_steps`` pruned to ``save_top_k``, and
+    one at the end unless the loop has just saved. Returns the state."""
+    dev = resolve_device(device)
+    if cfg.trainer.mesh_model > 1 or cfg.trainer.mesh_data > 1:
+        raise NotImplementedError(
+            f"trainer.mesh_data={cfg.trainer.mesh_data}, mesh_model={cfg.trainer.mesh_model}: "
+            "training on more than one device is queued in ROADMAP.md queue 1 item 11 (multi-device)"
+        )
+    _refuse_pretrained_slots(cfg)
+    out_dir = Path(cfg.output_dir)
+    out_dir.mkdir(exist_ok=True, parents=True)
+    (out_dir / "config.json").write_text(json.dumps(to_dict(cfg), indent=2, default=str))
+
+    # LPIPS as a loss (loss_lpips.py:27-59): only when a weights file is
+    # configured and its weight is nonzero
+    lpips = None
+    if cfg.loss.lpips_weight > 0 and cfg.loss.lpips_weights:
+        lpips = build_lpips(cfg.loss.lpips_weights, dev)
+    train_cfg = TrainCfg(
+        encoder=cfg.encoder, decoder=cfg.decoder, loss=cfg.loss, optimizer=cfg.optimizer,
+        depth_mode=cfg.train.depth_mode, grad_accum=cfg.train.grad_accum,
+    )
+    init_fn, train_step = make_train_step(train_cfg, lpips=lpips, device=dev)
+
+    ckpt_dir = out_dir / "checkpoints"
+    latest = find_latest_checkpoint(ckpt_dir) if cfg.checkpointing.resume else None
+    # the loader's view sampler reads this cell per example, so the bounded
+    # samplers' warm-up advances during the run (model_wrapper.py:371-373)
+    step_cell = {"step": 0 if latest is None else checkpoint_step(latest)}
+    loader = data_loader(
+        build_dataset(cfg, "train"),
+        DataLoaderCfg(batch_size=cfg.data_loader.batch_size, seed=cfg.data_loader.seed),
+        "train", global_step=lambda: step_cell["step"],
+    )
+    val_iter = _make_val_iter(cfg)
+    logger = LocalLogger(out_dir, run_name=out_dir.name)
+    log_every = cfg.trainer.print_log_every_n_steps
+    state, last_saved = None, -1
+    t_last = time.time()
+    try:
+        for batch in loader:
+            if state is None:
+                state = init_fn(seed=cfg.seed)
+                if latest is not None:
+                    restore_checkpoint(latest, state)
+                    print(f"resuming from {latest} at step {state.step}")
+            if state.step >= cfg.trainer.max_steps:
+                break
+            logs = train_step(state, torch_batch(prepare_batch(cfg, batch), dev))
+            gstep = step_cell["step"] = state.step
+            if gstep % log_every == 0:
+                logs = {k: float(v) for k, v in logs.items()}  # waits for the step
+                dt = (time.time() - t_last) / log_every
+                t_last = time.time()
+                msg = ", ".join(f"{k}={v:.4f}" for k, v in sorted(logs.items()))
+                print(f"step {gstep}: {msg} ({dt:.3f}s/it)", flush=True)
+                logger.log_scalars(gstep, {**logs, "perf/s_per_it": dt})
+            if gstep % cfg.trainer.val_check_interval == 0:
+                _run_validation(cfg, state, val_iter, gstep, logger, dev)
+            if cfg.trainer.test_eval_interval > 0 and gstep % cfg.trainer.test_eval_interval == 0:
+                _run_periodic_test_eval(cfg, state, gstep, logger, dev)
+            if gstep % cfg.checkpointing.every_n_train_steps == 0:
+                save_checkpoint(ckpt_dir, gstep, state, keep=cfg.checkpointing.save_top_k)
+                last_saved = gstep
+            if gstep >= cfg.trainer.max_steps:
+                break
+        if state is not None and state.step != last_saved:
+            save_checkpoint(ckpt_dir, state.step, state, keep=cfg.checkpointing.save_top_k)
+    finally:
+        logger.close()
+    return state
+
+
+@contextlib.contextmanager
+def _evaluating(model: torch.nn.Module):
+    """The model in eval() mode without autograd, back in train() after."""
+    model.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        model.train()
+
+
+def _make_val_iter(cfg: RootCfg):
+    """Held-out val batches, one per validation, cycling through the val
+    split (ValidationWrapper, validation_wrapper.py:7-32); None when there
+    is no val split."""
+    try:
+        dataset = build_dataset(cfg, "val")
+        loader_cfg = DataLoaderCfg(batch_size=1, seed=cfg.data_loader.seed)
+
+        def gen():
+            while True:
+                yield from data_loader(dataset, loader_cfg, "val")
+
+        return gen()
+    except Exception as e:
+        print(f"no validation split available ({e}); validation disabled")
+        return None
+
+
+def _run_validation(cfg: RootCfg, state: TrainState, val_iter, step: int, logger: LocalLogger,
+                    device: torch.device) -> None:
+    """One held-out val scene through the encoder (eval mode, the precision
+    policy) and the decoder: ``val/psnr`` and a ground-truth / prediction
+    panel (model_wrapper.py:634-773); a depth panel alone under
+    train_depth_only. A failure is printed: validation never ends training."""
+    if val_iter is None:
+        return
+    try:
+        batch = torch_batch(prepare_batch(cfg, next(val_iter)), device)
+        with _evaluating(state.model):
+            out = apply_with_precision(state.model, cfg.encoder.compute_dtype, batch["context"])
+            if out["gaussians"] is None:  # depth-only: the depth panel
+                d = out["depths"][-1].cpu().numpy()
+                logger.log_image(step, "val/depth", add_border(hcat(*(viz_depth(x) for x in d))))
+                return
+            tgt = batch["target"]
+            h, w = tgt["image"].shape[2:4]
+            dec = decode_splatting(
+                cfg.decoder, out["gaussians"], tgt["extrinsics"], tgt["intrinsics"], tgt["near"], tgt["far"], (h, w)
+            )
+            psnr = float(compute_psnr(tgt["image"].reshape(-1, h, w, 3), dec.color.reshape(-1, h, w, 3)).mean())
+        print(f"[val @ {step}] psnr={psnr:.3f}", flush=True)
+        logger.log_scalars(step, {"val/psnr": psnr})
+        gt_row = hcat(*tgt["image"][0].cpu().numpy())
+        pr_row = hcat(*dec.color[0].cpu().numpy())
+        logger.log_image(step, "val/comparison", add_border(vcat(gt_row, pr_row)))
+    except Exception as e:  # validation must never kill training
+        print(f"validation failed: {e!r}")
+
+
+def _run_periodic_test_eval(cfg: RootCfg, state: TrainState, step: int, logger: LocalLogger,
+                            device: torch.device) -> None:
+    """``run_test`` over the first ``test_eval_max_scenes`` scenes of the
+    test split with the current weights (model_wrapper.py:775-930), into
+    ``output_dir/test_step{step}`` without images; its scores logged as
+    ``test/*``. A failure is printed: the evaluation never ends training."""
+    try:
+        loader = data_loader(
+            build_dataset(cfg, "test"), DataLoaderCfg(batch_size=1, seed=cfg.data_loader.seed), "test"
+        )
+        batches = (
+            {**b, **torch_batch(prepare_batch(cfg, b), device)}
+            for b in itertools.islice(loader, cfg.trainer.test_eval_max_scenes)
+        )
+        test_cfg = dataclasses.replace(cfg.test, output_dir=Path(cfg.output_dir) / f"test_step{step}", save_image=False)
+        with _evaluating(state.model):
+            result = run_test(
+                test_cfg, lambda context: apply_with_precision(state.model, cfg.encoder.compute_dtype, context),
+                batches, decoder_cfg=cfg.decoder, lpips_fn=_eval_lpips_fn(cfg, state, device), device=device,
+            )
+        print(f"[test eval @ {step}] {result['scores']}", flush=True)
+        if result["scores"]:
+            logger.log_scalars(step, {f"test/{k}": v for k, v in result["scores"].items()})
+    except Exception as e:  # periodic eval must never kill training
+        print(f"periodic test eval failed: {e!r}")
+
+
+def _eval_lpips_fn(cfg: RootCfg, state: TrainState, device: torch.device):
+    """LPIPS as an eval metric (metrics.py:22-35) when a weights file is
+    configured: the state's frozen net if it has one, else one loaded from
+    the file."""
+    return state.lpips if state.lpips is not None else build_lpips(cfg.loss.lpips_weights, device)
+
+
+def main(argv: list[str] | None = None) -> dict | TrainState | None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, default=None)
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
-    if cfg.mode != "test":
-        raise NotImplementedError(
-            f"mode={cfg.mode!r}: the train loop is queued in ROADMAP.md queue 1 item 9; "
-            "the port's CLI serves mode=test"
-        )
+    if cfg.mode == "train":
+        return train(cfg)
     return test(cfg)
 
 

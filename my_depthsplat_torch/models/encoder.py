@@ -18,7 +18,10 @@ too, and the gaussians and depths come back stacked on the batch axis,
 intermediate predictions first (B' = B * num_preds), for the intermediate
 losses.
 Submodule names follow the reference checkpoint (``depth_predictor``,
-``gaussian_regressor.{0,2}``, ``gaussian_head.{0,2}``).
+``gaussian_regressor.{0,2}``, ``gaussian_head.{0,2}``). Under
+``train_depth_only`` (depth-only pre-training) the regressor and the head
+are not built, as neither the reference's encoder nor the JAX package's
+flax tree has them, and the encoder returns its depth predictions alone.
 
 The encoder computes in the dtype of its parameters and inputs: the
 drivers apply ``compute_dtype`` through ``models.precision.
@@ -100,8 +103,8 @@ class EncoderDepthSplatCfg:
     init_sh_input_img: bool = True
     supervise_intermediate_depth: bool = SUPERVISE_INTERMEDIATE_DEPTH
     return_depth: bool = True
-    # Depth-only pre-training (the depth loss in place of the render loss):
-    # not ported yet; train.make_train_step refuses it.
+    # Depth-only pre-training: no gaussians, the depth predictions alone,
+    # trained by the masked depth L1 of train/step.py.
     train_depth_only: bool = False
     # the UniMatch branch
     num_scales: int = 1
@@ -197,17 +200,18 @@ class EncoderDepthSplat(nn.Module):
             if embed > FEATURE_PROJ_CHANNELS:
                 self.feature_proj = Conv(embed, FEATURE_PROJ_CHANNELS, 1, padding=0)
                 embed = FEATURE_PROJ_CHANNELS
-        self.gaussian_regressor = nn.Sequential(
-            Conv(3 + 1 + embed, ch, 3), nn.GELU(), Conv(ch, ch, 3)
-        )
-        zero_rows = list(range(3, 6))
-        if cfg.init_sh_input_img:
-            zero_rows += list(range(10, n_params))
-        self.gaussian_head = nn.Sequential(
-            Conv(ch + 3 + embed, n_params, 3, padding_mode="replicate"),
-            nn.GELU(),
-            _HeadFinalConv(n_params, zero_rows),
-        )
+        if not cfg.train_depth_only:
+            self.gaussian_regressor = nn.Sequential(
+                Conv(3 + 1 + embed, ch, 3), nn.GELU(), Conv(ch, ch, 3)
+            )
+            zero_rows = list(range(3, 6))
+            if cfg.init_sh_input_img:
+                zero_rows += list(range(10, n_params))
+            self.gaussian_head = nn.Sequential(
+                Conv(ch + 3 + embed, n_params, 3, padding_mode="replicate"),
+                nn.GELU(),
+                _HeadFinalConv(n_params, zero_rows),
+            )
         init_params(self, torch.Generator().manual_seed(seed))
         self.to(dev)
 
@@ -217,7 +221,8 @@ class EncoderDepthSplat(nn.Module):
         prompt (the PromptDA branch only). Returns {"gaussians": Gaussians (B', V*H*W, ...),
         "per_view": PerViewGaussians, "depths": (B', V, H, W)}, B' = B * num_preds:
         ``training`` with a multi-scale UniMatch branch stacks one set per
-        depth prediction, the final one last; else B' = B."""
+        depth prediction, the final one last; else B' = B. Under
+        ``train_depth_only``: {"gaussians": None, "depths": (B', V, H, W)}."""
         cfg = self.cfg
         check_views(context, "context")
         images = context["image"]
@@ -225,7 +230,6 @@ class EncoderDepthSplat(nn.Module):
 
         if cfg.depth_branch == "promptda":
             results = self.depth_predictor(images, context["depth"])
-            features = results["features_mono_intermediate"][-1]  # (BV, C, H, W)
         else:
             nn_idx = knn_view_indices(context["extrinsics"], LOCAL_MV_MATCH) if v > 3 else None
             results = self.depth_predictor(
@@ -233,13 +237,18 @@ class EncoderDepthSplat(nn.Module):
                 1.0 / context["far"], 1.0 / context["near"],
                 attn_splits=ATTN_SPLITS, nn_idx=nn_idx, training=training,
             )
-            features = results["features_mono_intermediate"][-1]  # (BV, C, H/8, W/8)
-            if self.feature_proj is not None:
-                features = self.feature_proj(features)
-            features = resize_bilinear(features, (h, w), align_corners=True)
         depth_preds = results["depth_preds"]  # [(B, V, H, W)], the final one last
         depth = depth_preds[-1]
         num = len(depth_preds) if SUPERVISE_INTERMEDIATE_DEPTH else 1
+        depths = torch.cat(depth_preds) if num > 1 else depth  # (B', V, H, W)
+        if cfg.train_depth_only:
+            return {"gaussians": None, "depths": depths}
+
+        features = results["features_mono_intermediate"][-1]  # (BV, C, H, W) or (BV, C, H/8, W/8)
+        if cfg.depth_branch == "unimatch":
+            if self.feature_proj is not None:
+                features = self.feature_proj(features)
+            features = resize_bilinear(features, (h, w), align_corners=True)
 
         img = images.reshape(b * v, h, w, 3).permute(0, 3, 1, 2)
         x = self.gaussian_regressor(
@@ -252,7 +261,6 @@ class EncoderDepthSplat(nn.Module):
         def rep(x: Tensor) -> Tensor:
             return torch.cat([x] * num) if num > 1 else x
 
-        depths = torch.cat(depth_preds) if num > 1 else depth  # (B', V, H, W)
         raw = rep(raw)
         b_eff = b * num
         opacities = torch.sigmoid(raw[..., 0]).reshape(b_eff, v, h * w, 1, 1)

@@ -10,20 +10,27 @@ in the promoted type of its input and its weights, as flax does
 (``models/layers.py``), so a float32 tensor that meets a bf16 layer is
 computed in float32 there.
 
-The JAX package casts the parameters at every call; here
-``cast_network_inputs`` casts a module that is not yet in ``dtype`` into a
-copy, and a serving driver casts its module once with ``module.to(dtype)``
-so that no call copies it again: the numbers are the same.
+The JAX package casts the parameters inside every call, so that a
+gradient reaches the float32 master parameters through the cast. Here
+``apply_with_precision`` does the same for a module that is not yet in
+``dtype``: its floating parameters and buffers go to ``dtype`` as autograd
+nodes of the originals (``torch.func.functional_call``), so a training step
+finds float32 gradients in the parameters' ``.grad`` and no second float32
+copy is made. Serving (``main.test``) casts its module once with
+``module.to(dtype)``, and the call then casts nothing: the numbers are the
+same. ``cast_network_inputs`` returns a cast copy of the module (for timing
+it by part).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Callable
+from typing import Any
 
 import torch
 import torch.nn as nn
+from torch import Tensor
 
 _CAMERA_KEYS = ("extrinsics", "intrinsics", "near", "far", "depth")
 
@@ -36,10 +43,31 @@ def resolve_dtype(name: str | None) -> torch.dtype:
     raise ValueError(f"Unknown compute dtype {name!r}")
 
 
+def _in_dtype(model: nn.Module, dtype: torch.dtype) -> bool:
+    return all(p.dtype == dtype for p in model.parameters() if p.is_floating_point())
+
+
+def cast_tensors(model: nn.Module, dtype: torch.dtype) -> dict[str, Tensor]:
+    """The module's parameters and buffers by name, the floating ones in
+    ``dtype``: each cast is an autograd node, so a gradient w.r.t. the cast
+    tensor reaches the original's ``.grad`` in its own dtype."""
+    named = (*model.named_parameters(), *model.named_buffers())
+    return {k: t.to(dtype) if t.is_floating_point() else t for k, t in named}
+
+
+def cast_context(context: dict, dtype: torch.dtype) -> dict:
+    """The image-like context fields in ``dtype``; the camera fields and the
+    LiDAR prompt untouched."""
+    return {
+        k: v if k in _CAMERA_KEYS or not v.is_floating_point() else v.to(dtype)
+        for k, v in context.items()
+    }
+
+
 def cast_module(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """``model`` itself when its floating parameters are all ``dtype``, else
     a copy whose floating parameters and buffers are."""
-    if all(p.dtype == dtype for p in model.parameters() if p.is_floating_point()):
+    if _in_dtype(model, dtype):
         return model
     return copy.deepcopy(model).to(dtype)
 
@@ -51,11 +79,7 @@ def cast_network_inputs(
     fields and the LiDAR prompt untouched. float32 returns both unchanged."""
     if dtype == torch.float32:
         return model, context
-    context = {
-        k: v if k in _CAMERA_KEYS or not v.is_floating_point() else v.to(dtype)
-        for k, v in context.items()
-    }
-    return cast_module(model, dtype), context
+    return cast_module(model, dtype), cast_context(context, dtype)
 
 
 def cast_outputs_f32(out: Any) -> Any:
@@ -75,14 +99,20 @@ def cast_outputs_f32(out: Any) -> Any:
 
 
 def apply_with_precision(
-    model: Callable, compute_dtype: str | None, context: dict, **kwargs
+    model: nn.Module, compute_dtype: str | None, context: dict, **kwargs
 ) -> Any:
     """Run the encoder under the configured precision policy
     (encoder.compute_dtype): ``compute_dtype`` parameters and image-like
     inputs, float32 camera fields and LiDAR prompts, outputs cast back to
-    float32. float32 is a strict pass-through: ``model(context, **kwargs)``."""
+    float32. float32 is a strict pass-through: ``model(context, **kwargs)``.
+    A module not yet in ``compute_dtype`` runs on cast tensors made for this
+    call (``cast_tensors``), so the call is differentiable w.r.t. its own
+    parameters: the bf16 training step's float32 master parameters."""
     dtype = resolve_dtype(compute_dtype)
     if dtype == torch.float32:
         return model(context, **kwargs)
-    model, context = cast_network_inputs(model, context, dtype)
-    return cast_outputs_f32(model(context, **kwargs))
+    context = cast_context(context, dtype)
+    if _in_dtype(model, dtype):
+        return cast_outputs_f32(model(context, **kwargs))
+    out = torch.func.functional_call(model, cast_tensors(model, dtype), (context,), kwargs)
+    return cast_outputs_f32(out)

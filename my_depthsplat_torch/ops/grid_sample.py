@@ -26,7 +26,14 @@ gather and the dot (the JAX package's ``sweep_gather_dtype``); bf16 features
 interpolation weights and the accumulation stay float32: each tap's bf16
 rows are widened to float32 for the dot, whose products of bf16 values are
 exact in float32, as the JAX package's ``preferred_element_type=float32``
-dot computes them. The backward is float32 only.
+dot computes them.
+
+The backward of bf16 features rounds where the JAX package's transposes
+do: the cotangent of each tap's gathered rows and of the reference rows is
+computed in float32 and rounded to bf16 (the transpose of the float32-
+accumulating dot), the gathered rows' cotangent is scatter-added in float32
+and rounded to bf16 once per tap (``_gather_cols_bf16``'s VJP), and the
+four taps' bf16 cotangents add in bf16, the last tap's first.
 """
 
 from __future__ import annotations
@@ -116,23 +123,25 @@ class _PlaneSweep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_cost):
         src, ref, intrinsics, pose, depth = ctx.saved_tensors
-        if src.dtype != torch.float32:
-            raise NotImplementedError(
-                "plane_sweep_correlation's backward is float32 only: the bf16 training "
-                "step is queued in ROADMAP.md queue 1 item 2"
-            )
         n, d, h, w = depth.shape
         c = src.shape[1]
+        bf16 = src.dtype == torch.bfloat16
         g_cost = g_cost.reshape(n, d, h * w)
         d_src, d_ref = torch.empty_like(src), torch.empty_like(ref)
         for sl, table, ref_rows, taps in _chunks(src, ref, intrinsics, pose, depth, ctx.clamp_min_depth):
             k = ref_rows.shape[0]
             d_table, d_ref_rows = torch.zeros_like(table), torch.zeros_like(ref_rows)
-            for idx, wgt in taps:
-                g = g_cost[sl] * wgt  # (k, D, HW)
-                vals = table[idx.reshape(-1)].reshape(k, d, h * w, c)
-                d_ref_rows += torch.einsum("kdp,kdpc->kpc", g, vals)
-                d_table.index_add_(0, idx.reshape(-1), torch.einsum("kdp,kpc->kdpc", g, ref_rows).reshape(-1, c))
+            ref32 = ref_rows.float()
+            for idx, wgt in reversed(taps) if bf16 else taps:
+                g = g_cost[sl] * wgt  # (k, D, HW) float32
+                vals = table[idx.reshape(-1)].reshape(k, d, h * w, c).float()
+                d_ref_rows += torch.einsum("kdp,kdpc->kpc", g, vals).to(ref.dtype)
+                d_vals = torch.einsum("kdp,kpc->kdpc", g, ref32).reshape(-1, c)
+                if bf16:
+                    tap = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+                    d_table += tap.index_add_(0, idx.reshape(-1), d_vals.to(torch.bfloat16).float()).to(torch.bfloat16)
+                else:
+                    d_table.index_add_(0, idx.reshape(-1), d_vals)
             d_src[sl] = d_table.reshape(k, h * w, c).transpose(1, 2).reshape(k, c, h, w)
             d_ref[sl] = d_ref_rows.transpose(1, 2).reshape(k, c, h, w)
         return d_src, d_ref, None, None, None, None

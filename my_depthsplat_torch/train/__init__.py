@@ -1,4 +1,5 @@
 from .checkpoints import (
+    checkpoint_step,
     find_latest_checkpoint,
     prune_checkpoints,
     restore_checkpoint,
@@ -24,6 +25,7 @@ __all__ = [
     "TrainState",
     "apply_gradients",
     "build_lpips",
+    "checkpoint_step",
     "compute_losses",
     "find_latest_checkpoint",
     "load_lpips_weights",

@@ -54,6 +54,14 @@ def prune_checkpoints(path: Path, keep: int) -> None:
         p.unlink(missing_ok=True)
 
 
+def checkpoint_step(path: Path) -> int:
+    """The step a checkpoint was saved at, read from its ``step_{n}.pt`` name."""
+    m = _NAME.fullmatch(Path(path).name)
+    if m is None:
+        raise ValueError(f"{path}: not a step_{{n}}.pt checkpoint")
+    return int(m.group(1))
+
+
 def find_latest_checkpoint(path: Path) -> Path | None:
     """Scan step-named checkpoints, return the newest (resume_ckpt.py:6-21)."""
     files = _step_files(path)

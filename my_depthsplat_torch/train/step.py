@@ -10,6 +10,14 @@ the depth-grouped route through the chained backward. The model runs with
 ``training=True``: a multi-scale UniMatch encoder stacks its intermediate
 predictions on the batch axis, the targets are repeated to match, and
 ``compute_losses`` weights each intermediate prediction by gamma^k.
+
+``encoder.compute_dtype="bfloat16"`` runs the network in bf16 through
+``models.precision.apply_with_precision``: the parameters are cast inside
+the autograd graph, so the master parameters, their gradients and AdamW
+stay float32, and the gaussians reach the render in float32. Under
+``encoder.train_depth_only`` the encoder returns its depth predictions
+alone and the loss is ``_depth_only_loss`` against the LiDAR/GT depth of
+the context views.
 """
 
 from __future__ import annotations
@@ -19,9 +27,11 @@ from typing import Callable
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch import Tensor
 
 from ..models import DecoderSplattingCfg, EncoderDepthSplat, EncoderDepthSplatCfg, decode_splatting
+from ..models.precision import apply_with_precision
 from ..utils.device import resolve_device
 from ..utils.shapes import check_views
 from .losses import LossCfg, compute_losses
@@ -52,6 +62,41 @@ class TrainState:
     lpips: nn.Module | None = None  # frozen perceptual net
 
 
+def _depth_only_loss(cfg: TrainCfg, depths: Tensor, batch) -> tuple[Tensor, dict[str, Tensor]]:
+    """Masked L1 against the context views' GT depth, for depth-only
+    pre-training (my_depthsplat_tpu/train/step.py:_depth_only_loss).
+
+    depths: (B * num_preds, V, H, W), the predictions stacked coarse to fine
+    (the final one last). The GT ``batch["context"]["depth"]`` (B, V, hp,
+    wp) is nearest-resized to (H, W), so sparse zero (invalid) pixels stay
+    invalid. Intermediate predictions get the render losses' gamma^k
+    weights."""
+    gt = batch["context"]["depth"]
+    b = gt.shape[0]
+    num = depths.shape[0] // b
+    h, w = depths.shape[2:4]
+    if tuple(gt.shape[2:4]) != (h, w):
+        # the source pixel floor((i + 0.5) * in / out), as jax.image.resize's
+        # "nearest" (at an exact tie the two may pick neighbouring pixels)
+        gt = F.interpolate(gt, size=(h, w), mode="nearest-exact")
+    valid = gt > 0.0
+    denom = valid.sum().clamp(min=1)
+
+    def one(pred: Tensor) -> Tensor:
+        return torch.where(valid, (pred - gt).abs(), 0.0).sum() / denom
+
+    total = one(depths[-b:])
+    logs = {"loss/depth_l1": total}
+    if num > 1:
+        inter = torch.zeros((), device=depths.device)
+        for i in range(num - 1):
+            inter = inter + cfg.loss.intermediate_loss_weight ** (num - 1 - i) * one(depths[b * i : b * (i + 1)])
+        logs["loss/depth_intermediate"] = inter
+        total = total + inter
+    logs["loss/total"] = total
+    return total, logs
+
+
 def make_train_step(
     cfg: TrainCfg,
     lpips: nn.Module | None = None,
@@ -65,17 +110,6 @@ def make_train_step(
     "target": {image, extrinsics, intrinsics, near, far}} on the state's
     device. ``train_step.loss_fn(state, batch) -> (total, logs)`` is the
     differentiable forward alone."""
-    if cfg.encoder.train_depth_only:
-        raise NotImplementedError(
-            "encoder.train_depth_only: the depth-only loss is queued in ROADMAP.md "
-            "(module queue); only the render loss is ported"
-        )
-    if (cfg.encoder.compute_dtype, cfg.encoder.sweep_gather_dtype) != ("float32", "float32"):
-        raise NotImplementedError(
-            f"encoder.compute_dtype={cfg.encoder.compute_dtype!r}, sweep_gather_dtype="
-            f"{cfg.encoder.sweep_gather_dtype!r}: the bf16 training step (float32 master "
-            "parameters) is queued in ROADMAP.md queue 1 item 2; training runs float32 only"
-        )
     dev = resolve_device(device)
 
     def init_fn(seed: int = 0) -> TrainState:
@@ -88,10 +122,18 @@ def make_train_step(
         # swap or a transposed image fails with a named error
         dims = check_views(batch["context"], "batch.context")
         check_views(batch["target"], "batch.target", {"B": dims["B"]})
+        if cfg.encoder.train_depth_only and "depth" not in batch["context"]:
+            raise ValueError(
+                "encoder.train_depth_only=True requires GT depth in the batch (context.depth): "
+                "use a dataset that provides it (arkit_scenes)"
+            )
         target = batch["target"]
         h, w = target["image"].shape[2:4]
-        out = state.model(batch["context"], training=True)
+        out = apply_with_precision(state.model, cfg.encoder.compute_dtype, batch["context"], training=True)
         gaussians = out["gaussians"]
+        if gaussians is None:  # depth-only pre-training: no render
+            total, logs = _depth_only_loss(cfg, out["depths"], batch)
+            return total, {k: v.detach() for k, v in logs.items()}
 
         b = target["extrinsics"].shape[0]
         num = gaussians.means.shape[0] // b
@@ -133,6 +175,12 @@ def make_train_step(
             total, mb_logs = loss_fn(state, mb)
             (total / a).backward()  # .grad accumulates the microbatch mean
             seq.append(mb_logs)
+        for p in state.model.parameters():
+            if p.grad is None and p.requires_grad:
+                # a parameter the loss does not reach (the UniMatch arm's
+                # feature_proj under train_depth_only) has a zero gradient,
+                # as in optax: AdamW still decays it
+                p.grad = torch.zeros_like(p)
         # microbatch logs average to the full-batch value for all mean-style
         # metrics (equal microbatch sizes)
         logs = {k: torch.stack([lg[k] for lg in seq]).mean(0) for k in seq[0]}

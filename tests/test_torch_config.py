@@ -3,8 +3,7 @@ against the JAX package's: every YAML in configs/ loads in both with the
 same values, dot-overrides compose the same way, unknown keys raise, and a
 key the port holds at one value raises at any other, naming the ROADMAP.md
 item that queues it. Also the refusals of what the port does not run yet:
-the bf16 training step, the arkit and dl3dv readers, ``mode=train`` and the
-reference-format pretrained slots."""
+the arkit and dl3dv readers and the reference-format pretrained slots."""
 
 import dataclasses
 from pathlib import Path
@@ -16,7 +15,6 @@ from my_depthsplat_torch import config as port_config
 from my_depthsplat_torch import main as port_main
 from my_depthsplat_torch.data import build_dataset_cfg
 from my_depthsplat_torch.models import EncoderDepthSplatCfg
-from my_depthsplat_torch.train import TrainCfg, make_train_step
 
 REPO = Path(__file__).resolve().parent.parent
 YAMLS = sorted((REPO / "configs").glob("*.yaml"))
@@ -124,16 +122,6 @@ def test_defaults_and_dtypes():
             EncoderDepthSplatCfg(**{key: "float16"})
 
 
-@pytest.mark.parametrize(
-    "kw", [dict(compute_dtype="bfloat16"), dict(sweep_gather_dtype="bfloat16")]
-)
-def test_train_step_refuses_bf16(kw):
-    """The bf16 training step is not ported: make_train_step raises rather
-    than training float32 under a bf16 configuration."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 2"):
-        make_train_step(TrainCfg(encoder=EncoderDepthSplatCfg(**kw)), device="cpu")
-
-
 @pytest.mark.parametrize("name", ["arkit_scenes", "dl3dv"])
 def test_unported_readers_raise(name):
     cfg = port_config.DatasetCfg(name=name)
@@ -143,9 +131,7 @@ def test_unported_readers_raise(name):
         build_dataset_cfg(port_config.DatasetCfg(name="other"))
 
 
-def test_cli_refuses_train_mode_and_pretrained_slots(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        port_main.main(["--config", str(REPO / "configs" / "re10k_small.yaml")])
+def test_cli_refuses_pretrained_slots(tmp_path):
     cfg = port_config.load_config(
         REPO / "configs" / "re10k_720p_fast.yaml", ["checkpointing.pretrained_model=model.pth"]
     )

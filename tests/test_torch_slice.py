@@ -197,7 +197,7 @@ def test_entry_point_without_device_raises_without_card(monkeypatch):
 
 def test_unimatch_branch_names_the_roadmap(monkeypatch):
     """The UniMatch branch builds, and so does its training step; what the
-    port still refuses names its ROADMAP item: the depth-only loss."""
+    port still refuses names its ROADMAP item: the window-mode plane sweep."""
     from my_depthsplat_torch.train import TrainCfg, make_train_step
     from test_torch_unimatch_encoder import register_vitt
 
@@ -213,4 +213,4 @@ def test_unimatch_branch_names_the_roadmap(monkeypatch):
     state = init(seed=0)
     assert type(state.model.depth_predictor).__name__ == "MultiViewUniMatch" and callable(step)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(TrainCfg(encoder=EncoderDepthSplatCfg(train_depth_only=True)), device="cpu")
+        EncoderDepthSplatCfg(depth_branch="unimatch", sweep_mode="window")

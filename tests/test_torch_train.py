@@ -327,7 +327,7 @@ def test_train_step_grad_accum_equals_full_batch(vitt):  # noqa: F811
 def test_train_step_learns_and_checks_the_batch(vitt):  # noqa: F811
     """A few steps on one batch lower the loss; logs are finite;
     depth_mode adds render/depth_mean; a context/target batch mismatch is a
-    named shape error; train_depth_only names the roadmap."""
+    named shape error; train_depth_only without GT depth is a named error."""
     from my_depthsplat_torch.utils.shapes import ShapeError
 
     batch = _to_torch(_batch(np.random.default_rng(6), 1))
@@ -342,8 +342,13 @@ def test_train_step_learns_and_checks_the_batch(vitt):  # noqa: F811
     with pytest.raises(ShapeError, match="batch.target"):
         step(state, bad)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(TrainCfg(encoder=EncoderDepthSplatCfg(train_depth_only=True)), device="cpu")
+    init_do, step_do = make_train_step(
+        TrainCfg(encoder=EncoderDepthSplatCfg(depth_branch="promptda", monodepth_vit_type=vitt, train_depth_only=True)),
+        device="cpu",
+    )
+    no_depth = {"context": {k: v for k, v in batch["context"].items() if k != "depth"}, "target": batch["target"]}
+    with pytest.raises(ValueError, match="context.depth"):
+        step_do(init_do(seed=1), no_depth)
 
 
 def test_make_train_step_without_device_raises_without_card(monkeypatch):
