@@ -211,10 +211,41 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    just after: every render kernel launched 0 times; loss finite, every
    parameter changed.
 
-Phases 18-21 run first, in that order, after the build; then 4-17. The
-line before the card line is a JSON object {"kernels": [...]} (with each
-kernel's launches on the paths of phases 19-21); the card
-line is nvidia-smi's name and power limit; the last line is
+22. configs/arkit_promptda.yaml through the CLI on a seeded synthetic
+   ARKitScenes tree written under build/ (16 Training and 2 Validation
+   scenes of 48 frames: RGB PNGs at 256x192, 16-bit LiDAR PNGs in mm from a
+   smooth surface, .pincam intrinsics, a .traj trajectory), LPIPS 0.05
+   with LPIPS(seed=1)'s weights: train 1 + 3 steps (B = 14) with a
+   validation and a checkpoint, counters 0 just before and read just after
+   each run (A and B 4 + 1, C and D 4, the chained kernels 0); the first
+   batch's loss lower after its step, finite logs, grad_norm > 0, the
+   batch's LiDAR depth the prompt PromptDA received; then mode=test from
+   the checkpoint and from a reference-format .ckpt (the ViT and
+   gaussian_head.2 the file's, the rest the seed's), and one step from
+   checkpointing.pretrained_monodepth on that file (train_cli_arkit says
+   which overrides and why);
+23. configs/arkit_depth_only.yaml through the CLI on such a tree: train
+   1 + 2 steps, then test with save_depth from the checkpoint; no render
+   kernel launches; the depth PNG/NPY files written;
+24. configs/dl3dv_base.yaml through the CLI: a seeded synthetic raw DL3DV
+   tree (4 train scenes and 1 test scene of 96 JPEG frames at 270x480 with
+   a nerfstudio transforms.json) converted with
+   python -m my_depthsplat_torch.data.convert_dl3dv, train 1 + 3 steps
+   (UniMatch ViT-B, two scales, B = 2, 4 + 4 views at 256x448) with a
+   validation and a checkpoint (A and B once a step and for the
+   validation, C and D once a step, the chained kernels 0), then serve the
+   test scene from the checkpoint; dataset.extra_args.min_views and
+   max_views set to 4 (train_cli_dl3dv says why);
+25. kernels A, B, C and D vs their plain versions, with the tolerances of
+   phases 5-7, on the 56-view binning of a phase-22 training batch under
+   the trained model (its LiDAR-prompted depths) and on the 16-view
+   binning of a phase-24 batch (two depth predictions x 2 x 4 targets).
+
+Phases 18-25 run first, in that order, after the build; then 4-17. Each
+phase prints its step ms, peak GiB and wall s where it trains or serves.
+The line before the card line is a JSON object {"kernels": [...]} (with
+each kernel's launches on the paths of phases 19-24); the card line is
+nvidia-smi's name and power limit; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -286,6 +317,22 @@ SMALL_CLI_STEPS, SMALL_CLI_RESUMED_STEPS = 6, 8
 # down to BF16_MIN_CONTEXT views; scenes of BF16_FRAMES frames at 720x1280
 BF16_MIN_CONTEXT = 6
 BF16_FRAMES = 16
+# the arkit configurations through the CLI: a synthetic ARKitScenes tree of
+# lowres_wide frames at ARKit's 256x192 (H x W below), Training with more
+# scenes than configs/arkit_promptda.yaml's batch of 14 (the loader starts each
+# epoch's batches afresh), 48 frames a scene for the bounded sampler's context
+# gaps of 12-36 frames
+ARKIT_YAML = REPO / "configs" / "arkit_promptda.yaml"
+ARKIT_DEPTH_YAML = REPO / "configs" / "arkit_depth_only.yaml"
+ARKIT_RAW_SHAPE = (192, 256)
+ARKIT_TRAIN_SCENES, ARKIT_VAL_SCENES, ARKIT_FRAMES = 16, 2, 48
+ARKIT_CLI_STEPS, DEPTH_CLI_STEPS = 4, 3
+# configs/dl3dv_base.yaml through the CLI: a synthetic raw DL3DV tree at the
+# reader's 270x480, 96 frames a scene for boundedv2's context gaps of 32-64
+DL3DV_YAML = REPO / "configs" / "dl3dv_base.yaml"
+DL3DV_RAW_SHAPE, DL3DV_SHAPE = (270, 480), (256, 448)
+DL3DV_TRAIN_SCENES, DL3DV_TEST_SCENES, DL3DV_FRAMES = 4, 1, 96
+DL3DV_CLI_STEPS = 4
 
 
 def fail(msg: str) -> None:
@@ -772,18 +819,24 @@ def fit_context_views(torch, card, label, state, train_step, make_batch, least):
     return v, probes
 
 
-def jpeg_frame(torch, rng, shape):
-    """A smooth random JPEG frame at ``shape`` (noise at 1/16 upsampled) as
-    the re10k chunks hold it: a uint8 tensor of the file's bytes."""
-    import io
-
+def smooth_frame(rng, shape):
+    """A smooth random RGB frame (a PIL image) at ``shape``: noise at 1/16,
+    upsampled."""
     import numpy as np
     from PIL import Image
 
     h, w = shape
     noise = (rng.uniform(0, 1, (h // 16, w // 16, 3)) * 255).astype(np.uint8)
+    return Image.fromarray(noise).resize((w, h), Image.BICUBIC)
+
+
+def jpeg_frame(torch, rng, shape):
+    """A smooth random JPEG frame at ``shape`` as the re10k chunks hold it: a
+    uint8 tensor of the file's bytes."""
+    import io
+
     buf = io.BytesIO()
-    Image.fromarray(noise).resize((w, h), Image.BICUBIC).save(buf, format="JPEG", quality=90)
+    smooth_frame(rng, shape).save(buf, format="JPEG", quality=90)
     return torch.frombuffer(bytearray(buf.getvalue()), dtype=torch.uint8)
 
 
@@ -1923,10 +1976,13 @@ def serve_cli(torch, card, reset_counters, read_counters):
 
 
 @contextlib.contextmanager
-def timed_train_steps(torch, cli, step_ms, after=None):
+def timed_train_steps(torch, cli, step_ms, after=None, batches=None, refit=None, uncounted=None):
     """The CLI's ``make_train_step`` patched so that each train step is
     timed on the host clock between synchronisations (ms appended to
-    ``step_ms``), then ``after(state)`` is called, outside the time."""
+    ``step_ms``), then ``after(state)`` is called, outside the time. When
+    given, ``batches`` gets each step's batch, and ``refit`` the first
+    batch's loss/total again under the weights its step left (no grad,
+    outside the time, inside ``uncounted``: a check beside the path)."""
     real = cli.make_train_step
 
     def make(*args, **kwargs):
@@ -1940,6 +1996,11 @@ def timed_train_steps(torch, cli, step_ms, after=None):
             step_ms.append((time.perf_counter() - t_a) * 1e3)
             if after is not None:
                 after(state)
+            if batches is not None:
+                batches.append(batch)
+            if refit is not None and not refit:
+                with torch.no_grad(), uncounted():
+                    refit.append(float(step.loss_fn(state, batch)[0]))
             return logs
 
         timed.loss_fn = step.loss_fn
@@ -2308,6 +2369,484 @@ def train_depth_only(torch, dev, card, reset_counters, read_counters):
     return {"launches": launches, "step_ms": step_ms, "peak_gib": peak}
 
 
+def lidar_png(rng, shape):
+    """A smooth seeded depth surface of 1.3-2.7 m in millimetres as a 16-bit
+    PNG image, with 3 % of the pixels invalid (0), as ARKit's LiDAR has."""
+    import numpy as np
+    from PIL import Image
+
+    h, w = shape
+    y, x = np.mgrid[0:h, 0:w] / max(h, w)
+    a, b, c = rng.uniform(1, 4, 3)
+    d = 2000 + 700 * np.sin(a * x + c) * np.cos(b * y)
+    d[rng.uniform(size=(h, w)) < 0.03] = 0
+    return Image.fromarray(d.astype(np.uint16))
+
+
+def write_arkit_tree(root, seed):
+    """A seeded synthetic ARKitScenes tree under ``root``: ARKIT_TRAIN_SCENES
+    scenes in Training/ and ARKIT_VAL_SCENES in Validation/, each of
+    ARKIT_FRAMES frames as the reader takes them: lowres_wide/ RGB PNGs at
+    ARKIT_RAW_SHAPE named ``<scene>_<timestamp>.png``, lowres_depth/ 16-bit
+    PNGs in millimetres, lowres_wide_intrinsics/*.pincam and a
+    lowres_wide.traj at twice the frame rate (the camera walks 4 cm a frame
+    along world x, looking along world y, world up z, with a little yaw)."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    h, w = ARKIT_RAW_SHAPE
+    level = np.array([[1.0, 0, 0], [0, 0, -1], [0, 1, 0]]).T  # columns: the camera's x, y, z in the world
+    for split, n in (("Training", ARKIT_TRAIN_SCENES), ("Validation", ARKIT_VAL_SCENES)):
+        for s in range(n):
+            scene = root / split / f"{42000000 + 100 * s + (split == 'Validation')}"
+            for d in ("lowres_wide", "lowres_depth", "lowres_wide_intrinsics"):
+                (scene / d).mkdir(parents=True)
+            rows = []
+            for i in range(2 * ARKIT_FRAMES):
+                c2w = np.eye(4)
+                c2w[:3, :3] = Rotation.from_euler("z", rng.uniform(-5, 5), degrees=True).as_matrix() @ level
+                c2w[:3, 3] = [0.02 * i, 0.0, 1.5]
+                w2c = np.linalg.inv(c2w)
+                rv = Rotation.from_matrix(w2c[:3, :3]).as_rotvec()
+                rows.append(" ".join(f"{x:.9f}" for x in (100.0 + 0.05 * i, *rv, *w2c[:3, 3])))
+            (scene / "lowres_wide.traj").write_text("\n".join(rows) + "\n")
+            for i in range(ARKIT_FRAMES):
+                stem = f"{scene.name}_{100.02 + 0.1 * i:.3f}"
+                smooth_frame(rng, (h, w)).save(scene / "lowres_wide" / f"{stem}.png", compress_level=1)
+                lidar_png(rng, (h, w)).save(scene / "lowres_depth" / f"{stem}.png", compress_level=1)
+                f = rng.uniform(0.8, 1.0) * w
+                (scene / "lowres_wide_intrinsics" / f"{stem}.pincam").write_text(
+                    f"{w} {h} {f:.4f} {f:.4f} {w / 2 + rng.uniform(-1, 1):.4f} {h / 2 + rng.uniform(-1, 1):.4f}"
+                )
+
+
+def write_dl3dv_raw(torch, root, seed):
+    """A seeded synthetic raw DL3DV download under ``root``: train/ with
+    DL3DV_TRAIN_SCENES scenes and test/ with DL3DV_TEST_SCENES, each of
+    DL3DV_FRAMES JPEG frames at DL3DV_RAW_SHAPE (images_8/frame_*.jpg) and a
+    nerfstudio transforms.json (OpenGL c2w, intrinsics in pixels; the
+    camera walks 5 cm a frame with a little yaw)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = DL3DV_RAW_SHAPE
+    gl = np.diag([1.0, -1.0, -1.0, 1.0])
+    for split, n in (("train", DL3DV_TRAIN_SCENES), ("test", DL3DV_TEST_SCENES)):
+        for s in range(n):
+            scene = root / split / f"{split}{s:03d}"
+            (scene / "images_8").mkdir(parents=True)
+            frames = []
+            for i in range(DL3DV_FRAMES):
+                a = rng.uniform(-0.05, 0.05)
+                c2w = np.eye(4)
+                c2w[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+                c2w[:3, 3] = [0.05 * i, 0.0, 0.0]
+                name = f"images_8/frame_{i + 1:05d}.jpg"
+                (scene / name).write_bytes(bytes(jpeg_frame(torch, rng, (h, w)).numpy()))
+                frames.append({"file_path": name, "transform_matrix": (c2w @ gl).tolist()})
+            meta = {"w": w, "h": h, "fl_x": 0.8 * w, "fl_y": 0.8 * w, "cx": w / 2, "cy": h / 2, "frames": frames}
+            (scene / "transforms.json").write_text(json.dumps(meta))
+
+
+@contextlib.contextmanager
+def timed_loader(cli, batch_ms):
+    """The CLI's training loader with each batch's host ms (scene reads,
+    decodes, shims, stacking: the data layer) appended to ``batch_ms``."""
+    real = cli.data_loader
+
+    def loader(dataset, cfg, stage="train", *args, **kwargs):
+        it = real(dataset, cfg, stage, *args, **kwargs)
+        if stage != "train":
+            return it
+
+        def timed():
+            while True:
+                t_a = time.perf_counter()
+                batch = next(it, None)
+                if batch is None:
+                    return
+                batch_ms.append((time.perf_counter() - t_a) * 1e3)
+                yield batch
+
+        return timed()
+
+    with mock.patch.object(cli, "data_loader", loader):
+        yield
+
+
+def run_cli_train(torch, cli, yaml, overrides, reset_counters, read_counters, uncounted=None):
+    """``cli.main`` on ``yaml`` in train mode, its steps timed and its
+    loader's batches timed, counters 0 just before and read just after.
+    Returns the state and the run's figures; the batches it trained on are
+    in the figures' "batches" (on the card); with ``uncounted``, the first
+    batch's loss after its step in "refit"."""
+    step_ms, batch_ms, batches = [], [], []
+    refit = None if uncounted is None else []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_train_steps(torch, cli, step_ms, batches=batches, refit=refit, uncounted=uncounted), \
+            timed_loader(cli, batch_ms):
+        reset_counters()
+        t_a = time.perf_counter()
+        state = cli.main(["--config", str(yaml), *overrides])
+        wall = time.perf_counter() - t_a
+        launches = read_counters()
+    figures = {
+        "launches": launches, "step_ms": step_ms, "step_ms_median": statistics.median(step_ms[1:] or step_ms),
+        "data_ms": batch_ms, "data_ms_median": statistics.median(batch_ms[1:] or batch_ms), "wall_s": wall,
+        "outside_steps_ms_per_step": (wall * 1e3 - sum(step_ms)) / len(step_ms),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "batches": batches, "refit": refit,
+    }
+    return state, figures
+
+
+def run_cli_test(torch, cli, yaml, overrides, reset_counters, read_counters):
+    """``cli.main`` on ``yaml`` with mode=test, counters 0 just before and
+    read just after. Returns the result and the run's figures."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t_a = time.perf_counter()
+    result = cli.main(["--config", str(yaml), "mode=test", *overrides])
+    wall = time.perf_counter() - t_a
+    launches = read_counters()
+    return result, {"launches": launches, "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def serving_figures(test_dir):
+    """encoder ms per scene and decode ms per target view from a test run's
+    benchmark.json (means over every entry)."""
+    bench = json.loads((test_dir / "benchmark.json").read_text())
+    return {k: statistics.mean(bench[k]) * 1e3 for k in ("encoder", "decoder") if bench.get(k)}
+
+
+def check_train_logs(label, metrics, steps):
+    import numpy as np
+
+    train_logs = [r for r in metrics if "loss/total" in r]
+    check([r["step"] for r in train_logs] == list(range(1, steps + 1)), f"{label}: logged steps {[r['step'] for r in train_logs]}")
+    for r in train_logs:
+        check(all(np.isfinite(v) for k, v in r.items() if isinstance(v, float)) and r["grad_norm"] > 0,
+              f"{label} step {r['step']}: {r}")
+    return train_logs
+
+
+def print_cli_train(label, r, card):
+    print(
+        f"CLI training {label}: {len(r['step_ms'])} steps, step {r['step_ms_median']:.1f} ms (median after the "
+        f"first; host clock around synchronised steps), first step {r['step_ms'][0]:.1f} ms; data layer "
+        f"{r['data_ms_median']:.1f} ms a batch (median after the first; the loader's host time: reads, decodes, "
+        f"shims), first batch {r['data_ms'][0]:.1f} ms; {r['outside_steps_ms_per_step']:.1f} ms a step outside "
+        f"the steps (wall minus steps: data, validation, checkpoints, set-up); peak {r['peak_gib']:.2f} GiB; "
+        f"{r['wall_s']:.1f} s wall; launches {r['launches']} on {card}"
+    )
+
+
+def train_cli_arkit(torch, dev, card, reset_counters, read_counters, uncounted):
+    """Phase 22: configs/arkit_promptda.yaml through the port's CLI on a
+    seeded synthetic ARKitScenes tree under build/ (write_arkit_tree), with
+    LPIPS(seed=1)'s weights written there. Overrides: dataset.roots,
+    output_dir, loss.lpips_weights, the run's length (trainer.max_steps)
+    and its evaluation and checkpoint intervals
+    (trainer.val_check_interval, checkpointing.every_n_train_steps),
+    trainer.print_log_every_n_steps=1 (every step's logs, so the loss's
+    fall is read), and in the test runs mode=test and checkpointing.load.
+    1. train 1 + 3 steps (B = 14, 2 context + 4 targets at 192x192, LPIPS
+       0.05), validation and a checkpoint at step 4: kernels A and B 4 + 1
+       times, C and D 4, the chained ones never; the loss finite, and the
+       first batch's lower under the weights its step left (each step reads
+       a new batch); grad_norm > 0; the prompt PromptDA received on the first
+       step is the batch's context depth (LiDAR metres, not zeros);
+    2. mode=test from that step_4.pt over the Validation split (2 scenes,
+       the bounded sampler's test stage: 37 targets each): A and B once a
+       scene; scores finite;
+    3. mode=test from a reference-format .ckpt ({"state_dict": {"encoder."
+       + name: tensor}} of a port encoder from seed 5): the ViT and
+       gaussian_head.2 the file's, every other parameter the seed's (the
+       JAX package's converter maps the ViT and of the four gaussian convs
+       only gaussian_head.2; ROADMAP.md §3);
+    4. train 1 step with checkpointing.pretrained_monodepth on that file:
+       the ViT the file's and the rest the seed's before the step.
+    Returns the runs' figures and the trained model and batches of run 1
+    (for phase 25)."""
+    import shutil
+
+    import numpy as np
+
+    from my_depthsplat_torch import main as cli
+    from my_depthsplat_torch.config import load_config
+    from my_depthsplat_torch.models import EncoderDepthSplat
+    from my_depthsplat_torch.models import promptda as promptda_mod
+    from my_depthsplat_torch.train import LPIPS
+
+    root = REPO / "build" / "arkit_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    vit = "depth_predictor.pretrained."
+    runs = {}
+    try:
+        t_a = time.perf_counter()
+        write_arkit_tree(root / "arkit", 1100)
+        print(f"CLI arkit: synthetic tree written in {time.perf_counter() - t_a:.1f} s")
+        torch.save(LPIPS(seed=1).state_dict(), root / "lpips.pt")
+        enc_cfg = load_config(ARKIT_YAML).encoder
+        seed = load_config(ARKIT_YAML).seed
+        ref = {f"encoder.{k}": v.cpu() for k, v in EncoderDepthSplat(enc_cfg, device=dev, seed=5).state_dict().items()}
+        torch.save({"state_dict": ref}, root / "ref.ckpt")
+        seeded = EncoderDepthSplat(enc_cfg, device=dev, seed=seed).state_dict()
+        common = [f"dataset.roots=[{root / 'arkit'}]", f"loss.lpips_weights={root / 'lpips.pt'}",
+                  "trainer.print_log_every_n_steps=1"]
+
+        prompts = []
+        real_forward = promptda_mod.PromptDA.forward
+
+        def recording_forward(self, images, prompt):
+            if torch.is_grad_enabled() and not prompts:
+                prompts.append(prompt.detach().clone())
+            return real_forward(self, images, prompt)
+
+        with mock.patch.object(promptda_mod.PromptDA, "forward", recording_forward):
+            state, runs["train"] = run_cli_train(
+                torch, cli, ARKIT_YAML,
+                [*common, f"output_dir={root / 'run'}", f"trainer.max_steps={ARKIT_CLI_STEPS}",
+                 f"trainer.val_check_interval={ARKIT_CLI_STEPS}", f"checkpointing.every_n_train_steps={ARKIT_CLI_STEPS}"],
+                reset_counters, read_counters, uncounted,
+            )
+        r = runs["train"]
+        first = r["batches"][0]
+        depth = first["context"]["depth"]
+        check(len(prompts) == 1 and torch.equal(prompts[0], depth),
+              "CLI arkit_promptda: the prompt PromptDA received is not the batch's context depth")
+        valid = float((depth > 0).float().mean())
+        print(f"CLI arkit_promptda: prompt = context depth {tuple(depth.shape)}, {valid * 100:.2f} % valid, "
+              f"{float(depth[depth > 0].min()):.3f}-{float(depth.max()):.3f} m")
+        check(0.9 < valid < 1.0 and 1.0 < float(depth.max()) < 3.0, "CLI arkit_promptda: the prompt is not LiDAR metres")
+        metrics = read_metrics(root / "run" / "metrics.jsonl")
+        logs = check_train_logs("CLI arkit_promptda", metrics, ARKIT_CLI_STEPS)
+        check(r["refit"][0] < logs[0]["loss/total"],
+              f"CLI arkit_promptda: the first batch's loss/total did not fall over its step "
+              f"({logs[0]['loss/total']} -> {r['refit'][0]})")
+        check([m["step"] for m in metrics if "val/psnr" in m] == [ARKIT_CLI_STEPS], "CLI arkit_promptda: validation")
+        ckpts = sorted(p.name for p in (root / "run" / "checkpoints").iterdir())
+        check(ckpts == [f"step_{ARKIT_CLI_STEPS}.pt"], f"CLI arkit_promptda: checkpoints {ckpts}")
+        fwd = ARKIT_CLI_STEPS + 1
+        want = {"expand": fwd, "expand_write": fwd, "composite_fwd": fwd, "composite_bwd": ARKIT_CLI_STEPS,
+                "scatter_reduce": ARKIT_CLI_STEPS, "composite_fwd_chained": 0, "composite_bwd_chained": 0}
+        check(r["launches"] == want, f"CLI arkit_promptda: launches {r['launches']}, expected {want}")
+        print_cli_train("arkit_promptda", r, card)
+        print(f"CLI arkit_promptda: the first batch's loss/total {logs[0]['loss/total']:.8f} -> "
+              f"{r['refit'][0]:.8f} over its step; the steps' loss/total "
+              + ", ".join(f"{x['loss/total']:.6f}" for x in logs))
+        keep = (state.model, r.pop("batches")[-1])
+        del state
+
+        served = []
+        real_restore = cli._restore_encoder
+
+        def recording_restore(cfg, encoder):
+            real_restore(cfg, encoder)
+            served.append({k: v.clone() for k, v in encoder.state_dict().items()})
+
+        for name, load in (("test", root / "run" / "checkpoints" / f"step_{ARKIT_CLI_STEPS}.pt"),
+                           ("test_ckpt", root / "ref.ckpt")):
+            with mock.patch.object(cli, "_restore_encoder", recording_restore):
+                result, runs[name] = run_cli_test(
+                    torch, cli, ARKIT_YAML, [*common, f"output_dir={root / name}", f"checkpointing.load={load}"],
+                    reset_counters, read_counters,
+                )
+            r = runs[name]
+            check(set(result["scores"]) == {"psnr", "ssim", "lpips"} and np.isfinite(list(result["scores"].values())).all(),
+                  f"CLI arkit_promptda {name}: scores {result['scores']}")
+            want = {k: (ARKIT_VAL_SCENES if k in ("expand", "expand_write", "composite_fwd") else 0) for k in want}
+            check(r["launches"] == want, f"CLI arkit_promptda {name}: launches {r['launches']}, expected {want}")
+            r.update(scores=result["scores"], **serving_figures(root / name / "test"))
+            print(
+                f"CLI serving arkit_promptda from {load.name}: encoder {r['encoder']:.1f} ms a scene, decode "
+                f"{r['decoder']:.3f} ms a target view ({ARKIT_VAL_SCENES} scenes of 37 targets, benchmark.json "
+                f"means), peak {r['peak_gib']:.2f} GiB, {r['wall_s']:.1f} s wall, scores {result['scores']}, "
+                f"launches {r['launches']} on {card}"
+            )
+        from_file = [k for k in seeded if k.startswith(vit) or k.startswith("gaussian_head.2.")]
+        check(len(from_file) == sum(k.startswith(vit) for k in seeded) + 2, "CLI arkit_promptda: ViT keys")
+        for k, v in served[1].items():
+            want_t = ref[f"encoder.{k}"].to(dev) if k in from_file else seeded[k]
+            check(torch.equal(v, want_t), f"CLI arkit_promptda test from ref.ckpt: {k} is not the expected tensor")
+        print(f"CLI arkit_promptda from ref.ckpt: {len(from_file)} tensors the file's (the ViT and gaussian_head.2), "
+              f"{len(seeded) - len(from_file)} the seed's")
+
+        slotted = []
+        real_slots = cli.apply_pretrained_slots
+
+        def recording_slots(cfg, encoder):
+            real_slots(cfg, encoder)
+            slotted.append({k: v.clone() for k, v in encoder.state_dict().items()})
+
+        with mock.patch.object(cli, "apply_pretrained_slots", recording_slots):
+            state, runs["monodepth"] = run_cli_train(
+                torch, cli, ARKIT_YAML,
+                [*common, f"output_dir={root / 'monodepth'}", "trainer.max_steps=1", "trainer.val_check_interval=1000",
+                 f"checkpointing.pretrained_monodepth={root / 'ref.ckpt'}"],
+                reset_counters, read_counters,
+            )
+        del state, runs["monodepth"]["batches"]
+        for k, v in slotted[0].items():
+            check(torch.equal(v, ref[f"encoder.{k}"].to(dev) if k.startswith(vit) else seeded[k]),
+                  f"CLI arkit_promptda pretrained_monodepth: {k} is not the expected tensor")
+        check_train_logs("CLI arkit_promptda pretrained_monodepth", read_metrics(root / "monodepth" / "metrics.jsonl"), 1)
+        want = {k: (1 if "chained" not in k else 0) for k in want}
+        check(runs["monodepth"]["launches"] == want, f"CLI arkit_promptda pretrained_monodepth: {runs['monodepth']['launches']}")
+        print(f"CLI arkit_promptda pretrained_monodepth: 1 step, the ViT the file's before it, "
+              f"step {runs['monodepth']['step_ms'][0]:.1f} ms, launches {runs['monodepth']['launches']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs, keep
+
+
+def train_cli_arkit_depth_only(torch, card, reset_counters, read_counters):
+    """Phase 23: configs/arkit_depth_only.yaml through the port's CLI on the
+    same kind of tree (B = 1 as the YAML leaves it, 2 context views at
+    192x192, LiDAR depth as prompt and GT). Overrides: dataset.roots,
+    output_dir, the run's length, the validation and checkpoint intervals,
+    trainer.print_log_every_n_steps=1, and for the test run mode=test and
+    checkpointing.load. Train 1 + 2 steps, then test from step_3.pt with the
+    YAML's forward_depth_only and save_depth: every render kernel launched
+    0 times in both runs; a PNG and an NPY per context view of each
+    Validation scene."""
+    import shutil
+
+    import numpy as np
+
+    from my_depthsplat_torch import main as cli
+
+    root = REPO / "build" / "arkit_depth_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {}
+    try:
+        write_arkit_tree(root / "arkit", 1200)
+        common = [f"dataset.roots=[{root / 'arkit'}]", "trainer.print_log_every_n_steps=1"]
+        state, runs["train"] = run_cli_train(
+            torch, cli, ARKIT_DEPTH_YAML,
+            [*common, f"output_dir={root / 'run'}", f"trainer.max_steps={DEPTH_CLI_STEPS}",
+             f"trainer.val_check_interval={DEPTH_CLI_STEPS}", f"checkpointing.every_n_train_steps={DEPTH_CLI_STEPS}"],
+            reset_counters, read_counters,
+        )
+        del state, runs["train"]["batches"]
+        logs = check_train_logs("CLI arkit_depth_only", read_metrics(root / "run" / "metrics.jsonl"), DEPTH_CLI_STEPS)
+        check(all("loss/depth_l1" in r for r in logs), "CLI arkit_depth_only: no depth loss logged")
+        result, runs["test"] = run_cli_test(
+            torch, cli, ARKIT_DEPTH_YAML,
+            [*common, f"output_dir={root / 'test'}",
+             f"checkpointing.load={root / 'run' / 'checkpoints' / f'step_{DEPTH_CLI_STEPS}.pt'}"],
+            reset_counters, read_counters,
+        )
+        dumped = sorted(p.relative_to(root / "test" / "test").as_posix() for p in (root / "test" / "test").glob("*/depth/*"))
+        want = [f"{s}/depth/{i:04d}.{ext}" for s in sorted({d.split('/')[0] for d in dumped}) for i in range(N_CONTEXT)
+                for ext in ("npy", "png")]
+        check(len(want) == 2 * N_CONTEXT * ARKIT_VAL_SCENES and dumped == want, f"CLI arkit_depth_only: depth files {dumped}")
+        d = np.load(root / "test" / "test" / dumped[0])
+        check(d.shape == SHAPE and np.isfinite(d).all() and (d > 0).all(), f"CLI arkit_depth_only: depth {d.shape}")
+        runs["test"].update(**serving_figures(root / "test" / "test"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name, r in runs.items():
+        check(all(n == 0 for n in r["launches"].values()), f"CLI arkit_depth_only {name}: a render kernel launched {r['launches']}")
+    print_cli_train("arkit_depth_only", runs["train"], card)
+    print(f"CLI serving arkit_depth_only (forward_depth_only, save_depth): encoder {runs['test']['encoder']:.1f} ms a "
+          f"scene, {runs['test']['wall_s']:.1f} s wall, launches {runs['test']['launches']} on {card}")
+    return runs
+
+
+def train_cli_dl3dv(torch, card, reset_counters, read_counters):
+    """Phase 24: configs/dl3dv_base.yaml through the port's CLI. A seeded
+    synthetic raw DL3DV tree (write_dl3dv_raw) is converted with
+    ``python -m my_depthsplat_torch.data.convert_dl3dv`` into .torch chunks
+    under build/; then train 1 + 3 steps as the YAML sets it (UniMatch ViT-B,
+    two scales, B = 2, 4 context and 4 target views at 256x448 from 270x480,
+    LPIPS 0.05 with LPIPS(seed=1)'s weights) with validation and a
+    checkpoint at step 4, and serve the test split from that checkpoint.
+    Overrides: dataset.roots, output_dir, loss.lpips_weights, the run's
+    length, the validation and checkpoint intervals,
+    trainer.print_log_every_n_steps=1, and dataset.extra_args.min_views=4
+    and max_views=4 (the YAML's num_context_views): the reader's defaults,
+    2 and 6, draw a context count per example, and a B = 2 batch of two
+    counts cannot be stacked (a trap of both packages' loaders, ROADMAP.md
+    §3). Checks: kernels A and B once a step and once for the validation,
+    C and D once a step, the chained ones never (458,752 gaussians an
+    element, below 2^21); finite logs, grad_norm > 0; the test run's scores
+    finite, A and B once. Returns the runs' figures and the trained model
+    and last batch (for phase 25)."""
+    import shutil
+
+    import numpy as np
+
+    from my_depthsplat_torch import main as cli
+    from my_depthsplat_torch.train import LPIPS
+
+    root = REPO / "build" / "dl3dv_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {}
+    try:
+        t_a = time.perf_counter()
+        write_dl3dv_raw(torch, root / "raw", 2400)
+        for split in ("train", "test"):
+            subprocess.run(
+                [sys.executable, "-m", "my_depthsplat_torch.data.convert_dl3dv", "--input", str(root / "raw" / split),
+                 "--output", str(root / "dl3dv" / split)],
+                check=True, cwd=REPO, timeout=300,
+            )
+        index = json.loads((root / "dl3dv" / "train" / "index.json").read_text())
+        check(len(index) == DL3DV_TRAIN_SCENES, f"CLI dl3dv_base: converted index {index}")
+        print(f"CLI dl3dv: raw tree written and converted in {time.perf_counter() - t_a:.1f} s")
+        torch.save(LPIPS(seed=1).state_dict(), root / "lpips.pt")
+        common = [f"dataset.roots=[{root / 'dl3dv'}]", f"loss.lpips_weights={root / 'lpips.pt'}",
+                  "trainer.print_log_every_n_steps=1", "dataset.extra_args.min_views=4", "dataset.extra_args.max_views=4"]
+        state, runs["train"] = run_cli_train(
+            torch, cli, DL3DV_YAML,
+            [*common, f"output_dir={root / 'run'}", f"trainer.max_steps={DL3DV_CLI_STEPS}",
+             f"trainer.val_check_interval={DL3DV_CLI_STEPS}", f"checkpointing.every_n_train_steps={DL3DV_CLI_STEPS}"],
+            reset_counters, read_counters,
+        )
+        r = runs["train"]
+        keep = (state.model, r.pop("batches")[-1])
+        del state
+        ctx = keep[1]["context"]
+        check(tuple(ctx["image"].shape) == (2, 4, *DL3DV_SHAPE, 3), f"CLI dl3dv_base: context {tuple(ctx['image'].shape)}")
+        metrics = read_metrics(root / "run" / "metrics.jsonl")
+        logs = check_train_logs("CLI dl3dv_base", metrics, DL3DV_CLI_STEPS)
+        check(all("loss/intermediate" in x for x in logs), "CLI dl3dv_base: two scales log loss/intermediate")
+        check([m["step"] for m in metrics if "val/psnr" in m] == [DL3DV_CLI_STEPS], "CLI dl3dv_base: validation")
+        fwd = DL3DV_CLI_STEPS + 1
+        want = {"expand": fwd, "expand_write": fwd, "composite_fwd": fwd, "composite_bwd": DL3DV_CLI_STEPS,
+                "scatter_reduce": DL3DV_CLI_STEPS, "composite_fwd_chained": 0, "composite_bwd_chained": 0}
+        check(r["launches"] == want, f"CLI dl3dv_base: launches {r['launches']}, expected {want}")
+        print_cli_train("dl3dv_base", r, card)
+        print(f"CLI dl3dv_base: loss/total {logs[0]['loss/total']:.6f} -> {logs[-1]['loss/total']:.6f}")
+
+        result, runs["test"] = run_cli_test(
+            torch, cli, DL3DV_YAML,
+            [*common, f"output_dir={root / 'test'}",
+             f"checkpointing.load={root / 'run' / 'checkpoints' / f'step_{DL3DV_CLI_STEPS}.pt'}"],
+            reset_counters, read_counters,
+        )
+        r = runs["test"]
+        check(set(result["scores"]) == {"psnr", "ssim", "lpips"} and np.isfinite(list(result["scores"].values())).all(),
+              f"CLI dl3dv_base test: scores {result['scores']}")
+        want = {k: (DL3DV_TEST_SCENES if k in ("expand", "expand_write", "composite_fwd") else 0) for k in want}
+        check(r["launches"] == want, f"CLI dl3dv_base test: launches {r['launches']}, expected {want}")
+        n_targets = len(list((root / "test" / "test").glob("*/color/*.png")))
+        r.update(scores=result["scores"], targets=n_targets, **serving_figures(root / "test" / "test"))
+        print(
+            f"CLI serving dl3dv_base from step_{DL3DV_CLI_STEPS}.pt: encoder {r['encoder']:.1f} ms a scene, decode "
+            f"{r['decoder']:.3f} ms a target view ({DL3DV_TEST_SCENES} scene, {n_targets} targets), peak "
+            f"{r['peak_gib']:.2f} GiB, {r['wall_s']:.1f} s wall, scores {result['scores']}, launches {r['launches']} on {card}"
+        )
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs, keep
+
+
 def main() -> int:
     import torch
 
@@ -2402,6 +2941,83 @@ def main() -> int:
                 mock.patch.object(raster_mod, "scatter_reduce", scatter_reduce_plain):
             yield
 
+    errs = {"expand": 0, "composite_fwd": 0.0, "composite_bwd": 0.0, "scatter_reduce": 0.0}
+    rel_errs = {"composite_bwd": 0.0, "scatter_reduce": 0.0}
+    # ---- kernels A-D against their plain versions on one binning (at
+    # SHAPE unless ``at`` says otherwise); their largest errors kept in errs
+    def screen(means, cov, sh, opac, views, at=shape):
+        return screen_views(torch, means, cov, sh, opac, views, at)
+
+    def cotangent(b, seed, at=shape):
+        return torch.randn(b, *at, 3, generator=torch.Generator().manual_seed(seed)).to(dev)
+
+    def compare(label, sg, dense, at=shape):
+        flat = expand_inputs(sg, at)
+        out_k, out_p = expand_tiles(*flat), expand_plain(*flat)
+        keys_k, keys_p = out_k[0], out_p[0]
+        check(keys_k.shape == keys_p.shape, f"{label}: kernel A emits {keys_k.numel()} instances, plain {keys_p.numel()}")
+        inst_k = build_tile_instances(sg, at)
+        with mock.patch.object(inst_mod, "expand_tiles", expand_plain):
+            inst_p = build_tile_instances(sg, at)
+        pairs = {
+            **dict(zip(("keys", "ids", "offset", "per_gaussian"), zip(out_k, out_p))),
+            "sorted keys": (torch.sort(keys_k).values, torch.sort(keys_p).values),
+            **{f: (getattr(inst_k, f), getattr(inst_p, f)) for f in ("gaussian_id", "starts", "counts", "perm")},
+        }
+        a_err = {k: (x.long() - y.long()).abs().max().item() if x.numel() else 0 for k, (x, y) in pairs.items()}
+        print(f"{label}: kernel A vs plain max abs difference {a_err}")
+        errs["expand"] = max(errs["expand"], *a_err.values())
+        for k, (x, y) in pairs.items():
+            check(torch.equal(x, y), f"{label}: kernel A {k} differ")
+
+        b = sg.depth.shape[0]
+        bg = torch.rand(b, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+        rows = screen_rows(sg)
+        args = (rows, inst_k.gaussian_id, inst_k.starts, inst_k.counts, bg, at)
+        img_k, t_k, n_k = composite_fwd(*args)
+        img_p, t_p, n_p = composite_plain(*args)
+        di, dt = (img_k - img_p).abs(), (t_k - t_p).abs()
+        same_n = (n_k == n_p).float().mean().item()
+        print(
+            f"{label}: {keys_k.numel()} instances; image max {di.max().item():.3e} mean "
+            f"{di.mean().item():.3e}; T_final max {dt.max().item():.3e}; n_contrib equal "
+            f"{same_n * 100:.4f}%; min T_final {t_k.min().item():.3e}"
+        )
+        max_tol, mean_tol = (6e-3, 1e-5) if dense else (1e-4, 1e-4)
+        for what, d in (("image", di), ("T_final", dt)):
+            check(d.max().item() <= max_tol and d.mean().item() <= mean_tol, f"{label}: kernel B {what} disagrees")
+        check(same_n >= 0.999, f"{label}: kernel B n_contrib agrees on only {same_n:.5f}")
+        errs["composite_fwd"] = max(errs["composite_fwd"], di.max().item())
+
+        # kernels C and D on kernel B's T_final and n_contrib
+        bargs = (
+            rows, inst_k.gaussian_id, inst_k.perm, inst_k.starts, inst_k.counts, bg,
+            t_k, n_k, cotangent(b, 2, at), at,
+        )
+        d_k, d_again, d_p = composite_bwd(*bargs), composite_bwd(*bargs), composite_bwd_plain(*bargs)
+        check(bool(torch.isfinite(d_k).all()), f"{label}: kernel C non-finite rows")
+        check(torch.equal(d_k, d_again), f"{label}: kernel C differs between two runs")
+        c_abs = (d_k - d_p).abs().max().item()
+        c_rel = c_abs / d_p.abs().max().item()
+        dargs = (d_k, inst_k.offset, inst_k.per_gaussian)
+        r_k, r_again = scatter_reduce(*dargs), scatter_reduce(*dargs)
+        r_p = scatter_reduce_plain(*dargs)  # index_add_
+        check(torch.equal(r_k, r_again), f"{label}: kernel D differs between two runs")
+        d_abs = (r_k - r_p).abs().max().item()
+        d_rel = d_abs / r_p.abs().max().item()
+        c_tol = 1e-5
+        print(
+            f"{label}: kernel C vs plain max {c_abs:.3e} = {c_rel:.3e} of the largest row entry "
+            f"(tolerance {c_tol:.0e}); kernel D vs index_add_ max {d_abs:.3e} = {d_rel:.3e} of the "
+            f"largest entry (tolerance 1e-06); both bit-identical across two runs"
+        )
+        check(c_rel <= c_tol, f"{label}: kernel C disagrees with composite_bwd_plain")
+        check(d_rel <= 1e-6, f"{label}: kernel D disagrees with index_add_")
+        errs["composite_bwd"] = max(errs["composite_bwd"], c_abs)
+        errs["scatter_reduce"] = max(errs["scatter_reduce"], d_abs)
+        rel_errs["composite_bwd"] = max(rel_errs["composite_bwd"], c_rel)
+        rel_errs["scatter_reduce"] = max(rel_errs["scatter_reduce"], d_rel)
+
     # ---- serving re10k_720p_fast through the CLI, bf16 and float32 (first:
     # its peak memory is the CLI's own)
     cli = serve_cli(torch, card, reset_counters, read_counters)
@@ -2412,11 +3028,41 @@ def main() -> int:
     train_small = train_cli_small(torch, card, reset_counters, read_counters)
     train_bf16 = train_cli_bf16(torch, dev, card, reset_counters, read_counters, uncounted)
     depth_only = train_depth_only(torch, dev, card, reset_counters, read_counters)
+
+    # ---- the fork's arkit configurations and dl3dv_base through the CLI
+    arkit_cli, (arkit_model, arkit_batch) = train_cli_arkit(torch, dev, card, reset_counters, read_counters, uncounted)
+    depth_cli = train_cli_arkit_depth_only(torch, card, reset_counters, read_counters)
+    dl3dv_cli, (dl3dv_model, dl3dv_batch) = train_cli_dl3dv(torch, card, reset_counters, read_counters)
     new_paths = {
         "launches_train_cli_small": train_small["first"]["launches"],
         "launches_train_cli_small_resumed": train_small["resumed"]["launches"],
         "launches_train_cli_720p_bf16": train_bf16["launches"], "launches_train_depth_only": depth_only["launches"],
+        **{f"launches_cli_arkit_promptda_{k}": r["launches"] for k, r in arkit_cli.items()},
+        **{f"launches_cli_arkit_depth_only_{k}": r["launches"] for k, r in depth_cli.items()},
+        **{f"launches_cli_dl3dv_base_{k}": r["launches"] for k, r in dl3dv_cli.items()},
     }
+
+    # ---- phase 25: kernels A-D vs their plain versions at the shapes of the
+    # CLI's arkit and dl3dv training: a training batch of each under the
+    # trained model (the training forward: dl3dv_base stacks its two depth
+    # predictions' gaussians, each rendered into the batch's targets)
+    with torch.no_grad():
+        for label, model, batch, at in (
+            ("arkit_promptda CLI training batch", arkit_model, arkit_batch, shape),
+            ("dl3dv_base CLI training batch", dl3dv_model, dl3dv_batch, DL3DV_SHAPE),
+        ):
+            g = model(batch["context"], training=True)["gaussians"]
+            num = g.means.shape[0] // batch["target"]["image"].shape[0]
+            views = {k: torch.cat([batch["target"][k]] * num) for k in ("extrinsics", "intrinsics", "near", "far")}
+            v = views["near"].shape[1]
+            sg = screen(*(x.repeat_interleave(v, 0) for x in (g.means, g.covariances, g.harmonics, g.opacities)),
+                        views, at)
+            print(f"{label}: {sg.depth.shape[0]} views of {g.means.shape[1]} gaussians at {at[0]}x{at[1]}")
+            compare(label, sg, True, at)
+            del g, sg
+    del arkit_model, arkit_batch, dl3dv_model, dl3dv_batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- serving path at full width (counters 0 just before, read just after)
     cfg = EncoderDepthSplatCfg(depth_branch="promptda", monodepth_vit_type="vits")
@@ -2466,88 +3112,12 @@ def main() -> int:
     print(f"serving: encoder {enc_ms:.3f} ms, decode {dec_ms:.3f} ms (median of {N_SCENES} scenes) on {card}")
 
     # ---- the served decode through the kernels vs through the plain versions
-    errs = {"expand": 0, "composite_fwd": 0.0, "composite_bwd": 0.0, "scatter_reduce": 0.0}
-    rel_errs = {"composite_bwd": 0.0, "scatter_reduce": 0.0}
     for i, ((out, dec, _, _), (_, tgt)) in enumerate(zip(served, scenes)):
         with torch.no_grad(), plain_versions():
             diff = (dec.color - decode(out, tgt).color).abs()
         print(f"served scene {i}: decode kernels vs plain max {diff.max().item():.3e} mean {diff.mean().item():.3e}")
         check(diff.max().item() <= 6e-3 and diff.mean().item() <= 1e-5, f"served scene {i}: decode disagrees")
         errs["composite_fwd"] = max(errs["composite_fwd"], diff.max().item())
-
-    # ---- kernel-level comparisons on random scenes at the served shapes
-    def screen(means, cov, sh, opac, views):
-        return screen_views(torch, means, cov, sh, opac, views, shape)
-
-    def cotangent(b, seed):
-        return torch.randn(b, h, w, 3, generator=torch.Generator().manual_seed(seed)).to(dev)
-
-    def compare(label, sg, dense):
-        flat = expand_inputs(sg, shape)
-        out_k, out_p = expand_tiles(*flat), expand_plain(*flat)
-        keys_k, keys_p = out_k[0], out_p[0]
-        check(keys_k.shape == keys_p.shape, f"{label}: kernel A emits {keys_k.numel()} instances, plain {keys_p.numel()}")
-        inst_k = build_tile_instances(sg, shape)
-        with mock.patch.object(inst_mod, "expand_tiles", expand_plain):
-            inst_p = build_tile_instances(sg, shape)
-        pairs = {
-            **dict(zip(("keys", "ids", "offset", "per_gaussian"), zip(out_k, out_p))),
-            "sorted keys": (torch.sort(keys_k).values, torch.sort(keys_p).values),
-            **{f: (getattr(inst_k, f), getattr(inst_p, f)) for f in ("gaussian_id", "starts", "counts", "perm")},
-        }
-        a_err = {k: (x.long() - y.long()).abs().max().item() if x.numel() else 0 for k, (x, y) in pairs.items()}
-        print(f"{label}: kernel A vs plain max abs difference {a_err}")
-        errs["expand"] = max(errs["expand"], *a_err.values())
-        for k, (x, y) in pairs.items():
-            check(torch.equal(x, y), f"{label}: kernel A {k} differ")
-
-        b = sg.depth.shape[0]
-        bg = torch.rand(b, 3, generator=torch.Generator().manual_seed(1)).to(dev)
-        rows = screen_rows(sg)
-        args = (rows, inst_k.gaussian_id, inst_k.starts, inst_k.counts, bg, shape)
-        img_k, t_k, n_k = composite_fwd(*args)
-        img_p, t_p, n_p = composite_plain(*args)
-        di, dt = (img_k - img_p).abs(), (t_k - t_p).abs()
-        same_n = (n_k == n_p).float().mean().item()
-        print(
-            f"{label}: {keys_k.numel()} instances; image max {di.max().item():.3e} mean "
-            f"{di.mean().item():.3e}; T_final max {dt.max().item():.3e}; n_contrib equal "
-            f"{same_n * 100:.4f}%; min T_final {t_k.min().item():.3e}"
-        )
-        max_tol, mean_tol = (6e-3, 1e-5) if dense else (1e-4, 1e-4)
-        for what, d in (("image", di), ("T_final", dt)):
-            check(d.max().item() <= max_tol and d.mean().item() <= mean_tol, f"{label}: kernel B {what} disagrees")
-        check(same_n >= 0.999, f"{label}: kernel B n_contrib agrees on only {same_n:.5f}")
-        errs["composite_fwd"] = max(errs["composite_fwd"], di.max().item())
-
-        # kernels C and D on kernel B's T_final and n_contrib
-        bargs = (
-            rows, inst_k.gaussian_id, inst_k.perm, inst_k.starts, inst_k.counts, bg,
-            t_k, n_k, cotangent(b, 2), shape,
-        )
-        d_k, d_again, d_p = composite_bwd(*bargs), composite_bwd(*bargs), composite_bwd_plain(*bargs)
-        check(bool(torch.isfinite(d_k).all()), f"{label}: kernel C non-finite rows")
-        check(torch.equal(d_k, d_again), f"{label}: kernel C differs between two runs")
-        c_abs = (d_k - d_p).abs().max().item()
-        c_rel = c_abs / d_p.abs().max().item()
-        dargs = (d_k, inst_k.offset, inst_k.per_gaussian)
-        r_k, r_again = scatter_reduce(*dargs), scatter_reduce(*dargs)
-        r_p = scatter_reduce_plain(*dargs)  # index_add_
-        check(torch.equal(r_k, r_again), f"{label}: kernel D differs between two runs")
-        d_abs = (r_k - r_p).abs().max().item()
-        d_rel = d_abs / r_p.abs().max().item()
-        c_tol = 1e-5
-        print(
-            f"{label}: kernel C vs plain max {c_abs:.3e} = {c_rel:.3e} of the largest row entry "
-            f"(tolerance {c_tol:.0e}); kernel D vs index_add_ max {d_abs:.3e} = {d_rel:.3e} of the "
-            f"largest entry (tolerance 1e-06); both bit-identical across two runs"
-        )
-        check(c_rel <= c_tol, f"{label}: kernel C disagrees with composite_bwd_plain")
-        check(d_rel <= 1e-6, f"{label}: kernel D disagrees with index_add_")
-        errs["composite_bwd"] = max(errs["composite_bwd"], c_abs)
-        errs["scatter_reduce"] = max(errs["scatter_reduce"], d_abs)
-        rel_errs["composite_bwd"] = max(rel_errs["composite_bwd"], c_rel)
-        rel_errs["scatter_reduce"] = max(rel_errs["scatter_reduce"], d_rel)
 
     g_rand = N_CONTEXT * h * w  # gaussians per view, as served
     rng = np.random.default_rng(7)
@@ -2773,6 +3343,9 @@ def main() -> int:
         "re10k_small": {k: {x: r[x] for x in ("step_ms_median", "peak_gib", "wall_s")} for k, r in train_small.items()},
         "re10k_720p_fast_bf16": {k: x for k, x in train_bf16.items() if k != "launches"},
         "depth_only": {k: x for k, x in depth_only.items() if k != "launches"},
+        **{f"{name}_{k}": {x: y for x, y in r.items() if x != "launches"}
+           for name, runs in (("arkit_promptda", arkit_cli), ("arkit_depth_only", depth_cli), ("dl3dv_base", dl3dv_cli))
+           for k, r in runs.items()},
     }
     print(json.dumps({"kernels": kernels}))
     print(card)

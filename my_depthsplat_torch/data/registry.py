@@ -2,10 +2,9 @@
 
 The port's own copy of my_depthsplat_tpu/data/registry.py (the reference's
 ``get_dataset``, src/dataset/__init__.py:21-32). The shared ``DatasetCfg``
-fields map onto the reader's cfg dataclass, and reader-specific knobs pass
-through ``dataset.extra_args`` with unknown-key rejection. The port reads
-``re10k``; ``arkit_scenes`` and ``dl3dv`` raise until their readers are
-ported.
+fields map onto the reader's cfg dataclass, and reader-specific knobs (e.g.
+dl3dv ``min_views``/``max_views``, arkit ``highres``) pass through
+``dataset.extra_args`` with unknown-key rejection.
 """
 
 from __future__ import annotations
@@ -15,19 +14,19 @@ from pathlib import Path
 from typing import get_type_hints
 
 from ..config import DatasetCfg, _coerce
+from .arkit import DatasetARKitScenes, DatasetARKitScenesCfg
+from .dl3dv import DatasetDL3DV, DatasetDL3DVCfg
 from .re10k import DatasetRE10k, DatasetRE10kCfg
 
-DATASETS = {"re10k": (DatasetRE10k, DatasetRE10kCfg)}
-NOT_PORTED = ("arkit_scenes", "dl3dv")
+DATASETS = {
+    "re10k": (DatasetRE10k, DatasetRE10kCfg),
+    "dl3dv": (DatasetDL3DV, DatasetDL3DVCfg),
+    "arkit_scenes": (DatasetARKitScenes, DatasetARKitScenesCfg),
+}
 
 
 def build_dataset_cfg(cfg: DatasetCfg):
     """Materialize the per-dataset cfg dataclass from the generic DatasetCfg."""
-    if cfg.name in NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {cfg.name!r}: its reader is queued in ROADMAP.md queue 1 item 8 "
-            f"(the data path); the port reads {sorted(DATASETS)}"
-        )
     try:
         _, cfg_cls = DATASETS[cfg.name]
     except KeyError:
@@ -68,6 +67,5 @@ def get_dataset(
     num_hosts: int = 1,
 ):
     """name-dispatched reader construction (reference __init__.py:21-32)."""
-    cfg_obj = build_dataset_cfg(cfg)
     cls, _ = DATASETS[cfg.name]
-    return cls(cfg_obj, stage, view_sampler, host_id, num_hosts)
+    return cls(build_dataset_cfg(cfg), stage, view_sampler, host_id, num_hosts)

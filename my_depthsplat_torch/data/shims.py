@@ -23,6 +23,25 @@ def _rescale_lanczos(image: np.ndarray, shape: tuple[int, int]) -> np.ndarray:
     return np.asarray(out).astype(np.float32) / 255.0
 
 
+def _linear_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) bilinear resample matrix, align_corners=True, its
+    weights computed in float64 and stored in float32, as the JAX package's
+    ops/interpolate.py builds it (torch's own float32 source coordinates
+    move a value beside a LiDAR hole by up to 1.6e-6 of the largest depth)."""
+    m = np.zeros((n_out, n_in), dtype=np.float32)
+    if n_in == 1:
+        m[:, 0] = 1.0
+        return m
+    for i in range(n_out):
+        src = i * (n_in - 1) / (n_out - 1) if n_out > 1 else 0.0
+        src = min(max(src, 0.0), n_in - 1)
+        lo = int(np.floor(src))
+        hi = min(lo + 1, n_in - 1)
+        m[i, lo] += 1.0 - (src - lo)
+        m[i, hi] += src - lo
+    return m
+
+
 def _center_crop(images, intrinsics, shape, depths=None):
     h_in, w_in = images.shape[-3:-1]
     h_out, w_out = shape
@@ -47,15 +66,11 @@ def rescale_and_crop(images, intrinsics, shape, depths=None):
     h_s, w_s = round(h_in * scale), round(w_in * scale)
     assert h_s == h_out or w_s == w_out  # one side fits by construction
     images = np.stack([_rescale_lanczos(im, (h_s, w_s)) for im in images])
-    if depths is not None:
+    if depths is not None and tuple(depths.shape[-2:]) != (h_s, w_s):
         # bilinear align_corners=True (crop_shim.py:97-103)
-        import torch
-
-        from ..ops import resize_bilinear
-
-        d = torch.from_numpy(np.ascontiguousarray(depths))
-        depths = resize_bilinear(d.reshape(-1, 1, *d.shape[-2:]), (h_s, w_s))
-        depths = depths.reshape(*d.shape[:-2], h_s, w_s).numpy()
+        mh = _linear_matrix(depths.shape[-2], h_s)
+        mw = _linear_matrix(depths.shape[-1], w_s)
+        depths = mh @ depths.astype(np.float32) @ mw.T
     return _center_crop(images, intrinsics, shape, depths)
 
 

@@ -10,16 +10,17 @@ precision policy, then either the train loop (``train``, :171-305) or
         'dataset.roots=[datasets/re10k]' output_dir=outputs/run
 
 It runs on the card (``train(cfg, device="cpu")`` and ``test(cfg,
-device="cpu")`` run the plain versions on the CPU). Training starts from
-random weights drawn from ``seed`` (or resumes from the newest
-``checkpoints/step_*.pt`` under ``output_dir`` with
-``checkpointing.resume``); it logs to ``metrics.jsonl``, validates every
-``trainer.val_check_interval`` steps, evaluates on the test split every
-``trainer.test_eval_interval`` steps and checkpoints every
-``checkpointing.every_n_train_steps``. Test mode serves random weights
-unless ``checkpointing.load`` names one of the port's own checkpoints.
-Not ported yet, and refused: the reference-format pretrained slots
-(ROADMAP.md queue 1 item 7) and more than one device (item 11).
+device="cpu")`` run the plain versions on the CPU). Both modes start from
+random weights drawn from ``seed``, then apply the pretrained slots
+(``checkpointing.pretrained_{monodepth,model,depth,mvdepth}``, :101-123),
+each a reference checkpoint or one of the port's own ``step_*.pt`` files.
+Training then resumes from the newest ``checkpoints/step_*.pt`` under
+``output_dir`` with ``checkpointing.resume``; it logs to ``metrics.jsonl``,
+validates every ``trainer.val_check_interval`` steps, evaluates on the test
+split every ``trainer.test_eval_interval`` steps and checkpoints every
+``checkpointing.every_n_train_steps``. Test mode then loads
+``checkpointing.load`` in either format (:480-493). Not ported yet, and
+refused: more than one device (ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -47,8 +48,19 @@ from .eval.metrics import compute_psnr
 from .eval.runner import run_test
 from .models import EncoderDepthSplat, decode_splatting
 from .models.precision import apply_with_precision, resolve_dtype
+from .models.vit import VIT_CONFIGS
 from .train import TrainCfg, TrainState, make_train_step
-from .train.checkpoints import checkpoint_step, find_latest_checkpoint, restore_checkpoint, save_checkpoint
+from .train.checkpoints import (
+    checkpoint_step,
+    find_latest_checkpoint,
+    load_pretrained_depth,
+    load_pretrained_model,
+    load_pretrained_monodepth,
+    load_slot_params,
+    resolve_checkpoint_uri,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from .train.lpips_io import build_lpips
 from .utils.device import resolve_device
 from .utils.layout import add_border, hcat, vcat
@@ -91,36 +103,52 @@ def torch_batch(batch: dict, device: torch.device | str) -> dict:
     return {"context": conv(batch["context"]), "target": conv(batch["target"])}
 
 
-def _refuse_pretrained_slots(cfg: RootCfg) -> None:
-    for slot in ("pretrained_model", "pretrained_monodepth", "pretrained_depth", "pretrained_mvdepth"):
-        if getattr(cfg.checkpointing, slot):
-            raise NotImplementedError(
-                f"checkpointing.{slot}: the reference-format pretrained loaders are queued "
-                "in ROADMAP.md queue 1 item 7 (checkpoints)"
-            )
+def _vit_depth(cfg: RootCfg) -> int:
+    return VIT_CONFIGS[cfg.encoder.monodepth_vit_type].depth
+
+
+def apply_pretrained_slots(cfg: RootCfg, encoder: EncoderDepthSplat) -> None:
+    """The reference's 3-way filtered pretrained loading before fit/test
+    (src/main.py:188-266), in its order: monodepth first, then the full
+    model (optionally skipping the depth predictor), then the depth-only
+    slots. Each slot's source is read against the encoder's weights as they
+    were on entry, and the result is loaded once at the end."""
+    ck = cfg.checkpointing
+    if not any((ck.pretrained_monodepth, ck.pretrained_model, ck.pretrained_depth, ck.pretrained_mvdepth)):
+        return
+    base = encoder.state_dict()
+    params = dict(base)
+    if ck.pretrained_monodepth:
+        loaded = load_slot_params(ck.pretrained_monodepth, base, _vit_depth(cfg))
+        params = load_pretrained_monodepth(params, loaded)
+        print(f"loaded pretrained_monodepth from {ck.pretrained_monodepth}")
+    if ck.pretrained_model:
+        loaded = load_slot_params(ck.pretrained_model, base, _vit_depth(cfg))
+        params = load_pretrained_model(params, loaded, skip_depth_predictor=ck.pretrained_model_skip_depth)
+        print(f"loaded pretrained_model from {ck.pretrained_model}")
+    for slot in (ck.pretrained_depth, ck.pretrained_mvdepth):
+        if slot:
+            loaded = load_slot_params(slot, base, _vit_depth(cfg))
+            params = load_pretrained_depth(params, loaded)
+            print(f"loaded pretrained depth slot from {slot}")
+    encoder.load_state_dict(params, strict=True)
 
 
 def _restore_encoder(cfg: RootCfg, encoder: EncoderDepthSplat) -> None:
-    """Pretrained weights: the port's own checkpoints only."""
-    _refuse_pretrained_slots(cfg)
-    ck = cfg.checkpointing
-    if not ck.load:
+    """Test mode's weights: the pretrained slots, then ``checkpointing.load``
+    whole, either one of the port's own ``step_*.pt`` files or a reference
+    checkpoint through the converter."""
+    apply_pretrained_slots(cfg, encoder)
+    if not cfg.checkpointing.load:
         return
-    path = Path(ck.load)
-    if not (path.is_file() and path.suffix == ".pt" and path.name.startswith("step_")):
-        raise NotImplementedError(
-            f"checkpointing.load={ck.load!r}: the port restores its own step_*.pt files "
-            "(train/checkpoints.py); other formats are queued in ROADMAP.md queue 1 item 7"
-        )
-    device = next(encoder.parameters()).device
-    blob = torch.load(path.absolute(), map_location=device, weights_only=True)
-    encoder.load_state_dict(blob["model"], strict=True)
+    path = resolve_checkpoint_uri(cfg.checkpointing.load)
+    encoder.load_state_dict(load_slot_params(path, encoder.state_dict(), _vit_depth(cfg)), strict=True)
     print(f"restored {path}")
 
 
 def test(cfg: RootCfg, device: torch.device | str | None = None) -> dict:
     """Serve the test split: every scene through the encoder (random weights
-    from ``cfg.seed`` unless ``checkpointing.load`` restores them) under
+    from ``cfg.seed``, then the pretrained slots and ``checkpointing.load``) under
     ``encoder.compute_dtype``, its targets through ``decode_splatting``, and
     ``run_test``'s scores, timings and files under ``output_dir/test``."""
     dev = resolve_device(device)
@@ -154,8 +182,9 @@ def test(cfg: RootCfg, device: torch.device | str | None = None) -> dict:
 
 def train(cfg: RootCfg, device: torch.device | str | None = None) -> TrainState | None:
     """The train loop (my_depthsplat_tpu/main.py:train): the state from
-    ``cfg.seed`` on the first batch, or restored from the newest checkpoint
-    with ``checkpointing.resume``; one ``train_step`` per batch of the train
+    ``cfg.seed`` on the first batch with the pretrained slots applied
+    (the optimizer's state untouched), then restored from the newest
+    checkpoint with ``checkpointing.resume``; one ``train_step`` per batch of the train
     split, whose bounded sampler reads the live step; a log line every
     ``print_log_every_n_steps``, validation every ``val_check_interval``,
     test-split evaluation every ``test_eval_interval`` (0: never), a
@@ -167,7 +196,6 @@ def train(cfg: RootCfg, device: torch.device | str | None = None) -> TrainState 
             f"trainer.mesh_data={cfg.trainer.mesh_data}, mesh_model={cfg.trainer.mesh_model}: "
             "training on more than one device is queued in ROADMAP.md queue 1 item 11 (multi-device)"
         )
-    _refuse_pretrained_slots(cfg)
     out_dir = Path(cfg.output_dir)
     out_dir.mkdir(exist_ok=True, parents=True)
     (out_dir / "config.json").write_text(json.dumps(to_dict(cfg), indent=2, default=str))
@@ -202,6 +230,7 @@ def train(cfg: RootCfg, device: torch.device | str | None = None) -> TrainState 
         for batch in loader:
             if state is None:
                 state = init_fn(seed=cfg.seed)
+                apply_pretrained_slots(cfg, state.model)
                 if latest is not None:
                     restore_checkpoint(latest, state)
                     print(f"resuming from {latest} at step {state.step}")

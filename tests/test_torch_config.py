@@ -2,15 +2,17 @@
 against the JAX package's: every YAML in configs/ loads in both with the
 same values, dot-overrides compose the same way, unknown keys raise, and a
 key the port holds at one value raises at any other, naming the ROADMAP.md
-item that queues it. Also the refusals of what the port does not run yet:
-the arkit and dl3dv readers and the reference-format pretrained slots."""
+item that queues it. Also the registry's arkit and dl3dv readers and the
+loaders' refusal of a checkpoint in neither format."""
 
 import dataclasses
 from pathlib import Path
 
 import pytest
+import torch
 
 from my_depthsplat_tpu import config as jax_config
+from my_depthsplat_tpu.data.registry import build_dataset_cfg as jax_build_dataset_cfg
 from my_depthsplat_torch import config as port_config
 from my_depthsplat_torch import main as port_main
 from my_depthsplat_torch.data import build_dataset_cfg
@@ -124,21 +126,43 @@ def test_defaults_and_dtypes():
 
 @pytest.mark.parametrize("name", ["arkit_scenes", "dl3dv"])
 def test_unported_readers_raise(name):
-    cfg = port_config.DatasetCfg(name=name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-        build_dataset_cfg(cfg)
+    """The arkit_scenes and dl3dv readers, once refused, now build the cfg
+    the JAX package's registry builds from the same fields and extra_args
+    (arkit's ``highres`` coerced from a string); an unknown name and an
+    unknown extra_args key still raise."""
+    extra = {"arkit_scenes": {"highres": "true"}, "dl3dv": {"min_views": 4, "max_views": 4}}[name]
+    cfg = port_config.DatasetCfg(name=name, roots=["data"], extra_args=extra)
+    got = build_dataset_cfg(cfg)
+    want = jax_build_dataset_cfg(jax_config.DatasetCfg(name=name, roots=["data"], extra_args=extra))
+    assert type(got).__name__ == type(want).__name__
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert getattr(got, "highres", True) is True
+    with pytest.raises(KeyError, match="extra_args"):
+        build_dataset_cfg(dataclasses.replace(cfg, extra_args={"nonsense": 1}))
     with pytest.raises(ValueError, match="Unknown dataset"):
         build_dataset_cfg(port_config.DatasetCfg(name="other"))
 
 
 def test_cli_refuses_pretrained_slots(tmp_path):
+    """The slots and ``checkpointing.load`` are read now; a file in neither
+    the port's nor the reference's format is refused, and a missing file
+    raises before anything is loaded."""
+    torch.save({"weights": {}}, tmp_path / "model.pth")
     cfg = port_config.load_config(
-        REPO / "configs" / "re10k_720p_fast.yaml", ["checkpointing.pretrained_model=model.pth"]
+        REPO / "configs" / "re10k_720p_fast.yaml", [f"checkpointing.pretrained_model={tmp_path / 'model.pth'}"]
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        port_main._restore_encoder(cfg, None)
+    with pytest.raises(ValueError, match="neither"):
+        port_main._restore_encoder(cfg, EncoderStub())
     cfg = port_config.load_config(
         REPO / "configs" / "re10k_720p_fast.yaml", [f"checkpointing.load={tmp_path / 'model.ckpt'}"]
     )
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_main._restore_encoder(cfg, None)
+    with pytest.raises(FileNotFoundError):
+        port_main._restore_encoder(cfg, EncoderStub())
+
+
+class EncoderStub(torch.nn.Module):
+    """Stands for an encoder: the loaders read its state dict."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(1))

@@ -147,13 +147,17 @@ def test_cli_train_validates_evaluates_checkpoints_and_resumes(tmp_path, monkeyp
 
 
 def test_cli_train_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """More than one device and the reference-format pretrained slots name
-    their ROADMAP items; without a card the CLI's train mode raises."""
+    """More than one device names its ROADMAP item; a pretrained slot
+    naming a missing file fails on the first batch, before any step; without
+    a card the CLI's train mode raises."""
     register_vitt(monkeypatch)
     overrides = _overrides(tmp_path)
-    for extra, item in (("trainer.mesh_model=2", "item 11"), ("checkpointing.pretrained_model=x.pth", "item 7")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-            port_main.train(load_config(YAML, overrides + [extra]), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
+        port_main.train(load_config(YAML, overrides + ["trainer.mesh_model=2"]), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        port_main.train(load_config(YAML, overrides + [f"checkpointing.pretrained_model={tmp_path / 'x.pth'}"]),
+                        device="cpu")
+    assert not (tmp_path / "run" / "checkpoints").exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_main.main(["--config", YAML] + overrides)
