@@ -239,14 +239,40 @@ Phases, each fatal on failure (nothing falls back to the CPU):
 25. kernels A, B, C and D vs their plain versions, with the tolerances of
    phases 5-7, on the 56-view binning of a phase-22 training batch under
    the trained model (its LiDAR-prompted depths) and on the 16-view
-   binning of a phase-24 batch (two depth predictions x 2 x 4 targets).
+   binning of a phase-24 batch (two depth predictions x 2 x 4 targets), and
+   (with phase 28) on the 32-view binning of a phase-26 batch;
+26. configs/re10k_large.yaml through the CLI as the YAML stands (UniMatch
+   with ViT-L, two scales with features at 1/4 and 1/2, the upsampler x2;
+   B = 4, 2 + 4 views at 256x256; LPIPS 0.05 with LPIPS(seed=1)'s weights)
+   on seeded synthetic re10k chunks written under build/: train 1 + 3
+   steps with a validation and a checkpoint (A and B 4 + 1, C and D 4, the
+   chained kernels 0); the port's index generator on the card over the
+   test chunk's cameras writes the evaluation index; mode=test from the
+   checkpoint with the .ply, the exaggerated 60-frame video (A and B once
+   for the targets and 6 times for the frames, a scene); compute_metrics
+   over the written PNGs against a ground-truth tree of the same targets,
+   its PSNR within the 8-bit bound and its SSIM within 1e-2 of run_test's;
+27. BASELINE.json's configuration 4: configs/re10k_720p_fast.yaml as the
+   YAML stands (bf16) through main.main in test mode, 6 context views and
+   2 targets at 512x960 from a written index, render_chunk_size 10,
+   gaussian_scale_max 0.1, the .ply and the 60-frame video, 2 scenes, then
+   one again with stabilize_camera: 2,809,344 vertices read back as
+   written, the frames finite in [0, 1] (mp4 or PNG sequence, printed),
+   every rendered view's launches (targets and frames, the grouped route)
+   against an independent walk over every depth group;
+28. render_projections (256x256, the fake-orthographic camera ~573
+   extents back) of phase 27's first scene (grouped route: kernel A on
+   every group, identical, with both key widths; row 3 group by group
+   within the dense bounds) and of a phase-26 test scene (flat route: A
+   identical, B within the dense bounds, C and D as in phase 7), on each
+   axis's binning; kernels A-D at a phase-26 training batch (phase 25).
 
-Phases 18-25 run first, in that order, after the build; then 4-17. Each
-phase prints its step ms, peak GiB and wall s where it trains or serves.
-The line before the card line is a JSON object {"kernels": [...]} (with
-each kernel's launches on the paths of phases 19-24); the card line is
-nvidia-smi's name and power limit; the last line is
-{"ok": true, "device": {...}}.
+Phases 18-28 run first, in that order (28's training-batch part inside
+25), after the build; then 4-17. Each phase prints its step ms, peak GiB
+and wall s where it trains or serves. The line before the card line is a
+JSON object {"kernels": [...]} (with each kernel's launches on the paths
+of phases 19-28); the card line is nvidia-smi's name and power limit; the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -333,6 +359,20 @@ DL3DV_YAML = REPO / "configs" / "dl3dv_base.yaml"
 DL3DV_RAW_SHAPE, DL3DV_SHAPE = (270, 480), (256, 448)
 DL3DV_TRAIN_SCENES, DL3DV_TEST_SCENES, DL3DV_FRAMES = 4, 1, 96
 DL3DV_CLI_STEPS = 4
+# configs/re10k_large.yaml through the CLI (B = 4, 2 + 4 views at 256x256):
+# synthetic re10k chunks at 360x640, the train split two batches of scenes
+# with room for the context gaps of 25-45 frames (no warm-up), the test
+# split served from the index generator's pairs
+LARGE_YAML = REPO / "configs" / "re10k_large.yaml"
+LARGE_SHAPE, LARGE_BATCH, LARGE_TARGETS = (256, 256), 4, 4
+LARGE_TRAIN_SCENES, LARGE_TEST_SCENES, LARGE_FRAMES = 8, 2, 48
+LARGE_CLI_STEPS = 4
+# the evaluation outputs: test.video_frames' default, render_chunk_size's
+# default for the video; BASELINE.json configuration 4 (re10k_720p_fast, 6
+# context views at 512x960); render_projections' resolution
+VIDEO_FRAMES, VIDEO_CHUNK = 60, 10
+VIDEO_CONTEXT, VIDEO_SCENES = 6, 2
+ORTHO_RES = 256
 
 
 def fail(msg: str) -> None:
@@ -869,23 +909,26 @@ def write_re10k_chunk(torch, path, n_scenes, n_frames, shape, seed):
     torch.save(scenes, path)
 
 
-def write_re10k_test_chunk(torch, root):
-    """A seeded re10k test chunk under ``root``: CLI_SCENES scenes of 14
-    JPEG frames at 720x1280 (smooth random images: 45x80 noise upsampled),
-    cameras as ``re10k_cameras`` (12 context along the line, then 2
-    targets), and an evaluation index with context frames 0-11 and targets
-    12-13. Returns the CLI overrides that point the YAML at them."""
+def write_re10k_test_chunk(torch, root, n_scenes=CLI_SCENES, n_context=RE10K_CONTEXT, seed=800):
+    """A seeded re10k test chunk under ``root``: ``n_scenes`` scenes of
+    ``n_context`` + 2 JPEG frames at 720x1280 (smooth random images: 45x80
+    noise upsampled), cameras as ``re10k_cameras`` (the context along the
+    line, then 2 targets), and an evaluation index with the context frames
+    first and the 2 targets last. Returns the CLI overrides that point the
+    YAML at them."""
     import numpy as np
 
-    rng = np.random.default_rng(800)
+    rng = np.random.default_rng(seed)
     (root / "re10k" / "test").mkdir(parents=True)
     scenes, index = [], {}
-    for s in range(CLI_SCENES):
-        cams = camera_table(*(np.concatenate(x, axis=1) for x in zip(re10k_cameras(rng, 12), re10k_cameras(rng, 2))))
-        images = [jpeg_frame(torch, rng, CLI_RAW_SHAPE) for _ in range(14)]
+    n = n_context + RE10K_TARGET
+    for s in range(n_scenes):
+        cams = camera_table(*(np.concatenate(x, axis=1) for x in zip(
+            re10k_cameras(rng, n_context), re10k_cameras(rng, RE10K_TARGET))))
+        images = [jpeg_frame(torch, rng, CLI_RAW_SHAPE) for _ in range(n)]
         key = f"cli{s}"
         scenes.append({"key": key, "cameras": torch.from_numpy(cams), "images": images})
-        index[key] = {"context": list(range(12)), "target": [12, 13]}
+        index[key] = {"context": list(range(n_context)), "target": list(range(n_context, n))}
     torch.save(scenes, root / "re10k" / "test" / "000000.torch")
     (root / "index.json").write_text(json.dumps(index))
     return [
@@ -956,6 +999,120 @@ def encoder_by_part(torch, encoder, context):
     return parts
 
 
+def compare_chained(torch, label, sg, pick, shape):
+    """One view, depth group by depth group. Kernel A against its
+    plain version on every group's inputs as the grouped layout slices
+    them, with its tile-only keys and with 64-bit keys ``tile << 32 |
+    slot``: keys, ids, offsets and counts identical; the group's
+    layout from the tile-only keys identical to the one from 64-bit
+    keys (perm, gaussian_id, starts, counts, offset, per_gaussian).
+    The chained kernel threaded over the groups; for the groups
+    ``pick`` chooses, held against the plain version from the
+    kernel's incoming state. Returns what the bound needs."""
+    from my_depthsplat_torch.render import pallas_raster as raster_mod
+    from my_depthsplat_torch.render.camera import TILE_X, TILE_Y
+    from my_depthsplat_torch.render.expand import expand_plain, expand_tiles
+    from my_depthsplat_torch.render.instances import build_tile_instances_grouped, group_layout, grouped_expand_inputs
+    from my_depthsplat_torch.render.pallas_raster import (
+        ChainState,
+        composite_chained,
+        composite_chained_plain,
+        initial_chain_state,
+        screen_rows,
+    )
+
+    h, w = shape
+    dev = sg.depth.device
+
+    def lap(fn):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t_a) * 1e3
+
+    slots = raster_mod._CHAIN_GROUP_SLOTS
+    order, groups = build_tile_instances_grouped(sg, shape, slots)
+    a_err = 0
+    for k, args in enumerate(grouped_expand_inputs(sg, shape, slots)[1]):
+        args64 = (*args[:5], torch.arange(args[0].shape[0], device=dev), *args[6:])
+        for fmt, a in (("tile-only", args), ("64-bit", args64)):
+            out_k, out_p = expand_tiles(*a), expand_plain(*a)
+            check(
+                out_k[0].shape == out_p[0].shape,
+                f"{label}, group {k}, {fmt} keys: kernel A emits {out_k[0].numel()} instances, plain "
+                f"{out_p[0].numel()}",
+            )
+            for what, x, y in zip(("keys", "ids", "offset", "per_gaussian"), out_k, out_p):
+                if x.numel():
+                    a_err = max(a_err, (x.long() - y.long()).abs().max().item())
+                check(torch.equal(x, y), f"{label}, group {k}, {fmt} keys: kernel A {what} differ")
+        check(
+            int(out_k[3].sum(dtype=torch.int64)) == groups[k].gaussian_id.numel(),
+            f"{label}, group {k}: the layout holds another number of instances than kernel A emits",
+        )
+        inst64 = group_layout(args64, k * slots, shape)
+        for f in ("perm", "gaussian_id", "starts", "counts", "offset", "per_gaussian"):
+            x, y = getattr(groups[k], f), getattr(inst64, f)
+            check(
+                x.dtype == y.dtype and torch.equal(x, y),
+                f"{label}, group {k}: the tile-key layout's {f} differs from the 64-bit-key layout's",
+            )
+    per_gaussian = sum(inst.gaussian_id.numel() for inst in groups) / order.numel()
+    print(
+        f"{label}: kernel A vs plain on each of {len(groups)} depth groups ({slots} gaussians, "
+        f"{h // TILE_Y}x{w // TILE_X} tiles, {per_gaussian:.1f} instances per gaussian), tile-only and 64-bit keys: "
+        f"max abs difference {a_err}; every group's layout from tile-only keys identical to the 64-bit-key layout"
+    )
+    rows = screen_rows(sg)[order]
+    state = initial_chain_state(1, shape, dev)
+    # per group: evaluations, hits, bytes needed, state bytes, live pixels after it
+    stats = {
+        "err": 0.0, "a_err": a_err, "plain_ms": 0.0, "plain_groups": [], "evals": [], "hits": [],
+        "bytes": [], "state_bytes": [], "stopped": [], "live": [],
+    }
+    chosen = None
+    for k, inst in enumerate(groups):
+        args = (rows, inst.gaussian_id, inst.starts, inst.counts)
+        incoming = ChainState(*(t.clone() for t in state))  # the kernel updates the state in place
+        state, n_k = composite_chained(*args, state, shape)
+        # beyond the picked groups, every group that a pixel enters live (30 s of plain time at most)
+        if chosen is None or k in chosen or (bool((incoming.p_raw >= 1e-4).any()) and stats["plain_ms"] < 30_000):
+            (want_s, n_p), ms = lap(lambda: composite_chained_plain(*args, incoming, shape))
+            if chosen is None:
+                chosen = pick(ms, len(groups))
+            di, dt = (state.rgb - want_s.rgb).abs(), (state.t - want_s.t).abs()
+            same_n = (n_k == n_p).float().mean().item()
+            clear = (want_s.p_raw - 1e-4).abs() > 1e-6
+            same_flag = torch.equal((state.p_raw >= 1e-4)[clear], (want_s.p_raw >= 1e-4)[clear])
+            print(
+                f"{label}, group {k}: {inst.gaussian_id.numel()} instances; rgb max {di.max().item():.3e} "
+                f"mean {di.mean().item():.3e}; T max {dt.max().item():.3e}; n_contrib equal "
+                f"{same_n * 100:.4f}%; stopped flag equal: {same_flag}; plain {ms:.1f} ms"
+            )
+            for what, dd in (("rgb", di), ("T", dt)):
+                check(dd.max().item() <= 6e-3 and dd.mean().item() <= 1e-5, f"{label}, group {k}: chained kernel {what} disagrees")
+            check(same_n >= 0.999, f"{label}, group {k}: chained kernel n_contrib agrees on only {same_n:.5f}")
+            check(same_flag, f"{label}, group {k}: chained kernel's stopped flag disagrees")
+            stats["err"] = max(stats["err"], di.max().item())
+            stats["plain_ms"] += ms
+            stats["plain_groups"].append(k)
+        stats["evals"].append(n_k.long().sum().item())
+        stats["hits"].append(gated_hits(torch, rows, inst, n_k))
+        nbytes, state_bytes = chained_fwd_bytes(torch, inst, incoming.p_raw >= 1e-4, state.p_raw >= 1e-4, n_k)
+        stats["bytes"].append(nbytes)
+        stats["state_bytes"].append(state_bytes)
+        stats["stopped"].append(round((state.p_raw < 1e-4).float().mean().item(), 4))
+        stats["live"].append(int((state.p_raw >= 1e-4).sum()))
+    check(bool(torch.isfinite(state.rgb).all()), f"{label}: non-finite colour")
+    return rows, groups, stats, grouped_expand_inputs(sg, shape, slots)[1]
+
+
+def pick_groups(first_ms, n):
+    """Every group if the plain version's time allows (~30 s)."""
+    return set(range(n)) if first_ms * n <= 30_000 else {0, n // 2, n - 1}
+
+
 def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
     """Phases 11-12 and the chained composite's and kernel A's timings at
     the re10k shapes: returns the launch counts of the serving run, the
@@ -965,21 +1122,9 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
 
     from my_depthsplat_torch.models import DecoderSplattingCfg, EncoderDepthSplat, decode_splatting
     from my_depthsplat_torch.render import pallas_raster as raster_mod
-    from my_depthsplat_torch.render.camera import TILE_X, TILE_Y
-    from my_depthsplat_torch.render.expand import count_pass, expand_plain, expand_tiles
-    from my_depthsplat_torch.render.instances import (
-        build_tile_instances_grouped,
-        expand_inputs,
-        group_layout,
-        grouped_expand_inputs,
-    )
-    from my_depthsplat_torch.render.pallas_raster import (
-        ChainState,
-        composite_chained,
-        composite_chained_plain,
-        initial_chain_state,
-        screen_rows,
-    )
+    from my_depthsplat_torch.render.expand import count_pass, expand_tiles
+    from my_depthsplat_torch.render.instances import expand_inputs, grouped_expand_inputs
+    from my_depthsplat_torch.render.pallas_raster import composite_chained, screen_rows
     from my_depthsplat_torch.render.projection import project_gaussians
 
     shape = RE10K_SHAPE
@@ -1111,98 +1256,8 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
         torch.cuda.empty_cache()
 
         # ---- the chained composite vs its plain version, group by group
-        def compare_chained(label, sg, pick):
-            """One view, depth group by depth group. Kernel A against its
-            plain version on every group's inputs as the grouped layout slices
-            them, with its tile-only keys and with 64-bit keys ``tile << 32 |
-            slot``: keys, ids, offsets and counts identical; the group's
-            layout from the tile-only keys identical to the one from 64-bit
-            keys (perm, gaussian_id, starts, counts, offset, per_gaussian).
-            The chained kernel threaded over the groups; for the groups
-            ``pick`` chooses, held against the plain version from the
-            kernel's incoming state. Returns what the bound needs."""
-            slots = raster_mod._CHAIN_GROUP_SLOTS
-            order, groups = build_tile_instances_grouped(sg, shape, slots)
-            a_err = 0
-            for k, args in enumerate(grouped_expand_inputs(sg, shape, slots)[1]):
-                args64 = (*args[:5], torch.arange(args[0].shape[0], device=dev), *args[6:])
-                for fmt, a in (("tile-only", args), ("64-bit", args64)):
-                    out_k, out_p = expand_tiles(*a), expand_plain(*a)
-                    check(
-                        out_k[0].shape == out_p[0].shape,
-                        f"{label}, group {k}, {fmt} keys: kernel A emits {out_k[0].numel()} instances, plain "
-                        f"{out_p[0].numel()}",
-                    )
-                    for what, x, y in zip(("keys", "ids", "offset", "per_gaussian"), out_k, out_p):
-                        if x.numel():
-                            a_err = max(a_err, (x.long() - y.long()).abs().max().item())
-                        check(torch.equal(x, y), f"{label}, group {k}, {fmt} keys: kernel A {what} differ")
-                check(
-                    int(out_k[3].sum(dtype=torch.int64)) == groups[k].gaussian_id.numel(),
-                    f"{label}, group {k}: the layout holds another number of instances than kernel A emits",
-                )
-                inst64 = group_layout(args64, k * slots, shape)
-                for f in ("perm", "gaussian_id", "starts", "counts", "offset", "per_gaussian"):
-                    x, y = getattr(groups[k], f), getattr(inst64, f)
-                    check(
-                        x.dtype == y.dtype and torch.equal(x, y),
-                        f"{label}, group {k}: the tile-key layout's {f} differs from the 64-bit-key layout's",
-                    )
-            per_gaussian = sum(inst.gaussian_id.numel() for inst in groups) / order.numel()
-            print(
-                f"{label}: kernel A vs plain on each of {len(groups)} depth groups ({slots} gaussians, "
-                f"{h // TILE_Y}x{w // TILE_X} tiles, {per_gaussian:.1f} instances per gaussian), tile-only and 64-bit keys: "
-                f"max abs difference {a_err}; every group's layout from tile-only keys identical to the 64-bit-key layout"
-            )
-            rows = screen_rows(sg)[order]
-            state = initial_chain_state(1, shape, dev)
-            # per group: evaluations, hits, bytes needed, state bytes, live pixels after it
-            stats = {
-                "err": 0.0, "a_err": a_err, "plain_ms": 0.0, "plain_groups": [], "evals": [], "hits": [],
-                "bytes": [], "state_bytes": [], "stopped": [], "live": [],
-            }
-            chosen = None
-            for k, inst in enumerate(groups):
-                args = (rows, inst.gaussian_id, inst.starts, inst.counts)
-                incoming = ChainState(*(t.clone() for t in state))  # the kernel updates the state in place
-                state, n_k = composite_chained(*args, state, shape)
-                # beyond the picked groups, every group that a pixel enters live (30 s of plain time at most)
-                if chosen is None or k in chosen or (bool((incoming.p_raw >= 1e-4).any()) and stats["plain_ms"] < 30_000):
-                    (want_s, n_p), ms = lap(lambda: composite_chained_plain(*args, incoming, shape))
-                    if chosen is None:
-                        chosen = pick(ms, len(groups))
-                    di, dt = (state.rgb - want_s.rgb).abs(), (state.t - want_s.t).abs()
-                    same_n = (n_k == n_p).float().mean().item()
-                    clear = (want_s.p_raw - 1e-4).abs() > 1e-6
-                    same_flag = torch.equal((state.p_raw >= 1e-4)[clear], (want_s.p_raw >= 1e-4)[clear])
-                    print(
-                        f"{label}, group {k}: {inst.gaussian_id.numel()} instances; rgb max {di.max().item():.3e} "
-                        f"mean {di.mean().item():.3e}; T max {dt.max().item():.3e}; n_contrib equal "
-                        f"{same_n * 100:.4f}%; stopped flag equal: {same_flag}; plain {ms:.1f} ms"
-                    )
-                    for what, dd in (("rgb", di), ("T", dt)):
-                        check(dd.max().item() <= 6e-3 and dd.mean().item() <= 1e-5, f"{label}, group {k}: chained kernel {what} disagrees")
-                    check(same_n >= 0.999, f"{label}, group {k}: chained kernel n_contrib agrees on only {same_n:.5f}")
-                    check(same_flag, f"{label}, group {k}: chained kernel's stopped flag disagrees")
-                    stats["err"] = max(stats["err"], di.max().item())
-                    stats["plain_ms"] += ms
-                    stats["plain_groups"].append(k)
-                stats["evals"].append(n_k.long().sum().item())
-                stats["hits"].append(gated_hits(torch, rows, inst, n_k))
-                nbytes, state_bytes = chained_fwd_bytes(torch, inst, incoming.p_raw >= 1e-4, state.p_raw >= 1e-4, n_k)
-                stats["bytes"].append(nbytes)
-                stats["state_bytes"].append(state_bytes)
-                stats["stopped"].append(round((state.p_raw < 1e-4).float().mean().item(), 4))
-                stats["live"].append(int((state.p_raw >= 1e-4).sum()))
-            check(bool(torch.isfinite(state.rgb).all()), f"{label}: non-finite colour")
-            return rows, groups, stats, grouped_expand_inputs(sg, shape, slots)[1]
-
-        def pick_groups(first_ms, n):
-            """Every group if the plain version's time allows (~30 s)."""
-            return set(range(n)) if first_ms * n <= 30_000 else {0, n // 2, n - 1}
-
         sg0 = project_view(torch, gaussians, tgt0, 0, shape)
-        rows0, groups0, served_stats, args0 = compare_chained("served view 0", sg0, pick_groups)
+        rows0, groups0, served_stats, args0 = compare_chained(torch, "served view 0", sg0, pick_groups, shape)
         check(len(groups0) == n_groups == 23, f"{len(groups0)} depth groups, expected 23")
         print(f"served view 0: share of pixels stopped after each group {served_stats['stopped']}")
         del sg0
@@ -1220,7 +1275,7 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
             t32(rng.uniform(0.3, 0.95, (1, n_dense))), torch.ones(1, device=dev), torch.full((1,), 0.5625, device=dev),
             shape, True,
         )
-        _, _, dense_stats, _ = compare_chained("dense synthetic stack", sg_dense, lambda ms, n: set(range(n)))
+        _, _, dense_stats, _ = compare_chained(torch, "dense synthetic stack", sg_dense, lambda ms, n: set(range(n)), shape)
         print(f"dense synthetic stack: share of pixels stopped after each group {dense_stats['stopped']}")
         check(dense_stats["stopped"][-2] > 0.5, "dense synthetic stack: most pixels should stop before the last group")
         del sg_dense, means, cov
@@ -2847,6 +2902,457 @@ def train_cli_dl3dv(torch, card, reset_counters, read_counters):
     return runs, keep
 
 
+def chunk_cameras(torch, path):
+    """The re10k chunk at ``path`` read back: per scene its key, (n, 4, 4)
+    c2w extrinsics and (n, 3, 3) normalized intrinsics (the inverse of
+    ``camera_table``)."""
+    import numpy as np
+
+    out = []
+    for scene in torch.load(path, weights_only=False):
+        cams = scene["cameras"].numpy()
+        n = cams.shape[0]
+        intr = np.tile(np.eye(3, dtype=np.float32), (n, 1, 1))
+        intr[:, 0, 0], intr[:, 1, 1], intr[:, 0, 2], intr[:, 1, 2] = cams[:, 0], cams[:, 1], cams[:, 2], cams[:, 3]
+        w2c = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+        w2c[:, :3] = cams[:, 6:].reshape(n, 3, 4)
+        out.append((scene["key"], np.linalg.inv(w2c).astype(np.float32), intr))
+    return out
+
+
+def png_psnr_bound(pred_paths, gt_paths):
+    """How far the mean PSNR over these image pairs can lie from the same
+    mean on the float images they were written from. Each 8-bit PNG holds
+    floor(255 x): both images move by less than 1/255 a value, so their
+    difference moves by less than d = 1/255, and the RMS error r' read from
+    the PNGs lies within d of the float one; one pair's PSNR then moves by
+    at most 20 log10((r' + d) / (r' - d))."""
+    import numpy as np
+    from PIL import Image
+
+    d = 1.0 / 255
+    bounds = []
+    for p, g in zip(pred_paths, gt_paths):
+        a = np.asarray(Image.open(p), np.float64) / 255
+        b = np.asarray(Image.open(g), np.float64) / 255
+        r = float(np.sqrt(((a - b) ** 2).mean()))
+        bounds.append(20 * np.log10((r + d) / (r - d)) if r > d else float("inf"))
+    return float(np.mean(bounds))
+
+
+def train_cli_large(torch, dev, card, reset_counters, read_counters):
+    """Phase 26: configs/re10k_large.yaml through the port's CLI as the YAML
+    stands (UniMatch with ViT-L, two scales: features at 1/4 and 1/2, the
+    upsampler x2; 128 candidates; B = 4, 2 context + 4 target views at
+    256x256; random weights from the seed, LPIPS 0.05 with LPIPS(seed=1)'s
+    weights) on seeded synthetic re10k chunks at 360x640 written under build/
+    (LARGE_TRAIN_SCENES scenes of LARGE_FRAMES frames: two batches, context
+    gaps of 25-45 frames from step 0). Train 1 + 3 steps with a validation
+    and a checkpoint at the last: kernels A, B, C and D once a step (A and B
+    once more for the validation), the chained kernels never (131,072
+    gaussians an element: the flat route). Then the port's
+    generate_index_for_scene, on the card over the test chunk's cameras,
+    writes the evaluation index (fatal if a scene gets no entry), and
+    mode=test from the checkpoint with test.save_gaussians, test.save_video
+    and the exaggerated trajectory serves the test scenes: per scene A and
+    B once for the targets and once for each chunk of 10 video frames; the
+    .ply (2 x 240 x 240 vertices after the 8-pixel trim) and 60 frames
+    written. Then the port's compute_metrics over the written color/ PNGs
+    against a ground-truth tree written from the same targets: its PSNR
+    within the 8-bit bound of png_psnr_bound of run_test's, its SSIM within
+    1e-2. Overrides: dataset.roots, output_dir, loss.lpips_weights, the
+    run's length and intervals, trainer.print_log_every_n_steps=1, and for
+    the test run the evaluation sampler on the written index and the
+    outputs. Returns the runs' figures, the trained model and last batch,
+    and one served scene's gaussians (for phase 28)."""
+    import shutil
+
+    import numpy as np
+
+    from my_depthsplat_torch import main as cli
+    from my_depthsplat_torch.eval.index_generator import IndexGeneratorCfg, generate_index_for_scene, save_index
+    from my_depthsplat_torch.eval.metric_computer import EvaluationCfg, MethodCfg, compute_metrics
+    from my_depthsplat_torch.train import LPIPS
+    from my_depthsplat_torch.utils.image_io import save_image
+    from my_depthsplat_torch.utils.ply_export import read_ply
+
+    root = REPO / "build" / "large_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    h, w = LARGE_SHAPE
+    runs = {}
+    try:
+        t_a = time.perf_counter()
+        for split, n, seed in (("train", LARGE_TRAIN_SCENES, 2600), ("test", LARGE_TEST_SCENES, 2601)):
+            write_re10k_chunk(torch, root / "re10k" / split / "000000.torch", n, LARGE_FRAMES, SMALL_RAW_SHAPE, seed)
+        torch.save(LPIPS(seed=1).state_dict(), root / "lpips.pt")
+        print(f"CLI re10k_large: chunks written in {time.perf_counter() - t_a:.1f} s")
+        common = [f"dataset.roots=[{root / 're10k'}]", f"loss.lpips_weights={root / 'lpips.pt'}",
+                  "trainer.print_log_every_n_steps=1"]
+        state, runs["train"] = run_cli_train(
+            torch, cli, LARGE_YAML,
+            [*common, f"output_dir={root / 'run'}", f"trainer.max_steps={LARGE_CLI_STEPS}",
+             f"trainer.val_check_interval={LARGE_CLI_STEPS}", f"checkpointing.every_n_train_steps={LARGE_CLI_STEPS}"],
+            reset_counters, read_counters,
+        )
+        r = runs["train"]
+        keep = (state.model, r.pop("batches")[-1])
+        del state
+        ctx = keep[1]["context"]
+        check(tuple(ctx["image"].shape) == (LARGE_BATCH, 2, h, w, 3), f"CLI re10k_large: context {tuple(ctx['image'].shape)}")
+        metrics = read_metrics(root / "run" / "metrics.jsonl")
+        logs = check_train_logs("CLI re10k_large", metrics, LARGE_CLI_STEPS)
+        check(all("loss/intermediate" in x for x in logs), "CLI re10k_large: two scales log loss/intermediate")
+        check([m["step"] for m in metrics if "val/psnr" in m] == [LARGE_CLI_STEPS], "CLI re10k_large: validation")
+        fwd = LARGE_CLI_STEPS + 1
+        want = {"expand": fwd, "expand_write": fwd, "composite_fwd": fwd, "composite_bwd": LARGE_CLI_STEPS,
+                "scatter_reduce": LARGE_CLI_STEPS, "composite_fwd_chained": 0, "composite_bwd_chained": 0}
+        check(r["launches"] == want, f"CLI re10k_large: launches {r['launches']}, expected {want}")
+        print_cli_train("re10k_large", r, card)
+        print(f"CLI re10k_large: loss/total {logs[0]['loss/total']:.6f} -> {logs[-1]['loss/total']:.6f}")
+
+        # the evaluation index, from the test chunk's cameras on the card
+        t_a = time.perf_counter()
+        index_cfg = IndexGeneratorCfg(num_target_views=LARGE_TARGETS, min_overlap=0.6, max_overlap=0.95,
+                                      min_distance=25, max_distance=45)
+        index = {}
+        for s, (key, c2w, intr) in enumerate(chunk_cameras(torch, root / "re10k" / "test" / "000000.torch")):
+            entry = generate_index_for_scene(index_cfg, c2w, intr, np.random.default_rng(2602 + s))
+            check(entry is not None, f"CLI re10k_large: the index generator found no context pair for scene {key}")
+            index[key] = entry
+        save_index(index, root / "index")
+        index_s = time.perf_counter() - t_a
+        print(f"CLI re10k_large: evaluation index {index} ({index_s:.2f} s on the card)")
+
+        # mode=test with the outputs; the targets kept for the ground-truth tree
+        targets = {}
+        real_run_test = cli.run_test
+
+        def recording_run_test(test_cfg, apply, batches, **kwargs):
+            def kept():
+                for b in batches:
+                    targets[b["scene"][0]] = b["target"]["image"][0].float().cpu().numpy()
+                    yield b
+            return real_run_test(test_cfg, apply, kept(), **kwargs)
+
+        served = []
+        real_apply = cli.apply_with_precision
+
+        def recording_apply(model, compute_dtype, context, **kwargs):
+            out = real_apply(model, compute_dtype, context, **kwargs)
+            if not served:
+                served.append(out["gaussians"])
+            return out
+
+        with mock.patch.object(cli, "run_test", recording_run_test), \
+                mock.patch.object(cli, "apply_with_precision", recording_apply):
+            result, runs["test"] = run_cli_test(
+                torch, cli, LARGE_YAML,
+                [*common, f"output_dir={root / 'test'}", "dataset.view_sampler=evaluation",
+                 # null first: a mapping override merges into the YAML's bounded-sampler keys
+                 "dataset.view_sampler_args=null",
+                 f"dataset.view_sampler_args={{index_path: {root / 'index' / 'evaluation_index.json'}}}",
+                 f"checkpointing.load={root / 'run' / 'checkpoints' / f'step_{LARGE_CLI_STEPS}.pt'}",
+                 "test.save_gaussians=true", "test.save_video=true", "test.video_trajectory=exaggerated"],
+                reset_counters, read_counters,
+            )
+        r = runs["test"]
+        test_dir = root / "test" / "test"
+        check(set(result["scores"]) == {"psnr", "ssim", "lpips"} and np.isfinite(list(result["scores"].values())).all(),
+              f"CLI re10k_large test: scores {result['scores']}")
+        decodes = LARGE_TEST_SCENES * (1 + -(-VIDEO_FRAMES // VIDEO_CHUNK))
+        want = {k: (decodes if k in ("expand", "expand_write", "composite_fwd") else 0) for k in want}
+        check(r["launches"] == want, f"CLI re10k_large test: launches {r['launches']}, expected {want}")
+        check(sorted(targets) == sorted(index), f"CLI re10k_large test: served {sorted(targets)}")
+        for key in index:
+            ply = read_ply(test_dir / key / "gaussians.ply")
+            n_vert = 2 * (h - 16) * (w - 16)
+            check(len(ply["x"]) == n_vert and all(np.isfinite(v).all() for v in ply.values()),
+                  f"CLI re10k_large test {key}: {len(ply['x'])} vertices, expected {n_vert}, finite")
+            video = test_dir / key / "video.mp4"
+            frames = sorted(video.with_suffix("").glob("*.png"))
+            check((video.is_file() and video.stat().st_size > 0) or len(frames) == VIDEO_FRAMES,
+                  f"CLI re10k_large test {key}: no video written ({len(frames)} PNG frames)")
+            pngs = sorted((test_dir / key / "color").glob("*.png"))
+            check(len(pngs) == LARGE_TARGETS, f"CLI re10k_large test {key}: {len(pngs)} target PNGs")
+            for i, img in enumerate(targets[key]):
+                save_image(img, root / "gt" / key / "color" / f"{i:04d}.png")
+        r.update(scores=result["scores"], index_s=index_s, **serving_figures(test_dir))
+
+        # compute_metrics over the written PNGs against the same targets
+        summary = compute_metrics(
+            EvaluationCfg((MethodCfg("port", "port", test_dir),), output_metrics_path=root / "metrics.json"), root / "gt"
+        )["port"]
+        pred_paths = sorted(test_dir.glob("*/color/*.png"))
+        gt_paths = [root / "gt" / p.relative_to(test_dir) for p in pred_paths]
+        psnr_tol = png_psnr_bound(pred_paths, gt_paths)
+        d_psnr = abs(summary["psnr"] - result["scores"]["psnr"])
+        d_ssim = abs(summary["ssim"] - result["scores"]["ssim"])
+        print(
+            f"CLI re10k_large: compute_metrics over the written PNGs {summary} vs run_test's {result['scores']}: "
+            f"PSNR {d_psnr:.4f} dB apart (8-bit bound {psnr_tol:.4f} dB), SSIM {d_ssim:.5f} apart (tolerance 1e-2)"
+        )
+        check(d_psnr <= psnr_tol, f"CLI re10k_large: compute_metrics PSNR {d_psnr} dB from run_test's (bound {psnr_tol})")
+        check(d_ssim <= 1e-2, f"CLI re10k_large: compute_metrics SSIM {d_ssim} from run_test's")
+        r.update(compute_metrics=summary, psnr_diff_db=d_psnr, psnr_bound_db=psnr_tol, ssim_diff=d_ssim)
+        print(
+            f"CLI serving re10k_large from step_{LARGE_CLI_STEPS}.pt with the .ply and an exaggerated 60-frame video: "
+            f"encoder {r['encoder']:.1f} ms a scene, decode {r['decoder']:.3f} ms a target view "
+            f"({LARGE_TEST_SCENES} scenes, {LARGE_TARGETS} targets), peak {r['peak_gib']:.2f} GiB, {r['wall_s']:.1f} s wall, "
+            f"launches {r['launches']} on {card}"
+        )
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs, keep, served[0]
+
+
+def serve_cli_video(torch, dev, card, reset_counters, read_counters, uncounted):
+    """Phase 27: BASELINE.json's configuration 4, configs/re10k_720p_fast.yaml
+    as the YAML stands (bf16) through ``main.main`` in test mode: 6 context
+    views and 2 targets at 512x960 from a written evaluation index (a
+    seeded chunk of VIDEO_SCENES scenes of 8 JPEG frames at 720x1280, as
+    phase 18 writes one), with test.render_chunk_size=10, the gaussian
+    adapter's gaussian_scale_max 0.1, test.save_gaussians and
+    test.save_video (60 frames: 6 decodes of 10); then the first scene again
+    with test.stabilize_camera. Counters 0 just before and read just after
+    each run. Checks: each gaussians.ply holds 6 x 496 x 944 = 2,809,344
+    vertices and read_ply gives back the columns the runner wrote; 60
+    frames finite in [0, 1], written as an mp4 or a PNG sequence (printed);
+    per rendered view (the targets, then every video frame; 2,949,120
+    gaussians: the grouped route) kernel A and the chained forward once for
+    each depth group up to the first after which no pixel is live, and A's
+    count pass on the next group, against an independent walk over every
+    group of the same view made after the run. Prints the
+    encoder ms, decode ms a target view and a video frame, the .ply's write
+    time and size, and the peak GiB. Returns the figures and the first
+    scene's gaussians (for phase 28)."""
+    import shutil
+
+    import numpy as np
+
+    from my_depthsplat_torch import main as cli
+    from my_depthsplat_torch.eval import runner as runner_mod
+    from my_depthsplat_torch.render import pallas_raster as raster_mod
+    from my_depthsplat_torch.render.expand import expand_tiles
+    from my_depthsplat_torch.render.instances import grouped_expand_inputs
+    from my_depthsplat_torch.render.pallas_raster import composite_chained, screen_rows
+    from my_depthsplat_torch.utils import image_io, ply_export
+
+    root = REPO / "build" / "video_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    shape = RE10K_SHAPE
+    h, w = shape
+    slots = raster_mod._CHAIN_GROUP_SLOTS
+    n_gauss = VIDEO_CONTEXT * h * w
+    n_groups = -(-n_gauss // slots)
+    n_vert = VIDEO_CONTEXT * (h - 16) * (w - 16)
+    runs = {}
+    first_scene = None
+    try:
+        data = write_re10k_test_chunk(torch, root, VIDEO_SCENES, VIDEO_CONTEXT, seed=2700)
+        index = json.loads((root / "index.json").read_text())
+        key0 = sorted(index)[0]
+        (root / "index_one.json").write_text(json.dumps({key0: index[key0]}))
+        # the whole mapping: the YAML sets no gaussian_adapter, and both
+        # packages' loaders build GaussianAdapterCfg from the override alone,
+        # which lacks its other two fields (ROADMAP.md §3); these are the
+        # encoder's defaults with gaussian_scale_max 0.1
+        common = [*data, "test.render_chunk_size=10",
+                  "encoder.gaussian_adapter={gaussian_scale_min: 1.0e-10, gaussian_scale_max: 0.1, sh_degree: 2}",
+                  "test.save_gaussians=true", "test.save_video=true"]
+        for name, scenes, extra in (
+            ("interpolation", VIDEO_SCENES, []),
+            ("stabilized", 1, [f"dataset.view_sampler_args.index_path={root / 'index_one.json'}",
+                               "test.stabilize_camera=true"]),
+        ):
+            gaussians, cameras, per_view, written, videos = [], [], [], {}, []
+            timing = {"video_ms": [], "video_frames": 0, "ply_ms": []}
+            real_apply, real_decode = cli.apply_with_precision, runner_mod.decode_splatting
+            real_render, real_write = raster_mod._render_grouped, ply_export._write_ply
+            real_ply, real_video, real_save = runner_mod._save_scene_ply, runner_mod._render_video_frames, image_io.save_video
+
+            def recording_apply(model, compute_dtype, context, **kwargs):
+                out = real_apply(model, compute_dtype, context, **kwargs)
+                gaussians.append(out["gaussians"])
+                return out
+
+            def recording_decode(*args, **kwargs):
+                cameras.append({k: x.clone() for k, x in zip(("extrinsics", "intrinsics", "near", "far"), args[2:6])})
+                return real_decode(*args, **kwargs)
+
+            def count_view(*args):
+                def now():
+                    return expand_tiles.launches, expand_tiles.write_launches, composite_chained.launches
+
+                before = now()
+                image = real_render(*args)
+                per_view.append(tuple(a - b for a, b in zip(now(), before)))
+                return image
+
+            def recording_write(path, data_, attrs):
+                written[str(path)] = data_.astype("<f4")
+                return real_write(path, data_, attrs)
+
+            def timed_ply(*args, **kwargs):
+                torch.cuda.synchronize()
+                t_a = time.perf_counter()
+                real_ply(*args, **kwargs)
+                timing["ply_ms"].append((time.perf_counter() - t_a) * 1e3)
+
+            def timed_video(cfg, decoder_cfg, gs, batch, scene, poses, intrs):
+                """The frames' decodes timed apart from the file writing."""
+                def save(frames, path, *a, **k):
+                    torch.cuda.synchronize()
+                    timing["video_ms"].append((time.perf_counter() - t_v) * 1e3)
+                    timing["video_frames"] += len(frames)
+                    stack = np.stack(frames)
+                    videos.append({"frames": len(frames), "finite": bool(np.isfinite(stack).all()),
+                                   "min": float(stack.min()), "max": float(stack.max()), "std": float(stack.std()),
+                                   "branch": real_save(frames, path, *a, **k), "path": path})
+
+                torch.cuda.synchronize()
+                t_v = time.perf_counter()
+                with mock.patch.object(image_io, "save_video", save):
+                    real_video(cfg, decoder_cfg, gs, batch, scene, poses, intrs)
+
+            out_dir = root / name
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with mock.patch.object(cli, "apply_with_precision", recording_apply), \
+                    mock.patch.object(runner_mod, "decode_splatting", recording_decode), \
+                    mock.patch.object(raster_mod, "_render_grouped", count_view), \
+                    mock.patch.object(ply_export, "_write_ply", recording_write), \
+                    mock.patch.object(runner_mod, "_save_scene_ply", timed_ply), \
+                    mock.patch.object(runner_mod, "_render_video_frames", timed_video):
+                reset_counters()
+                t_a = time.perf_counter()
+                result = cli.main(["--config", str(RE10K_YAML), *common, f"output_dir={out_dir}", *extra])
+                wall = time.perf_counter() - t_a
+                launches = read_counters()
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            test_dir = out_dir / "test"
+            check(len(gaussians) == scenes and all(g.means.shape == (1, n_gauss, 3) for g in gaussians),
+                  f"CLI video {name}: {len(gaussians)} scenes served")
+            # the .ply files against what the runner wrote
+            plys = sorted(test_dir.glob("*/gaussians.ply"))
+            check(len(plys) == scenes and sorted(written) == [str(p) for p in plys], f"CLI video {name}: ply files {plys}")
+            ply_mb = plys[0].stat().st_size / 2**20
+            for p in plys:
+                back = ply_export.read_ply(p)
+                data_ = written.pop(str(p))
+                check(len(back["x"]) == n_vert == data_.shape[0], f"CLI video {name}: {p.parent.name}: {len(back['x'])} vertices")
+                check(all(np.array_equal(col, data_[:, i]) for i, col in enumerate(back.values())),
+                      f"CLI video {name}: {p.parent.name}: read_ply differs from what the runner wrote")
+                p.unlink()
+            # the videos
+            check(len(videos) == scenes, f"CLI video {name}: {len(videos)} videos")
+            for v in videos:
+                check(v["frames"] == VIDEO_FRAMES and v["finite"] and 0.0 <= v["min"] and v["max"] <= 1.0 and v["std"] > 1e-3,
+                      f"CLI video {name}: {v}")
+                if v["branch"] == "mp4":
+                    check(v["path"].is_file() and v["path"].stat().st_size > 0, f"CLI video {name}: no mp4")
+                else:
+                    check(len(list(v["path"].with_suffix("").glob("*.png"))) == VIDEO_FRAMES, f"CLI video {name}: PNGs")
+            # launches per rendered view against the walk over every group
+            decodes = 1 + -(-VIDEO_FRAMES // VIDEO_CHUNK)
+            check(len(cameras) == scenes * decodes, f"CLI video {name}: {len(cameras)} decodes")
+            expected = []
+            with torch.no_grad(), uncounted():
+                calls = iter(cameras)
+                for g in gaussians:
+                    for cams in [next(calls) for _ in range(decodes)]:
+                        for view in range(cams["near"].shape[1]):
+                            sg = project_view(torch, g, cams, view, shape)
+                            order, per_group = grouped_expand_inputs(sg, shape, slots)
+                            live = live_after_groups(torch, screen_rows(sg)[order], per_group, slots, shape)
+                            expected.append(groups_to_composite(live))
+                            del sg, order, per_group
+            n_views = scenes * (RE10K_TARGET + VIDEO_FRAMES)
+            check(len(per_view) == len(expected) == n_views, f"CLI video {name}: {len(per_view)} views rendered, "
+                  f"{len(expected)} walked, expected {n_views}")
+            for i, ((n_a, n_w, n_c), want) in enumerate(zip(per_view, expected)):
+                check(n_w == n_c == want and n_a == want + (want < n_groups),
+                      f"CLI video {name}, view {i}: kernel A {n_a} count and {n_w} write passes, chained composite "
+                      f"{n_c} launches; expected {want + (want < n_groups)}, {want} and {want}")
+            want = {"expand": sum(n + (n < n_groups) for n in expected), "expand_write": sum(expected),
+                    "composite_fwd_chained": sum(expected), "composite_fwd": 0, "composite_bwd": 0,
+                    "scatter_reduce": 0, "composite_bwd_chained": 0}
+            check(launches == want, f"CLI video {name}: launches {launches}, expected {want}")
+            figures = serving_figures(test_dir)
+            runs[name] = {
+                "launches": launches, "wall_s": wall, "peak_gib": peak_gib, "scores": result["scores"],
+                "encoder_ms": figures["encoder"], "decode_ms_per_target_view": figures["decoder"],
+                "decode_ms_per_video_frame": sum(timing["video_ms"]) / timing["video_frames"],
+                "ply_write_ms": timing["ply_ms"], "ply_mib": ply_mb, "video_branch": videos[0]["branch"],
+                "groups_per_view": expected,
+            }
+            r = runs[name]
+            print(
+                f"CLI re10k_720p_fast video ({name}), bf16, {VIDEO_CONTEXT} context views at {h}x{w}, gaussian_scale_max "
+                f"0.1, {scenes} scene(s): encoder {r['encoder_ms']:.1f} ms a scene, decode {r['decode_ms_per_target_view']:.1f} "
+                f"ms a target view and {r['decode_ms_per_video_frame']:.1f} ms a video frame (chunks of {VIDEO_CHUNK}, "
+                f"host clock around synchronised chunks), .ply write {[round(x, 1) for x in timing['ply_ms']]} ms "
+                f"({n_vert} vertices, {ply_mb:.1f} MiB), video as {r['video_branch']}, peak {peak_gib:.2f} GiB, "
+                f"{wall:.1f} s wall; groups composited per view {expected} of {n_groups}; launches {launches} on {card}"
+            )
+            if first_scene is None:
+                first_scene = gaussians[0]
+            del gaussians, cameras
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs, first_scene
+
+
+def ortho_binnings(torch, label, gaussians, card, reset_counters, read_counters):
+    """Phase 28, orthographic part: render_projections (resolution 256) of
+    ``gaussians`` (batch 1), counters 0 just before and read just after;
+    the images finite in [0, 1]. Returns the launches and, per axis, the
+    screen gaussians of its fake-orthographic camera (the camera pushed
+    ~573 extents back, fov 0.1 degrees, unscaled), as render_orthographic
+    hands them to the render."""
+    from my_depthsplat_torch.geometry import get_fov
+    from my_depthsplat_torch.render import api as api_mod
+    from my_depthsplat_torch.render.projection import project_gaussians
+    from my_depthsplat_torch.utils.validation_viz import render_projections
+
+    calls = []
+    real = api_mod.render
+
+    def recording_render(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    with torch.no_grad(), mock.patch.object(api_mod, "render", recording_render):
+        torch.cuda.synchronize()
+        reset_counters()
+        t_a = time.perf_counter()
+        views = render_projections(gaussians, resolution=ORTHO_RES)
+        ms = (time.perf_counter() - t_a) * 1e3
+        launches = read_counters()
+    check(views.shape == (3, ORTHO_RES, ORTHO_RES, 3), f"{label}: projections {views.shape}")
+    check(bool((views >= 0).all() and (views <= 1).all()) and views.std() > 1e-3, f"{label}: projections outside [0, 1] or flat")
+    sgs = []
+    with torch.no_grad():
+        for args, kwargs in calls:
+            extr, intr, near, far, shape, _bg, means, cov, sh, opac = args
+            check(kwargs["scale_invariant"] is False, f"{label}: the orthographic render is unscaled")
+            fov = get_fov(intr)
+            sg = project_gaussians(extr, means, cov, sh, opac, torch.tan(0.5 * fov[:, 0]), torch.tan(0.5 * fov[:, 1]),
+                                   shape, True)
+            ok = sg.valid
+            check(bool(torch.isfinite(sg.conic[ok]).all() and torch.isfinite(sg.xy[ok]).all()),
+                  f"{label}: a kept gaussian's conic or centre is not finite")
+            print(
+                f"{label}, axis {len(sgs)}: camera {float(extr[0, :3, 3].norm()):.1f} from the origin, focal "
+                f"{float(intr[0, 0, 0]):.1f} (normalized), near {float(near[0]):.3f} far {float(far[0]):.3f}; "
+                f"{int(ok.sum())} of {ok.shape[1]} gaussians kept, depths {float(sg.depth[ok].min()):.4f}-"
+                f"{float(sg.depth[ok].max()):.4f}"
+            )
+            sgs.append(sg)
+    print(f"{label}: render_projections at {ORTHO_RES}x{ORTHO_RES} in {ms:.1f} ms (host clock), launches {launches} on {card}")
+    return launches, sgs
+
+
 def main() -> int:
     import torch
 
@@ -3033,6 +3539,11 @@ def main() -> int:
     arkit_cli, (arkit_model, arkit_batch) = train_cli_arkit(torch, dev, card, reset_counters, read_counters, uncounted)
     depth_cli = train_cli_arkit_depth_only(torch, card, reset_counters, read_counters)
     dl3dv_cli, (dl3dv_model, dl3dv_batch) = train_cli_dl3dv(torch, card, reset_counters, read_counters)
+
+    # ---- re10k_large through the CLI, then the evaluation outputs of
+    # BASELINE.json's configuration 4
+    large_cli, (large_model, large_batch), large_scene = train_cli_large(torch, dev, card, reset_counters, read_counters)
+    video_cli, video_scene = serve_cli_video(torch, dev, card, reset_counters, read_counters, uncounted)
     new_paths = {
         "launches_train_cli_small": train_small["first"]["launches"],
         "launches_train_cli_small_resumed": train_small["resumed"]["launches"],
@@ -3040,6 +3551,8 @@ def main() -> int:
         **{f"launches_cli_arkit_promptda_{k}": r["launches"] for k, r in arkit_cli.items()},
         **{f"launches_cli_arkit_depth_only_{k}": r["launches"] for k, r in depth_cli.items()},
         **{f"launches_cli_dl3dv_base_{k}": r["launches"] for k, r in dl3dv_cli.items()},
+        **{f"launches_cli_re10k_large_{k}": r["launches"] for k, r in large_cli.items()},
+        **{f"launches_cli_video_720p_{k}": r["launches"] for k, r in video_cli.items()},
     }
 
     # ---- phase 25: kernels A-D vs their plain versions at the shapes of the
@@ -3050,6 +3563,7 @@ def main() -> int:
         for label, model, batch, at in (
             ("arkit_promptda CLI training batch", arkit_model, arkit_batch, shape),
             ("dl3dv_base CLI training batch", dl3dv_model, dl3dv_batch, DL3DV_SHAPE),
+            ("re10k_large CLI training batch", large_model, large_batch, LARGE_SHAPE),
         ):
             g = model(batch["context"], training=True)["gaussians"]
             num = g.means.shape[0] // batch["target"]["image"].shape[0]
@@ -3060,7 +3574,38 @@ def main() -> int:
             print(f"{label}: {sg.depth.shape[0]} views of {g.means.shape[1]} gaussians at {at[0]}x{at[1]}")
             compare(label, sg, True, at)
             del g, sg
-    del arkit_model, arkit_batch, dl3dv_model, dl3dv_batch
+    del arkit_model, arkit_batch, dl3dv_model, dl3dv_batch, large_model, large_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 28: the orthographic binnings of render_projections, on the
+    # grouped route (phase 27's first scene, 2,949,120 gaussians) and on the
+    # flat route (a phase-26 test scene, 131,072): kernel A identical, B and
+    # row 3 within the dense bounds (C and D on the flat one too)
+    ortho = (ORTHO_RES, ORTHO_RES)
+    ortho_chained_err = 0.0
+    for label, g, grouped in (
+        ("configuration 4 scene 0 projections", video_scene, True),
+        ("re10k_large test scene projections", large_scene, False),
+    ):
+        p_launches, sgs = ortho_binnings(torch, label, g, card, reset_counters, read_counters)
+        new_paths[f"launches_projections_{'grouped' if grouped else 'flat'}"] = p_launches
+        if grouped:
+            check(p_launches["composite_fwd"] == 0 and p_launches["composite_fwd_chained"] > 0,
+                  f"{label}: launches {p_launches} (the grouped route)")
+            with torch.no_grad():
+                for i, sg in enumerate(sgs):
+                    _, _, stats, _ = compare_chained(torch, f"{label}, axis {i}", sg, pick_groups, ortho)
+                    errs["expand"] = max(errs["expand"], stats["a_err"])
+                    ortho_chained_err = max(ortho_chained_err, stats["err"])
+        else:
+            check(p_launches["composite_fwd"] == 3 and p_launches["composite_fwd_chained"] == 0,
+                  f"{label}: launches {p_launches} (the flat route, one launch an axis)")
+            with torch.no_grad():
+                for i, sg in enumerate(sgs):
+                    compare(f"{label}, axis {i}", sg, True, ortho)
+        del sgs
+    del video_scene, large_scene
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3330,7 +3875,7 @@ def main() -> int:
             "launches_re10k_small": small_launches["scatter_reduce"], "re10k_small": small_timing["scatter_reduce"],
         },
         {**chained_entry, "launches_re10k_training": re10k_train_launches["composite_fwd_chained"],
-         "re10k_training": chained_training,
+         "re10k_training": chained_training, "max_abs_err_projections": ortho_chained_err,
          **{f"launches_cli_{k}": cli[k]["launches"]["composite_fwd_chained"] for k in ("bfloat16", "float32")}},
         row5_entry,
     ]
@@ -3344,7 +3889,8 @@ def main() -> int:
         "re10k_720p_fast_bf16": {k: x for k, x in train_bf16.items() if k != "launches"},
         "depth_only": {k: x for k, x in depth_only.items() if k != "launches"},
         **{f"{name}_{k}": {x: y for x, y in r.items() if x != "launches"}
-           for name, runs in (("arkit_promptda", arkit_cli), ("arkit_depth_only", depth_cli), ("dl3dv_base", dl3dv_cli))
+           for name, runs in (("arkit_promptda", arkit_cli), ("arkit_depth_only", depth_cli), ("dl3dv_base", dl3dv_cli),
+                              ("re10k_large", large_cli), ("video_720p", video_cli))
            for k, r in runs.items()},
     }
     print(json.dumps({"kernels": kernels}))

@@ -3,6 +3,7 @@ from .projection import (
     get_world_rays,
     homogenize_points,
     homogenize_vectors,
+    intersect_rays,
     sample_image_grid,
     unproject,
 )
@@ -12,6 +13,7 @@ __all__ = [
     "get_world_rays",
     "homogenize_points",
     "homogenize_vectors",
+    "intersect_rays",
     "sample_image_grid",
     "unproject",
 ]

@@ -1,7 +1,7 @@
 """Camera projection / ray geometry in PyTorch.
 
 Port of my_depthsplat_tpu/geometry/projection.py (the subset the serving path
-uses). Conventions:
+and the epipolar overlap of geometry/epipolar.py use). Conventions:
 - intrinsics are 3x3 and *normalized* by image width/height, OpenCV axes;
 - extrinsics are 4x4 camera-to-world (c2w) matrices;
 - image-plane coordinates are in [0, 1]^2 with pixel centers at (i + 0.5)/n.
@@ -67,6 +67,32 @@ def sample_image_grid(
     xs = (ix.float() + 0.5) / w
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     return torch.stack([gx, gy], dim=-1), indices
+
+
+def intersect_rays(
+    origins_x: Tensor,
+    directions_x: Tensor,
+    origins_y: Tensor,
+    directions_y: Tensor,
+    eps: float = 1e-5,
+    inf: float = 1e10,
+) -> Tensor:
+    """Least-squares intersection point of two ray bundles (reference
+    projection.py:176-230), vectorised with no boolean gather: parallel pairs
+    give ``inf`` instead of being dropped. The solve is a pseudo-inverse."""
+    shape = torch.broadcast_shapes(
+        origins_x.shape, directions_x.shape, origins_y.shape, directions_y.shape
+    )
+    origins = torch.stack([origins_x.expand(shape), origins_y.expand(shape)])
+    directions = torch.stack([directions_x.expand(shape), directions_y.expand(shape)])
+    parallel = (directions[0] * directions[1]).sum(dim=-1) > 1 - eps
+
+    n = torch.einsum("r...i,r...j->r...ij", directions, directions)
+    n = n - torch.eye(3, dtype=origins.dtype, device=origins.device)
+    lhs = n.sum(dim=0)
+    rhs = torch.einsum("r...ij,r...j->r...i", n, origins).sum(dim=0)
+    solution = torch.einsum("...ij,...j->...i", torch.linalg.pinv(lhs), rhs)
+    return torch.where(parallel[..., None], torch.full_like(solution, inf), solution)
 
 
 def get_fov(intrinsics: Tensor) -> Tensor:

@@ -1,4 +1,4 @@
-from .api import DepthRenderingMode, render, render_depth
+from .api import DepthRenderingMode, render, render_depth, render_orthographic
 from .expand import expand_plain, expand_tiles
 from .pallas_raster import (
     composite_bwd,
@@ -20,6 +20,7 @@ __all__ = [
     "expand_tiles",
     "render",
     "render_depth",
+    "render_orthographic",
     "render_pallas",
     "scatter_reduce",
     "scatter_reduce_plain",

@@ -1,6 +1,7 @@
 """Public rendering API.
 
-Port of my_depthsplat_tpu/render/api.py (``render``, ``render_depth``).
+Port of my_depthsplat_tpu/render/api.py (``render``, ``render_depth``,
+``render_orthographic``).
 There is no backend switch: the tensors' device decides. CUDA tensors go
 through the kernels (expand.cu, composite_fwd.cu and, in the backward,
 composite_bwd.cu and scatter_reduce.cu); CPU tensors through their plain
@@ -77,3 +78,48 @@ def render_depth(
         scale_invariant=scale_invariant, use_sh=False,
     )
     return result.mean(dim=-1)
+
+
+def render_orthographic(
+    extrinsics: Tensor,  # (B, 4, 4) c2w
+    width: Tensor,  # (B,) world-space extent
+    height: Tensor,  # (B,)
+    near: Tensor,  # (B,)
+    far: Tensor,  # (B,)
+    image_shape: tuple[int, int],
+    background_color: Tensor,  # (B, 3)
+    gaussian_means: Tensor,
+    gaussian_covariances: Tensor,
+    gaussian_sh_coefficients: Tensor,
+    gaussian_opacities: Tensor,
+    fov_degrees: float = 0.1,
+    use_sh: bool = True,
+) -> Tensor:
+    """Fake-orthographic render (cuda_splatting.py:129-219): the camera is
+    pushed back by 0.5 * width / tan(fov / 2) with a tiny fov, through
+    synthetic intrinsics of that fov, unscaled. Used for the 3-axis gaussian
+    views of utils/validation_viz.py."""
+    b = extrinsics.shape[0]
+    fov_x = torch.deg2rad(torch.tensor(fov_degrees, dtype=extrinsics.dtype, device=extrinsics.device))
+    tan_fov_x = torch.tan(0.5 * fov_x)
+    distance_to_near = (0.5 * width) / tan_fov_x
+    tan_fov_y = 0.5 * height / distance_to_near
+    near = near + distance_to_near
+    far = far + distance_to_near
+    move_back = torch.eye(4, dtype=extrinsics.dtype, device=extrinsics.device).repeat(b, 1, 1)
+    move_back[:, 2, 3] = -distance_to_near
+    extrinsics = extrinsics @ move_back
+
+    # Synthetic intrinsics with the chosen fovs, so the shared pinhole path
+    # reproduces the reference's projection-matrix construction.
+    intr = torch.zeros((b, 3, 3), dtype=extrinsics.dtype, device=extrinsics.device)
+    intr[:, 0, 0] = 0.5 / tan_fov_x
+    intr[:, 1, 1] = 0.5 / tan_fov_y
+    intr[:, 0, 2] = 0.5
+    intr[:, 1, 2] = 0.5
+    intr[:, 2, 2] = 1.0
+    return render(
+        extrinsics, intr, near, far, image_shape, background_color, gaussian_means,
+        gaussian_covariances, gaussian_sh_coefficients, gaussian_opacities,
+        scale_invariant=False, use_sh=use_sh,
+    )

@@ -18,6 +18,7 @@ from my_depthsplat_torch.render.instances import group_layout, grouped_expand_in
 from my_depthsplat_torch.render.projection import project_gaussians
 
 from test_torch_scenes import expansion_fields
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 
 _FIELDS = ("perm", "gaussian_id", "starts", "counts", "offset", "per_gaussian")
 

@@ -18,6 +18,8 @@ from my_depthsplat_torch import main as port_main
 from my_depthsplat_torch.data import build_dataset_cfg
 from my_depthsplat_torch.models import EncoderDepthSplatCfg
 
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
+
 REPO = Path(__file__).resolve().parent.parent
 YAMLS = sorted((REPO / "configs").glob("*.yaml"))
 

@@ -22,6 +22,7 @@ from my_depthsplat_torch.data.re10k import DatasetRE10k, DatasetRE10kCfg, conver
 from my_depthsplat_torch.geometry_np import get_fov_np
 
 from test_data import make_chunk
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture

@@ -32,9 +32,13 @@ from my_depthsplat_torch.convert import load_flax_params
 from my_depthsplat_torch.eval import compute_psnr, compute_ssim, run_test
 from my_depthsplat_torch.eval.runner import TestCfg
 from my_depthsplat_torch.models import EncoderDepthSplat
+from my_depthsplat_torch.utils import image_io as port_io
+from my_depthsplat_torch.utils.ply_export import read_ply
 
 from test_data import make_chunk
+from test_torch_eval_outputs import scene as outputs_scene
 from test_torch_promptda import redraw
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_unimatch_encoder import register_vitt
 
 YAML = str(Path(__file__).resolve().parent.parent / "configs" / "re10k_720p_fast.yaml")
@@ -180,9 +184,10 @@ def test_main_test_restores_a_port_checkpoint(tmp_path, monkeypatch):
     assert not np.array_equal(runs["seed6"], runs["seed5"])
 
 
-def test_run_test_depth_only_and_refusals(tmp_path):
+def test_run_test_depth_only_and_refusals(tmp_path, monkeypatch):
     """forward_depth_only dumps depths and renders nothing; the .ply export
-    and the video raise, naming the ROADMAP item."""
+    and the video, once refused, are written (the video as PNG frames where
+    no ffmpeg is on PATH)."""
     depths = torch.rand(1, 2, 8, 8) + 1.0
     batch = {
         "scene": ["s"],
@@ -196,6 +201,10 @@ def test_run_test_depth_only_and_refusals(tmp_path):
         "s/depth/0001.npy", "s/depth/0001.png",
     ]
     assert np.array_equal(np.load(tmp_path / "s" / "depth" / "0001.npy"), depths[0, 1].numpy())
-    for key in ("save_gaussians", "save_video"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-            run_test(TestCfg(output_dir=tmp_path, **{key: True}), None, [])
+    monkeypatch.setattr(port_io.shutil, "which", lambda name: None)
+    per_view, batch = outputs_scene()
+    out = {"gaussians": per_view.flattened(), "per_view": per_view, "depths": None}
+    cfg = TestCfg(output_dir=tmp_path / "outputs", save_gaussians=True, save_video=True, video_frames=3)
+    run_test(cfg, lambda c: out, [batch])
+    assert {"s/gaussians.ply", "s/video/00000.png", "s/video/00002.png"} <= set(_files(tmp_path / "outputs"))
+    assert read_ply(tmp_path / "outputs" / "s" / "gaussians.ply")["opacity"].shape == (2 * 16 * 16,)

@@ -34,6 +34,7 @@ from my_depthsplat_torch.render.pallas_raster import (
 
 from test_torch_render import _both_projections, random_scene
 from test_torch_scenes import occluded_scene
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_unimatch_encoder import encoder_pair, make_context, register_vitt
 
 

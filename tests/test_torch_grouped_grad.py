@@ -31,6 +31,7 @@ from test_torch_grouped import jax_groups, one_view, patch_groups, tile_major
 from test_torch_render import random_scene
 from test_torch_render_grad import _deep_scene, _fold_symmetric, rel_err
 from test_torch_scenes import occluded_scene
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(autouse=True)

@@ -22,6 +22,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
+
 
 @pytest.fixture(scope="module")
 def dinov2_torch():

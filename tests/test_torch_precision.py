@@ -31,6 +31,7 @@ from my_depthsplat_torch.ops import plane_sweep_correlation
 
 from test_torch_promptda import redraw
 from test_torch_slice import make_views, vitt  # noqa: F401  (fixture)
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_unimatch_encoder import make_context
 
 BOUND = 0.02  # tests/test_models.py::test_encoder_bf16_compute_parity
@@ -70,9 +71,18 @@ def port_outputs(enc, ctx, dtype):
 
 @pytest.fixture(scope="module")
 def unimatch_runs():
-    ctx = make_context(np.random.default_rng(3), 1, 2, 32, 32)
-    f32_j, bf_j, enc = jax_and_port(UNIMATCH_KW, ctx, 11)
-    return ctx, f32_j, bf_j, enc, port_outputs(enc, ctx, "bfloat16"), port_outputs(enc, ctx, "float32")
+    # one intra-op thread, as the tests that take these runs have
+    # (one_torch_thread): test_float32_is_a_strict_pass_through compares a
+    # run of its own with them bit for bit, and a reduction split over
+    # another number of threads sums in another order
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ctx = make_context(np.random.default_rng(3), 1, 2, 32, 32)
+        f32_j, bf_j, enc = jax_and_port(UNIMATCH_KW, ctx, 11)
+        return ctx, f32_j, bf_j, enc, port_outputs(enc, ctx, "bfloat16"), port_outputs(enc, ctx, "float32")
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_unimatch_bf16_matches_jax_bf16(unimatch_runs):

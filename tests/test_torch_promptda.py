@@ -23,6 +23,8 @@ from my_depthsplat_torch.gaussians import GaussianAdapterCfg, adapt_gaussians
 from my_depthsplat_torch.models import DinoViT, PromptDA, PromptDPTHead
 from my_depthsplat_torch.models.vit import VIT_CONFIGS
 
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
+
 
 def redraw(params, seed):
     """Replace every leaf by seeded normals: kernels scaled by 1/sqrt(fan_in),

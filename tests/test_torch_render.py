@@ -22,6 +22,8 @@ from my_depthsplat_torch.render.instances import build_tile_instances, expand_in
 from my_depthsplat_torch.render.pallas_raster import composite_plain, screen_rows
 from my_depthsplat_torch.render.projection import project_gaussians
 
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
+
 
 @pytest.fixture(autouse=True)
 def _interpret_mode():

@@ -18,6 +18,7 @@ from my_depthsplat_torch.render import render
 from my_depthsplat_torch.render.instances import build_tile_instances
 
 from test_torch_render import _both_projections, random_scene
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(autouse=True)

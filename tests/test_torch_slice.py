@@ -35,6 +35,7 @@ from my_depthsplat_torch.models import promptda as port_promptda
 from my_depthsplat_torch.models import vit as port_vit
 
 from test_torch_promptda import redraw
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "my_depthsplat_torch"

@@ -48,6 +48,7 @@ from my_depthsplat_torch.train import (
 from test_torch_promptda import redraw
 from test_torch_render_grad import rel_err
 from test_torch_slice import make_views, vitt  # noqa: F401  (fixture)
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(autouse=True)

@@ -22,7 +22,6 @@ from my_depthsplat_torch.config import load_config
 from my_depthsplat_torch.train import LPIPS, TrainCfg, build_lpips, make_train_step
 
 from test_data import make_chunk
-from test_torch_unimatch_encoder import register_vitt
 
 YAML = str(Path(__file__).resolve().parent.parent / "configs" / "re10k_small.yaml")
 
@@ -90,6 +89,8 @@ def test_cli_train_validates_evaluates_checkpoints_and_resumes(tmp_path, monkeyp
       relative: float32 against float64), and returns the state at step 5;
     - ``main.test`` with ``checkpointing.load`` on step_5.pt gives the
       returned state's depths, bit for bit."""
+    from test_torch_unimatch_encoder import register_vitt  # it imports this file's fixture
+
     register_vitt(monkeypatch)
     overrides = _overrides(tmp_path)
     run = tmp_path / "run"
@@ -150,6 +151,8 @@ def test_cli_train_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """More than one device names its ROADMAP item; a pretrained slot
     naming a missing file fails on the first batch, before any step; without
     a card the CLI's train mode raises."""
+    from test_torch_unimatch_encoder import register_vitt  # it imports this file's fixture
+
     register_vitt(monkeypatch)
     overrides = _overrides(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):

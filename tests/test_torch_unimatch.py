@@ -35,6 +35,7 @@ from my_depthsplat_torch.models.position import add_position_in_windows
 from my_depthsplat_torch.ops import plane_sweep_correlation
 
 from test_torch_promptda import redraw
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 def nchw(x: np.ndarray) -> torch.Tensor:

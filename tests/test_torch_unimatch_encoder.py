@@ -30,6 +30,7 @@ from my_depthsplat_torch.models import unimatch as port_unimatch
 from my_depthsplat_torch.models import vit as port_vit
 
 from test_torch_promptda import redraw
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 
 H, W = 32, 64  # 1/8: 4 x 8, windows of 2 x 4; the ViT runs at 28 x 56; 1/4 divides by 8 for the 4-level UNet
 

@@ -24,6 +24,7 @@ from my_depthsplat_torch.ops import grid_sample
 from my_depthsplat_torch.train import LossCfg, OptimizerCfg, TrainCfg, make_train_step
 
 from test_torch_promptda import redraw
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_unimatch_encoder import H, UNI_KW, W, encoder_cfgs, make_context, scale_kw, vitt  # noqa: F401
 
 

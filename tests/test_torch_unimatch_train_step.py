@@ -23,6 +23,7 @@ from my_depthsplat_torch.convert import encoder_state_dict, load_flax_params
 from my_depthsplat_torch.train import make_train_step
 
 from test_torch_promptda import redraw
+from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_unimatch_encoder import H, W, encoder_cfgs, vitt  # noqa: F401
 from test_torch_unimatch_train import _batch, _to_torch, _train_cfg
 
