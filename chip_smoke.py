@@ -265,14 +265,47 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    every group, identical, with both key widths; row 3 group by group
    within the dense bounds) and of a phase-26 test scene (flat route: A
    identical, B within the dense bounds, C and D as in phase 7), on each
-   axis's binning; kernels A-D at a phase-26 training batch (phase 25).
+   axis's binning; kernels A-D at a phase-26 training batch (phase 25);
+29. render_pallas_depth_sharded (render/sharded.py) on target view 0 of
+   phase 11's first request (5,898,240 gaussians, 23 depth groups of 2^18)
+   on 2 ranks spawned with a FileStore under build/, sharing the card over
+   gloo: each rank composites its contiguous span of 12 or 11 groups
+   (kernel A, the chained composite) and the partials are all-gathered and
+   folded. Each rank's image within 1e-3 of the single-process grouped
+   render (the pixels off counted), the ranks' images identical, each
+   rank's launches of A and row 3 equal to an independent walk over every
+   group of its span, and of B, C, D and row 5 to 0; a one-rank mesh
+   within 1e-6; the backward raises.
+   Prints each rank's ms for layout + composite and for the gather + fold;
+30. configs/re10k_small.yaml through the CLI (B = 8 as 2 microbatches,
+   2 + 4 views at 256x256, LPIPS with seeded weights as phase 19, phase
+   19's synthetic chunks), 4 steps with a validation and a checkpoint at
+   the last: once in this process (one rank), then twice under
+   ``python -m torch.distributed.run --standalone --nproc_per_node=2``
+   with trainer.mesh_data=2 and with trainer.mesh_model=2, each rank
+   running the CLI's main through this script's ``--cli-rank`` mode
+   (counters, timed steps and all-reduces, the first step's gradients).
+   Against one rank: the data axis's first-step gradients within 1e-4 of
+   each tensor's largest entry (relative L2 1e-5) of a one-rank run taking
+   the ranks' microbatch rows (grad_accum 4), the model axis's within
+   5e-3 (relative L2 1.2e-3) of the YAML's one-rank run (DATA_GRAD_TOL's
+   note), the four losses within 1e-3 relative,
+   kernels A-D launched on every rank as often, one checkpoint directory,
+   the backend printed (gloo: the ranks share the card). Prints each
+   rank's step ms and the gradient all-reduce's ms.
 
 Phases 18-28 run first, in that order (28's training-batch part inside
-25), after the build; then 4-17. Each phase prints its step ms, peak GiB
-and wall s where it trains or serves. The line before the card line is a
-JSON object {"kernels": [...]} (with each kernel's launches on the paths
-of phases 19-28); the card line is nvidia-smi's name and power limit; the
-last line is {"ok": true, "device": {...}}.
+25), after the build; then 4-17, with 29 after 11-13 and 30 last. Each
+phase prints its step ms, peak GiB and wall s where it trains or serves.
+The figures of phases 29-30 are of 2 ranks sharing 1 card: not a
+multi-card speed. The line before the card line is a JSON object
+{"kernels": [...]} (with each kernel's launches on the paths of phases
+19-30, per rank for 29-30); the card line is nvidia-smi's name and power
+limit; the last line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --cli-rank OUT <CLI arguments>
+
+is phase 30's rank mode, started by torchrun; it is not run by hand.
 """
 
 from __future__ import annotations
@@ -1117,7 +1150,8 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
     """Phases 11-12 and the chained composite's and kernel A's timings at
     the re10k shapes: returns the launch counts of the serving run, the
     chained kernel's entry for the ``kernels`` line, kernel A's largest
-    difference from its plain version and its per-group timing."""
+    difference from its plain version, its per-group timing, and request
+    0's gaussians with its target cameras (for phase 29)."""
     import numpy as np
 
     from my_depthsplat_torch.models import DecoderSplattingCfg, EncoderDepthSplat, decode_splatting
@@ -1377,7 +1411,7 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
         "evaluations": sum(served_stats["evals"][:n_path]), "gated_hits": sum(served_stats["hits"][:n_path]),
         "bytes_needed": sum(served_stats["bytes"][:n_path]),
     }
-    return launches, entry, max(served_stats["a_err"], dense_stats["a_err"]), expand_re10k
+    return launches, entry, max(served_stats["a_err"], dense_stats["a_err"]), expand_re10k, (gaussians, tgt0)
 
 
 def train_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
@@ -3353,6 +3387,417 @@ def ortho_binnings(torch, label, gaussians, card, reset_counters, read_counters)
     return launches, sgs
 
 
+SHARD_RANKS = 2  # phases 29-30: ranks sharing the one card (gloo)
+TORCHRUN_STEPS = 4  # phase 30: 1 + 3 steps a run
+# phase 30: the first-step gradients of a torchrun run vs one process, as
+# (of each tensor's largest entry, relative L2 over all). Two runs of one
+# configuration differ by ~1e-5 of a tensor's largest entry (cuDNN's
+# atomics), but another microbatch size changes cuDNN's algorithms, and the
+# weight gradients of the convolutions ahead of the CNN's instance norms,
+# small differences of large sums, then move by up to 1.35e-2 (relative L2
+# 1.6e-3) between grad_accum 2 and 4 in one process on an H100 80GB HBM3,
+# 700.00 W. So the data axis is held against one process taking the ranks'
+# microbatch rows (grad_accum 4): measured 8.3e-6 (L2 1.1e-6). The model
+# axis keeps the microbatches but sweeps 64 of 128 candidates and renders
+# half the targets a rank, other shapes for cuDNN and cuBLAS: against the
+# YAML's one rank it measured 1.18e-3 (L2 8.0e-4), and its limits leave
+# room on both sides of that; with TF32 on in the ranks it read 1.3e-1.
+DATA_GRAD_TOL = (1e-4, 1e-5)
+MODEL_GRAD_TOL = (5e-3, 1.2e-3)
+
+
+def _rank_env(rank: int, world: int) -> None:
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+
+
+def _phase29_rank(rank, world, store, scene_path, out_path):
+    """One rank of phase 29, spawned: render_pallas_depth_sharded of the
+    saved view 3 times (one warm-up first) with the seven launch counters set
+    to 0 just before and read just after, each call and its gather and fold timed
+    on the host clock between synchronisations; then an independent count of
+    the groups its span should composite (the chained composite threaded over
+    every group of the span from the initial state, outside the counts).
+    Writes its image, counts and times to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from my_depthsplat_torch.parallel import MeshCfg, initialize_distributed, make_mesh
+    from my_depthsplat_torch.render import pallas_raster as raster_mod
+    from my_depthsplat_torch.render import sharded as sharded_mod
+    from my_depthsplat_torch.render.expand import expand_tiles
+    from my_depthsplat_torch.render.instances import grouped_expand_inputs
+    from my_depthsplat_torch.render.pallas_raster import (
+        composite_bwd, composite_bwd_chained, composite_chained, composite_tiles, scatter_reduce, screen_rows,
+    )
+
+    _rank_env(rank, world)
+    initialize_distributed("cuda", store=dist.FileStore(store, world))
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        blob = torch.load(scene_path, map_location=dev, weights_only=False)
+        axis = make_mesh(MeshCfg(1, world)).axis("model")
+        g, v = blob["gaussians"], blob["views"]
+        args = (v["extrinsics"][:, 0], v["intrinsics"][:, 0], v["near"][:, 0], v["far"][:, 0], RE10K_SHAPE, blob["bg"],
+                g.means, g.covariances, g.harmonics, g.opacities)
+        fold_ms, real_fold = [], sharded_mod.fold_partials
+
+        def timed_fold(part, bg, ax):
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            out = real_fold(part, bg, ax)
+            torch.cuda.synchronize()
+            fold_ms.append((time.perf_counter() - t_a) * 1e3)
+            return out
+
+        def run():
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            image = sharded_mod.render_pallas_depth_sharded(axis, *args)
+            torch.cuda.synchronize()
+            return image, (time.perf_counter() - t_a) * 1e3
+
+        counters = {
+            "expand": (expand_tiles, "launches"), "expand_write": (expand_tiles, "write_launches"),
+            "composite_fwd_chained": (composite_chained, "launches"), "composite_fwd": (composite_tiles, "launches"),
+            "composite_bwd": (composite_bwd, "launches"), "scatter_reduce": (scatter_reduce, "launches"),
+            "composite_bwd_chained": (composite_bwd_chained, "launches"),
+        }
+        with mock.patch.object(sharded_mod, "fold_partials", timed_fold):
+            run()  # warm-up
+            fold_ms.clear()
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+            runs = [run() for _ in range(3)]
+            launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        # the independent count: every group of the span, the dead ones too
+        sg = project_view(torch, g, v, 0, RE10K_SHAPE)
+        slots = raster_mod._CHAIN_GROUP_SLOTS
+        order, per_group = grouped_expand_inputs(sg, RE10K_SHAPE, slots)
+        per_rank = -(-len(per_group) // world)
+        lo, hi = rank * per_rank, min((rank + 1) * per_rank, len(per_group))
+        live = []
+        if hi > lo:
+            live = live_after_groups(torch, screen_rows(sg)[order[lo * slots: hi * slots]], per_group[lo:hi], slots,
+                                     RE10K_SHAPE)
+        n = groups_to_composite(live) if live else 0
+        torch.save({
+            "image": runs[0][0].cpu(), "same_each_run": all(torch.equal(r[0], runs[0][0]) for r in runs),
+            "launches": launches, "span": (lo, hi),
+            "expected": {"expand": 3 * (n + (n < hi - lo)), "expand_write": 3 * n, "composite_fwd_chained": 3 * n,
+                         "composite_fwd": 0, "composite_bwd": 0, "scatter_reduce": 0, "composite_bwd_chained": 0},
+            "live": live, "ms": [ms for _, ms in runs], "fold_ms": fold_ms, "backend": dist.get_backend(),
+        }, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_render_phase(torch, dev, card, gaussians, views):
+    """Phase 29: target view 0 of phase 11's first request (5,898,240
+    gaussians at 512x960, 23 depth groups of 2^18) through
+    render_pallas_depth_sharded on SHARD_RANKS spawned ranks sharing the
+    card over gloo (a FileStore under build/): each rank's image against the
+    single-process grouped render (within 1e-3, the pixels off counted),
+    each rank's launches of kernel A and row 3 against the independent count
+    of its span and of every other kernel against 0, and a one-rank mesh
+    within 1e-6; the backward raises.
+    Returns the figures and each rank's launches for the kernels line."""
+    import multiprocessing
+    import shutil
+    from types import SimpleNamespace
+
+    from my_depthsplat_torch.parallel import make_mesh
+    from my_depthsplat_torch.render import render_pallas, render_pallas_depth_sharded
+
+    root = REPO / "build" / "phase29"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    views = {k: x[:1, :1].contiguous() for k, x in views.items() if k != "image"}
+    leaves = SimpleNamespace(**{k: getattr(gaussians, k)[:1].contiguous() for k in (
+        "means", "covariances", "harmonics", "opacities")})
+    bg = torch.zeros(1, 3, device=dev)
+    args = (views["extrinsics"][:, 0], views["intrinsics"][:, 0], views["near"][:, 0], views["far"][:, 0], RE10K_SHAPE,
+            bg, leaves.means, leaves.covariances, leaves.harmonics, leaves.opacities)
+    try:
+        torch.save({"gaussians": SimpleNamespace(**{k: x.cpu() for k, x in vars(leaves).items()}),
+                    "views": {k: x.cpu() for k, x in views.items()}, "bg": bg.cpu()}, root / "scene.pt")
+        with torch.no_grad():
+            want = render_pallas(*args)
+            one = render_pallas_depth_sharded(make_mesh().axis("model"), *args)
+        one_err = (one - want).abs().max().item()
+        print(f"depth-sharded render, one-rank mesh vs the grouped render: max {one_err:.3e} (tolerance 1e-06)")
+        check(one_err <= 1e-6, "the one-rank depth-sharded render disagrees with the grouped render")
+        opac = leaves.opacities.clone().requires_grad_(True)
+        try:
+            render_pallas_depth_sharded(make_mesh().axis("model"), *args[:-1], opac).sum().backward()
+            fail("the depth-sharded render's backward did not raise")
+        except NotImplementedError as e:
+            check("forward-only" in str(e), f"the backward raised {e!r}")
+        ctx = multiprocessing.get_context("spawn")
+        store = root / "store"
+        procs = [ctx.Process(target=_phase29_rank, args=(r, SHARD_RANKS, str(store), str(root / "scene.pt"),
+                                                         str(root / f"rank{r}.pt"))) for r in range(SHARD_RANKS)]
+        t_a = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        wall = time.perf_counter() - t_a
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        check(all(p.exitcode == 0 for p in procs), f"phase 29 ranks exited with {[p.exitcode for p in procs]}")
+        ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(SHARD_RANKS)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = want.cpu()
+    figures = {"ranks": SHARD_RANKS, "wall_s": wall, "one_rank_max_abs_err": one_err}
+    launches = {}
+    for r, res in enumerate(ranks):
+        d = (res["image"] - want).abs()
+        off = int((d.amax(-1) > 1e-6).sum())
+        layout_ms = statistics.median(a - b for a, b in zip(res["ms"], res["fold_ms"]))
+        print(
+            f"depth-sharded render, rank {r} of {SHARD_RANKS} ({res['backend']}, sharing the card): groups "
+            f"[{res['span'][0]}, {res['span'][1]}), live pixels after each {res['live']}; vs the grouped render max "
+            f"{d.max().item():.3e} (tolerance 1e-03), {off} of {d.shape[1] * d.shape[2]} pixels off by more than 1e-6; "
+            f"launches over 3 calls {res['launches']}, expected {res['expected']}; "
+            f"layout + composite {layout_ms:.2f} ms, gather + fold {statistics.median(res['fold_ms']):.2f} ms "
+            f"(medians of 3, host clock between synchronisations; 2 ranks share 1 card; not a multi-card speed) on {card}"
+        )
+        check(res["backend"] == "gloo", f"phase 29 rank {r}: backend {res['backend']}")
+        check(res["same_each_run"], f"phase 29 rank {r}: the image differs between calls")
+        check(d.max().item() <= 1e-3, f"phase 29 rank {r}: the image disagrees with the grouped render")
+        check(torch.equal(res["image"], ranks[0]["image"]), f"phase 29 rank {r}: the ranks' images differ")
+        check(res["launches"] == res["expected"],
+              f"phase 29 rank {r}: launches {res['launches']}, expected {res['expected']}")
+        figures[f"rank{r}"] = {
+            "groups": res["span"], "live": res["live"], "max_abs_err": d.max().item(), "pixels_off": off,
+            "layout_composite_ms": layout_ms, "gather_fold_ms": statistics.median(res["fold_ms"]),
+            "call_ms": statistics.median(res["ms"]),
+        }
+        launches[f"launches_sharded_render_rank{r}"] = res["launches"]
+    return {**figures, "launches": launches}
+
+
+def instrumented_cli(torch, argv):
+    """``my_depthsplat_torch.main.main(argv)`` with the launch counters set
+    to 0 just before and read just after, each train step and each gradient
+    all-reduce timed on the host clock between synchronisations, and the
+    first step's gradients (as the optimizer receives them) kept."""
+    from my_depthsplat_torch import main as cli
+    from my_depthsplat_torch.parallel import distributed
+    from my_depthsplat_torch.render.expand import expand_tiles
+    from my_depthsplat_torch.render.pallas_raster import (
+        composite_bwd, composite_bwd_chained, composite_chained, composite_tiles, scatter_reduce,
+    )
+
+    counters = {
+        "expand": (expand_tiles, "launches"), "expand_write": (expand_tiles, "write_launches"),
+        "composite_fwd": (composite_tiles, "launches"), "composite_bwd": (composite_bwd, "launches"),
+        "scatter_reduce": (scatter_reduce, "launches"), "composite_fwd_chained": (composite_chained, "launches"),
+        "composite_bwd_chained": (composite_bwd_chained, "launches"),
+    }
+    step_ms, reduce_ms, grads = [], [], {}
+    real_make, real_reduce = cli.make_train_step, distributed.all_reduce_mean
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed_reduce(tensors):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        real_reduce(tensors)
+        torch.cuda.synchronize()
+        reduce_ms.append((sum(t.numel() for t in tensors), (time.perf_counter() - t_a) * 1e3))
+
+    def make(*args, **kwargs):
+        init_fn, step = real_make(*args, **kwargs)
+
+        def init(seed=0):
+            state = init_fn(seed=seed)
+            named = dict(state.model.named_parameters())
+
+            def keep_first(opt, args, kwargs):
+                if not grads:
+                    grads.update({k: p.grad.detach().cpu() for k, p in named.items()})
+
+            state.optimizer.register_step_pre_hook(keep_first)
+            return state
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            logs = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t_a) * 1e3)
+            return logs
+
+        timed.loss_fn = step.loss_fn
+        return init, timed
+
+    with mock.patch.object(cli, "make_train_step", make), mock.patch.object(distributed, "all_reduce_mean", timed_reduce):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t_a = time.perf_counter()
+        state = cli.main(argv)
+        wall = time.perf_counter() - t_a
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    return {"launches": launches, "step_ms": step_ms, "reduce_ms": reduce_ms, "grads": grads, "wall_s": wall,
+            "step": state.step, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def cli_rank(argv) -> int:
+    """One rank of phase 30, started by ``python -m torch.distributed.run
+    ... chip_smoke.py --cli-rank OUT <CLI arguments>``: the CLI's main under
+    ``instrumented_cli``; writes its counts, times and first gradients to
+    OUT/rank<RANK>.pt."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    out = Path(argv[0])
+    # the numerics of the one-rank run in chip_smoke's own process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = instrumented_cli(torch, argv[1:])
+    res["backend"] = dist.get_backend() if dist.is_initialized() else None
+    torch.save(res, out / f"rank{os.environ['RANK']}.pt")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def train_cli_torchrun(torch, card):
+    """Phase 30: configs/re10k_small.yaml (B = 8 as 2 microbatches, 2 + 4
+    views at 256x256, 128 candidates, LPIPS with LPIPS(seed=1)'s weights) on
+    phase 19's synthetic chunks, TORCHRUN_STEPS steps with a validation and a
+    checkpoint at the last, through the CLI in this process (one rank), then
+    under ``python -m torch.distributed.run --standalone
+    --nproc_per_node=2`` twice: trainer.mesh_data=2 (2 rows of each
+    microbatch a rank) and trainer.mesh_model=2 (the ring with one view a
+    rank, 64 of 128 candidates and half the targets a rank). Each rank runs
+    the CLI's main through ``cli_rank``. A second one-rank run takes one step with grad_accum 4: the data
+    axis's microbatch rows. Checks against one rank: the first step's
+    gradients (DATA_GRAD_TOL and MODEL_GRAD_TOL), the logged losses, kernels A-D launched
+    on every rank as often, one checkpoint directory, the backend printed
+    (gloo: the ranks share the card). Returns the figures and each rank's
+    launches."""
+
+    import os
+    import shutil
+
+    from my_depthsplat_torch.train import LPIPS
+
+    root = REPO / "build" / "phase30"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        for split, n, frames, seed in (
+            ("train", SMALL_TRAIN_SCENES, SMALL_TRAIN_FRAMES, 900), ("test", SMALL_TEST_SCENES, SMALL_TEST_FRAMES, 901),
+        ):
+            write_re10k_chunk(torch, root / "re10k" / split / "000000.torch", n, frames, SMALL_RAW_SHAPE, seed)
+        torch.save(LPIPS(seed=1).state_dict(), root / "lpips.pt")
+        common = [
+            "--config", str(SMALL_YAML), f"dataset.roots=[{root / 're10k'}]", f"loss.lpips_weights={root / 'lpips.pt'}",
+            f"trainer.max_steps={TORCHRUN_STEPS}", f"trainer.val_check_interval={TORCHRUN_STEPS}",
+            "trainer.test_eval_interval=0", f"checkpointing.every_n_train_steps={TORCHRUN_STEPS}",
+            "checkpointing.save_top_k=1", "trainer.print_log_every_n_steps=1",
+        ]
+        gc.collect()
+        torch.cuda.empty_cache()
+        one = instrumented_cli(torch, [*common, f"output_dir={root / 'one'}"])
+        one["metrics"] = read_metrics(root / "one" / "metrics.jsonl")
+        # the data axis's microbatch rows in one process: grad_accum x 2
+        # microbatches of the ranks' rows, one step
+        one_rows = instrumented_cli(torch, [
+            *common, f"output_dir={root / 'one_rows'}", f"train.grad_accum={SMALL_ACCUM * SHARD_RANKS}",
+            "trainer.max_steps=1",
+        ])
+        runs = {}
+        for name, (data, model) in (("data", (2, 1)), ("model", (1, 2))):
+            out = root / name
+            out.mkdir(parents=True)
+            cmd = [
+                sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={SHARD_RANKS}",
+                str(REPO / "chip_smoke.py"), "--cli-rank", str(out), *common, f"output_dir={out / 'run'}",
+                f"trainer.mesh_data={data}", f"trainer.mesh_model={model}",
+            ]
+            t_a = time.perf_counter()
+            done = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=REPO,
+                                  env={**os.environ, "PYTHONUNBUFFERED": "1"})
+            wall = time.perf_counter() - t_a
+            print(f"torchrun, trainer.mesh_data={data} trainer.mesh_model={model}: exit {done.returncode}, "
+                  f"{wall:.1f} s wall; the ranks' output:\n" + "\n".join(done.stdout.splitlines()[-12:]))
+            if done.returncode != 0:
+                print(done.stderr[-6000:])
+            check(done.returncode == 0, f"torchrun ({name} axis) failed")
+            check("distributed: backend gloo" in done.stdout, f"torchrun ({name} axis): the backend line is missing")
+            runs[name] = {
+                "wall_s": wall, "ranks": [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(SHARD_RANKS)],
+                "metrics": read_metrics(out / "run" / "metrics.jsonl"),
+                "files": sorted(p.name for p in (out / "run").iterdir()),
+                "checkpoints": sorted(p.name for p in (out / "run" / "checkpoints").iterdir()),
+            }
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def grad_errs(got, ref):
+        """(the worst difference over its tensor's largest entry, floored at
+        1e-3 so that a tensor of rounding noise is held to 1e-7 absolute;
+        that tensor; the relative L2 difference over all tensors)."""
+        worst = max(((got[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-3), k) for k, g in ref.items())
+        l2 = (sum(((got[k] - g) ** 2).sum().item() for k, g in ref.items())
+              / sum((g ** 2).sum().item() for g in ref.values())) ** 0.5
+        return worst[0], worst[1], l2
+
+    spread = grad_errs(one_rows["grads"], one["grads"])
+    print(f"one rank, grad_accum 4 vs 2 (the same rows in other microbatches; a diagnostic, no limit): the first "
+          f"step's gradients differ by {spread[0]:.3e} of {spread[1]}'s largest entry, relative L2 {spread[2]:.3e}")
+    want_loss = [m["loss/total"] for m in one["metrics"] if "loss/total" in m]
+    check(len(want_loss) == TORCHRUN_STEPS, f"one-rank run: {len(want_loss)} logged steps")
+    figures, launches = {"one_rank": {k: one[k] for k in ("step_ms", "wall_s", "peak_gib")},
+                         "one_rank_accum_spread": spread}, {}
+    renders = SMALL_ACCUM * TORCHRUN_STEPS
+    want_launches = {"expand": renders + 1, "expand_write": renders + 1, "composite_fwd": renders + 1,
+                     "composite_bwd": renders, "scatter_reduce": renders, "composite_fwd_chained": 0,
+                     "composite_bwd_chained": 0}
+    check(one["launches"] == want_launches, f"one-rank run: launches {one['launches']}, expected {want_launches}")
+    for name, run in runs.items():
+        loss = [m["loss/total"] for m in run["metrics"] if "loss/total" in m]
+        rel = [abs(a / b - 1) for a, b in zip(loss, want_loss)]
+        check(len(loss) == TORCHRUN_STEPS and max(rel) <= 1e-3,
+              f"torchrun ({name} axis): loss/total {loss} vs one rank {want_loss}")
+        check(run["checkpoints"] == [f"step_{TORCHRUN_STEPS}.pt"], f"torchrun ({name} axis): checkpoints {run['checkpoints']}")
+        check(run["files"].count("config.json") == 1 and "metrics.jsonl" in run["files"],
+              f"torchrun ({name} axis): files {run['files']}")
+        fig = {"wall_s": run["wall_s"], "loss_rel_err": rel}
+        for r, res in enumerate(run["ranks"]):
+            check(res["backend"] == "gloo" and res["step"] == TORCHRUN_STEPS, f"torchrun ({name} axis) rank {r}: {res['backend']}, step {res['step']}")
+            check(res["launches"] == want_launches,
+                  f"torchrun ({name} axis) rank {r}: launches {res['launches']}, expected {want_launches}")
+            worst, worst_name, l2 = grad_errs(res["grads"], (one_rows if name == "data" else one)["grads"])
+            grad_reduce = [ms for n, ms in res["reduce_ms"] if n > 1000]
+            step_med = statistics.median(res["step_ms"][1:])
+            print(
+                f"torchrun ({name} axis) rank {r} of {SHARD_RANKS}: step {step_med:.1f} ms (median after the first; "
+                f"one rank: {statistics.median(one['step_ms'][1:]):.1f}), gradient all-reduce "
+                f"{statistics.median(grad_reduce):.1f} ms a step over {max(n for n, _ in res['reduce_ms'])} values; "
+                f"first step's gradients vs one rank ({'grad_accum 4, the same microbatch rows' if name == 'data' else 'as the YAML stands'}): "
+                f"worst {worst:.3e} of the tensor's largest entry ({worst_name}), relative L2 {l2:.3e}; "
+                f"loss/total rel {max(rel):.2e}; launches {res['launches']}; peak {res['peak_gib']:.2f} GiB "
+                f"(2 ranks share 1 card; not a multi-card speed) on {card}"
+            )
+            tol = DATA_GRAD_TOL if name == "data" else MODEL_GRAD_TOL
+            check(worst <= tol[0] and l2 <= tol[1],
+                  f"torchrun ({name} axis) rank {r}: gradient {worst_name} off by {worst:.3e}, relative L2 {l2:.3e}")
+            fig[f"rank{r}"] = {"step_ms": res["step_ms"], "allreduce_ms": grad_reduce, "grad_rel_err": worst,
+                               "grad_l2_rel_err": l2, "peak_gib": res["peak_gib"]}
+            launches[f"launches_torchrun_{name}_rank{r}"] = res["launches"]
+        figures[name] = fig
+    return {**figures, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3822,10 +4267,17 @@ def main() -> int:
         )
     # ---- slice 3: serving re10k_720p_fast at full width, the chained composite
     torch.cuda.empty_cache()
-    re10k_launches, chained_entry, a_err_grouped, expand_re10k = serve_re10k(
+    re10k_launches, chained_entry, a_err_grouped, expand_re10k, served_scene = serve_re10k(
         torch, dev, card, reset_counters, read_counters, uncounted
     )
     errs["expand"] = max(errs["expand"], a_err_grouped)
+
+    # ---- phase 29: the depth-range-sharded render of a served view, 2 ranks
+    # sharing the card over gloo
+    sharded = sharded_render_phase(torch, dev, card, *served_scene)
+    del served_scene
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- slice 4: training re10k_720p_fast through the grouped route, row 5;
     # training re10k_small on the flat route
@@ -3834,6 +4286,13 @@ def main() -> int:
         torch, dev, card, reset_counters, read_counters, uncounted
     )
     small_launches, small_timing = train_re10k_small(torch, dev, card, reset_counters, read_counters)
+
+    # ---- phase 30: re10k_small through the CLI under torchrun, 2 ranks on
+    # the card, on the data axis and on the model axis
+    torch.cuda.empty_cache()
+    torchrun = train_cli_torchrun(torch, card)
+    new_paths.update(sharded["launches"])
+    new_paths.update(torchrun["launches"])
 
     # A and B: times at the served scene's shapes, launches from the serving
     # run. C and D: times at the training batch's shapes, launches from the
@@ -3893,6 +4352,11 @@ def main() -> int:
                               ("re10k_large", large_cli), ("video_720p", video_cli))
            for k, r in runs.items()},
     }
+    kernels[0]["multi_rank"] = {
+        "note": "2 ranks share 1 card; not a multi-card speed",
+        "sharded_render": {k: v for k, v in sharded.items() if k != "launches"},
+        "torchrun": {k: v for k, v in torchrun.items() if k != "launches"},
+    }
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -3900,4 +4364,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli_rank(sys.argv[2:]) if sys.argv[1:2] == ["--cli-rank"] else main())

@@ -3,8 +3,8 @@
 The port's own copy of my_depthsplat_tpu/config.py, with the same keys and
 defaults, so the YAMLs in configs/ load in both packages. Keys the port
 holds at one value raise at any other (``EncoderDepthSplatCfg``,
-``DecoderSplattingCfg``); ``main.train`` refuses ``trainer.mesh_*``
-above one device.
+``DecoderSplattingCfg``). ``trainer.mesh_data`` x ``trainer.mesh_model``
+must cover the ranks ``torchrun`` starts (``main.build_parallel``).
 
 Replaces the reference's Hydra + dacite stack (config/*.yaml + src/config.py):
 - a RootCfg dataclass tree mirrors the reference's config groups

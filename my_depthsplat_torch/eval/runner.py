@@ -60,13 +60,15 @@ def run_test(
     decoder_cfg: DecoderSplattingCfg = DecoderSplattingCfg(),
     lpips_fn: Callable | None = None,
     device: torch.device | str = "cpu",
+    write: bool = True,
 ) -> dict:
     """Serve every batch: encoder, then the target views in chunks of
     ``render_chunk_size``; score, write, and return {"scores", "timing"
     (mean seconds per encoder call and per rendered view, the first
     ``eval_time_skip_steps`` skipped), "num_dropped" (0: the port drops no
     tile instance)}. ``device`` is where the batches live: on the card every
-    timed block ends in a synchronise."""
+    timed block ends in a synchronise. ``write=False`` (the ranks of a
+    process group but the first) computes everything and writes no file."""
     bench = Benchmarker(device)
     scores: dict[str, list] = {"psnr": [], "ssim": [], "lpips": []}
     names: list[str] = []
@@ -86,7 +88,8 @@ def run_test(
             gaussians = out["gaussians"]
 
             if cfg.forward_depth_only or gaussians is None:
-                _save_depth_outputs(out_dir, out, scene)
+                if write:
+                    _save_depth_outputs(out_dir, out, scene)
                 continue
 
             chunk = cfg.render_chunk_size or v_tgt
@@ -111,6 +114,8 @@ def run_test(
                     scores["lpips"].append(float(lpips_fn(gt, pr).mean()))
                 names.append(scene)
 
+            if not write:
+                continue
             if cfg.save_image:
                 color_np = color[0].cpu().numpy()
                 for i in range(v_tgt):
@@ -125,6 +130,18 @@ def run_test(
             if cfg.save_video:
                 _render_trajectory_video(cfg, decoder_cfg, gaussians, batch, scene)
 
+    if write:
+        _write_scores(cfg, out_dir, scores, names, bench)
+    return {
+        "scores": {k: float(np.mean(v)) for k, v in scores.items() if v},
+        "timing": bench.summarize(cfg.eval_time_skip_steps),
+        # the JAX runner's key; the port's decoder allocates every tile
+        # instance and drops none (models/decoder.py)
+        "num_dropped": 0,
+    }
+
+
+def _write_scores(cfg: TestCfg, out_dir: Path, scores: dict, names: list, bench: Benchmarker) -> None:
     out_dir.mkdir(exist_ok=True, parents=True)
     if cfg.compute_scores and names:
         avg = {k: float(np.mean(v)) for k, v in scores.items() if len(v) > 0}
@@ -136,13 +153,6 @@ def run_test(
                 )
     bench.dump(out_dir / "benchmark.json")
     bench.dump_memory(out_dir / "peak_memory.json")
-    return {
-        "scores": {k: float(np.mean(v)) for k, v in scores.items() if v},
-        "timing": bench.summarize(cfg.eval_time_skip_steps),
-        # the JAX runner's key; the port's decoder allocates every tile
-        # instance and drops none (models/decoder.py)
-        "num_dropped": 0,
-    }
 
 
 def _save_depth_outputs(out_dir: Path, out: dict, scene: str) -> None:

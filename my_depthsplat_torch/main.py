@@ -19,8 +19,20 @@ Training then resumes from the newest ``checkpoints/step_*.pt`` under
 validates every ``trainer.val_check_interval`` steps, evaluates on the test
 split every ``trainer.test_eval_interval`` steps and checkpoints every
 ``checkpointing.every_n_train_steps``. Test mode then loads
-``checkpointing.load`` in either format (:480-493). Not ported yet, and
-refused: more than one device (ROADMAP.md queue 1 item 11).
+``checkpointing.load`` in either format (:480-493).
+
+Training runs on several cards under ``torchrun``, one process per card
+(:171-183, ``build_parallel`` :126-147):
+
+    python -m torch.distributed.run --nproc_per_node=4 -m my_depthsplat_torch.main \
+        --config configs/re10k_small.yaml ... trainer.mesh_data=2 trainer.mesh_model=2
+
+The ranks form a (data, model) mesh (parallel/mesh.py): the batch is split
+over the data axis, and a model axis of more than one rank splits the plane
+sweep's candidates, the transformer's query views and the rendered targets.
+Every rank reads the same loader stream and takes its rows; rank 0 writes
+the logs, validation images, evaluation files and checkpoints, and every
+rank computes them. Test mode stays single-process.
 """
 
 from __future__ import annotations
@@ -49,6 +61,8 @@ from .eval.runner import run_test
 from .models import EncoderDepthSplat, decode_splatting
 from .models.precision import apply_with_precision, resolve_dtype
 from .models.vit import VIT_CONFIGS
+from .parallel import MeshCfg, barrier, initialize_distributed, make_mesh, rank_device, set_mesh, shard_batch
+from .parallel.distributed import check_replicated, env_world_size, world_rank
 from .train import TrainCfg, TrainState, make_train_step
 from .train.checkpoints import (
     checkpoint_step,
@@ -146,11 +160,29 @@ def _restore_encoder(cfg: RootCfg, encoder: EncoderDepthSplat) -> None:
     print(f"restored {path}")
 
 
+def build_parallel(cfg: RootCfg):
+    """The mesh from ``trainer.mesh_data`` x ``trainer.mesh_model`` over the
+    process group (1 x 1 in one process; a grid that does not cover the
+    world raises, naming torchrun), and the encoder configuration: with a
+    model axis of more than one rank the plane sweep's candidates and the
+    ring attention's views split over it (``spmd_depth_axis`` and
+    ``spmd_view_axis`` = "model"), and so do the rendered targets
+    (``make_train_step`` reads the mesh). Returns (mesh, encoder_cfg)."""
+    mesh = make_mesh(MeshCfg(data=cfg.trainer.mesh_data, model=cfg.trainer.mesh_model))
+    encoder_cfg = cfg.encoder
+    if mesh.shape["model"] > 1:
+        encoder_cfg = dataclasses.replace(encoder_cfg, spmd_depth_axis="model", spmd_view_axis="model")
+    return mesh, encoder_cfg
+
+
 def test(cfg: RootCfg, device: torch.device | str | None = None) -> dict:
     """Serve the test split: every scene through the encoder (random weights
     from ``cfg.seed``, then the pretrained slots and ``checkpointing.load``) under
     ``encoder.compute_dtype``, its targets through ``decode_splatting``, and
-    ``run_test``'s scores, timings and files under ``output_dir/test``."""
+    ``run_test``'s scores, timings and files under ``output_dir/test``.
+    Single-process: it raises under a launcher's world of more than one."""
+    if max(env_world_size(), world_rank()[1]) > 1:
+        raise RuntimeError("mode=test runs in one process: launch it without torchrun")
     dev = resolve_device(device)
     encoder = EncoderDepthSplat(cfg.encoder, device=dev, seed=cfg.seed).eval()
     _restore_encoder(cfg, encoder)
@@ -189,16 +221,24 @@ def train(cfg: RootCfg, device: torch.device | str | None = None) -> TrainState 
     ``print_log_every_n_steps``, validation every ``val_check_interval``,
     test-split evaluation every ``test_eval_interval`` (0: never), a
     checkpoint every ``every_n_train_steps`` pruned to ``save_top_k``, and
-    one at the end unless the loop has just saved. Returns the state."""
+    one at the end unless the loop has just saved. Returns the state.
+
+    Under torchrun: the process group first (``initialize_distributed``),
+    then the mesh (``build_parallel``, set for the modules with
+    ``set_mesh``); every rank runs every step, validation and evaluation,
+    and rank 0 alone writes."""
     dev = resolve_device(device)
-    if cfg.trainer.mesh_model > 1 or cfg.trainer.mesh_data > 1:
-        raise NotImplementedError(
-            f"trainer.mesh_data={cfg.trainer.mesh_data}, mesh_model={cfg.trainer.mesh_model}: "
-            "training on more than one device is queued in ROADMAP.md queue 1 item 11 (multi-device)"
-        )
+    initialize_distributed(dev)
+    dev = rank_device(dev)
+    mesh, encoder_cfg = build_parallel(cfg)
+    cfg = dataclasses.replace(cfg, encoder=encoder_cfg)
+    set_mesh(mesh)
+    writer = mesh.rank == 0
     out_dir = Path(cfg.output_dir)
-    out_dir.mkdir(exist_ok=True, parents=True)
-    (out_dir / "config.json").write_text(json.dumps(to_dict(cfg), indent=2, default=str))
+    if writer:
+        out_dir.mkdir(exist_ok=True, parents=True)
+        (out_dir / "config.json").write_text(json.dumps(to_dict(cfg), indent=2, default=str))
+    barrier()
 
     # LPIPS as a loss (loss_lpips.py:27-59): only when a weights file is
     # configured and its weight is nonzero
@@ -209,7 +249,7 @@ def train(cfg: RootCfg, device: torch.device | str | None = None) -> TrainState 
         encoder=cfg.encoder, decoder=cfg.decoder, loss=cfg.loss, optimizer=cfg.optimizer,
         depth_mode=cfg.train.depth_mode, grad_accum=cfg.train.grad_accum,
     )
-    init_fn, train_step = make_train_step(train_cfg, lpips=lpips, device=dev)
+    init_fn, train_step = make_train_step(train_cfg, lpips=lpips, device=dev, mesh=mesh)
 
     ckpt_dir = out_dir / "checkpoints"
     latest = find_latest_checkpoint(ckpt_dir) if cfg.checkpointing.resume else None
@@ -222,7 +262,7 @@ def train(cfg: RootCfg, device: torch.device | str | None = None) -> TrainState 
         "train", global_step=lambda: step_cell["step"],
     )
     val_iter = _make_val_iter(cfg)
-    logger = LocalLogger(out_dir, run_name=out_dir.name)
+    logger = LocalLogger(out_dir, run_name=out_dir.name) if writer else None
     log_every = cfg.trainer.print_log_every_n_steps
     state, last_saved = None, -1
     t_last = time.time()
@@ -233,18 +273,23 @@ def train(cfg: RootCfg, device: torch.device | str | None = None) -> TrainState 
                 apply_pretrained_slots(cfg, state.model)
                 if latest is not None:
                     restore_checkpoint(latest, state)
-                    print(f"resuming from {latest} at step {state.step}")
+                    if writer:
+                        print(f"resuming from {latest} at step {state.step}")
+                check_replicated(list(state.model.parameters()), "the initial parameters")
             if state.step >= cfg.trainer.max_steps:
                 break
-            logs = train_step(state, torch_batch(prepare_batch(cfg, batch), dev))
+            # every rank reads the same stream and takes its rows
+            rows = shard_batch(mesh, torch_batch(prepare_batch(cfg, batch), dev), cfg.train.grad_accum)
+            logs = train_step(state, rows)
             gstep = step_cell["step"] = state.step
             if gstep % log_every == 0:
                 logs = {k: float(v) for k, v in logs.items()}  # waits for the step
                 dt = (time.time() - t_last) / log_every
                 t_last = time.time()
-                msg = ", ".join(f"{k}={v:.4f}" for k, v in sorted(logs.items()))
-                print(f"step {gstep}: {msg} ({dt:.3f}s/it)", flush=True)
-                logger.log_scalars(gstep, {**logs, "perf/s_per_it": dt})
+                if writer:
+                    msg = ", ".join(f"{k}={v:.4f}" for k, v in sorted(logs.items()))
+                    print(f"step {gstep}: {msg} ({dt:.3f}s/it)", flush=True)
+                    logger.log_scalars(gstep, {**logs, "perf/s_per_it": dt})
             if gstep % cfg.trainer.val_check_interval == 0:
                 _run_validation(cfg, state, val_iter, gstep, logger, dev)
             if cfg.trainer.test_eval_interval > 0 and gstep % cfg.trainer.test_eval_interval == 0:
@@ -257,7 +302,9 @@ def train(cfg: RootCfg, device: torch.device | str | None = None) -> TrainState 
         if state is not None and state.step != last_saved:
             save_checkpoint(ckpt_dir, state.step, state, keep=cfg.checkpointing.save_top_k)
     finally:
-        logger.close()
+        set_mesh(None)
+        if logger is not None:
+            logger.close()
     return state
 
 
@@ -290,12 +337,14 @@ def _make_val_iter(cfg: RootCfg):
         return None
 
 
-def _run_validation(cfg: RootCfg, state: TrainState, val_iter, step: int, logger: LocalLogger,
+def _run_validation(cfg: RootCfg, state: TrainState, val_iter, step: int, logger: LocalLogger | None,
                     device: torch.device) -> None:
     """One held-out val scene through the encoder (eval mode, the precision
     policy) and the decoder: ``val/psnr`` and a ground-truth / prediction
     panel (model_wrapper.py:634-773); a depth panel alone under
-    train_depth_only. A failure is printed: validation never ends training."""
+    train_depth_only. Every rank computes (the encoder's collectives need
+    them all); the rank with the ``logger`` writes. A failure is printed:
+    validation never ends training."""
     if val_iter is None:
         return
     try:
@@ -303,8 +352,9 @@ def _run_validation(cfg: RootCfg, state: TrainState, val_iter, step: int, logger
         with _evaluating(state.model):
             out = apply_with_precision(state.model, cfg.encoder.compute_dtype, batch["context"])
             if out["gaussians"] is None:  # depth-only: the depth panel
-                d = out["depths"][-1].cpu().numpy()
-                logger.log_image(step, "val/depth", add_border(hcat(*(viz_depth(x) for x in d))))
+                if logger is not None:
+                    d = out["depths"][-1].cpu().numpy()
+                    logger.log_image(step, "val/depth", add_border(hcat(*(viz_depth(x) for x in d))))
                 return
             tgt = batch["target"]
             h, w = tgt["image"].shape[2:4]
@@ -312,6 +362,8 @@ def _run_validation(cfg: RootCfg, state: TrainState, val_iter, step: int, logger
                 cfg.decoder, out["gaussians"], tgt["extrinsics"], tgt["intrinsics"], tgt["near"], tgt["far"], (h, w)
             )
             psnr = float(compute_psnr(tgt["image"].reshape(-1, h, w, 3), dec.color.reshape(-1, h, w, 3)).mean())
+        if logger is None:
+            return
         print(f"[val @ {step}] psnr={psnr:.3f}", flush=True)
         logger.log_scalars(step, {"val/psnr": psnr})
         gt_row = hcat(*tgt["image"][0].cpu().numpy())
@@ -321,12 +373,13 @@ def _run_validation(cfg: RootCfg, state: TrainState, val_iter, step: int, logger
         print(f"validation failed: {e!r}")
 
 
-def _run_periodic_test_eval(cfg: RootCfg, state: TrainState, step: int, logger: LocalLogger,
+def _run_periodic_test_eval(cfg: RootCfg, state: TrainState, step: int, logger: LocalLogger | None,
                             device: torch.device) -> None:
     """``run_test`` over the first ``test_eval_max_scenes`` scenes of the
     test split with the current weights (model_wrapper.py:775-930), into
     ``output_dir/test_step{step}`` without images; its scores logged as
-    ``test/*``. A failure is printed: the evaluation never ends training."""
+    ``test/*``. Every rank computes; the rank with the ``logger`` writes.
+    A failure is printed: the evaluation never ends training."""
     try:
         loader = data_loader(
             build_dataset(cfg, "test"), DataLoaderCfg(batch_size=1, seed=cfg.data_loader.seed), "test"
@@ -340,7 +393,10 @@ def _run_periodic_test_eval(cfg: RootCfg, state: TrainState, step: int, logger: 
             result = run_test(
                 test_cfg, lambda context: apply_with_precision(state.model, cfg.encoder.compute_dtype, context),
                 batches, decoder_cfg=cfg.decoder, lpips_fn=_eval_lpips_fn(cfg, state, device), device=device,
+                write=logger is not None,
             )
+        if logger is None:
+            return
         print(f"[test eval @ {step}] {result['scores']}", flush=True)
         if result["scores"]:
             logger.log_scalars(step, {f"test/{k}": v for k, v in result["scores"].items()})

@@ -2,7 +2,10 @@
 
 Port of my_depthsplat_tpu/models/decoder.py. The (batch, view) axes are
 flattened and rendered by one batched ``render`` call; the tensors' device
-picks the kernels (CUDA) or their plain versions (CPU).
+picks the kernels (CUDA) or their plain versions (CPU). With
+``render_axis`` (a mesh axis, the JAX package's ``render_sharding``) the
+flattened target views are split over that axis, each rank renders its
+share, and the images are gathered under the mesh's gradient rule.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 from torch import Tensor
 
 from ..gaussians.types import Gaussians
+from ..parallel.mesh import gather_split, resolve_axis, split_input, split_sizes
 from ..render import DepthRenderingMode, render, render_depth
 from ..utils.shapes import assert_shapes, check_gaussians
 from .encoder import check_fixed_keys
@@ -56,6 +60,7 @@ def decode_splatting(
     far: Tensor,  # (B, V)
     image_shape: tuple[int, int],
     depth_mode: DepthRenderingMode | None = None,
+    render_axis: str | None = None,
 ) -> DecoderOutput:
     dims = check_gaussians(gaussians)
     assert_shapes(
@@ -68,27 +73,45 @@ def decode_splatting(
         dims,
     )
     b, v = extrinsics.shape[:2]
+    n = b * v
+    axis, sizes, views = None, None, slice(None)
+    if render_axis is not None:  # this rank's share of the flattened (b v) targets
+        axis = resolve_axis(render_axis)
+        sizes = split_sizes(n, axis.size)
+        if min(sizes) == 0:
+            raise ValueError(f"{n} target views do not give each of {axis.size} ranks one")
+        start = sum(sizes[: axis.index])
+        views = slice(start, start + sizes[axis.index])
+        n = sizes[axis.index]
+        gaussians = Gaussians(
+            *(split_input(getattr(gaussians, f), axis) for f in ("means", "covariances", "harmonics", "opacities"))
+        )
 
     def bv(x: Tensor) -> Tensor:
-        return x.reshape(b * v, *x.shape[2:])
+        return x.reshape(b * v, *x.shape[2:])[views]
 
     def rep(x: Tensor) -> Tensor:
-        return torch.repeat_interleave(x, v, dim=0)
+        if axis is None:
+            return torch.repeat_interleave(x, v, dim=0)
+        return x[torch.arange(views.start, views.stop, device=x.device) // v]
+
+    def gathered(x: Tensor) -> Tensor:
+        return x if axis is None else gather_split(x, axis, 0, sizes)
 
     bg = torch.tensor(cfg.background_color, dtype=torch.float32, device=extrinsics.device)
-    color = render(
+    color = gathered(render(
         bv(extrinsics), bv(intrinsics), bv(near), bv(far), image_shape,
-        bg.expand(b * v, 3).contiguous(),
+        bg.expand(n, 3).contiguous(),
         rep(gaussians.means), rep(gaussians.covariances),
         rep(gaussians.harmonics), rep(gaussians.opacities),
-    )
+    ))
     depth = None
     if depth_mode is not None:
-        depth = render_depth(
+        depth = gathered(render_depth(
             bv(extrinsics), bv(intrinsics), bv(near), bv(far), image_shape,
             rep(gaussians.means), rep(gaussians.covariances), rep(gaussians.opacities),
             mode=depth_mode,
-        ).reshape(b, v, *image_shape)
+        )).reshape(b, v, *image_shape)
     return DecoderOutput(
         color.reshape(b, v, *color.shape[1:]),
         depth,

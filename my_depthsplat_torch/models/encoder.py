@@ -49,6 +49,7 @@ from ..gaussians import GaussianAdapterCfg, adapt_gaussians, d_in
 from ..geometry import sample_image_grid
 from ..utils.device import resolve_device
 from ..ops import resize_bilinear
+from ..parallel.mesh import resolve_axis
 from ..utils.shapes import check_views
 from .layers import Conv, init_params
 from .promptda import PromptDA
@@ -63,7 +64,6 @@ ATTN_SPLITS = 2  # window splits per side in the multi-view transformer
 SUPERVISE_INTERMEDIATE_DEPTH = True  # training stacks every depth prediction's gaussians
 
 _UNREACHED = "queued in ROADMAP.md queue 1 item 10 (what no configuration reaches)"
-_MULTI_DEVICE = "queued in ROADMAP.md queue 1 item 11 (multi-device)"
 # JAX configuration key -> (the one value the port accepts, why)
 _FIXED_KEYS = {
     "num_surfaces": (1, _UNREACHED),
@@ -73,8 +73,6 @@ _FIXED_KEYS = {
     "multiview_trans_attn_split": (ATTN_SPLITS, _UNREACHED),
     "regressor_feature_channels": (FEATURE_PROJ_CHANNELS, _UNREACHED),
     "local_mv_match": (LOCAL_MV_MATCH, _UNREACHED),
-    "spmd_depth_axis": (None, _MULTI_DEVICE),
-    "spmd_view_axis": (None, _MULTI_DEVICE),
     "sweep_mode": ("gather", _UNREACHED),
     "sweep_window": (6, _UNREACHED),
     "sweep_window_groups_scale0": (0, _UNREACHED),
@@ -118,6 +116,10 @@ class EncoderDepthSplatCfg:
     monodepth_vit_type: str = "vits"
     regressor_feature_channels: int | None = FEATURE_PROJ_CHANNELS
     local_mv_match: int = LOCAL_MV_MATCH
+    # Mesh axis names (parallel/mesh.py), set by main.build_parallel when
+    # trainer.mesh_model > 1: the plane sweep's candidates split over one,
+    # the multi-view transformer's ring over the other. Either raises
+    # without a mesh of that axis.
     spmd_depth_axis: str | None = None
     spmd_view_axis: str | None = None
     # plane-sweep gather precision: "float32" (reference-exact) | "bfloat16"
@@ -179,6 +181,9 @@ class EncoderDepthSplat(nn.Module):
         if cfg.depth_branch not in ("promptda", "unimatch"):
             raise ValueError(f"depth_branch={cfg.depth_branch!r}: 'promptda' or 'unimatch'")
         dev = resolve_device(device)
+        for name in (cfg.spmd_depth_axis, cfg.spmd_view_axis):
+            if name is not None:
+                resolve_axis(name)  # raises without a mesh of that axis
         self.cfg = cfg
         embed = VIT_CONFIGS[cfg.monodepth_vit_type].embed_dim
         ch = cfg.gaussian_regressor_channels
@@ -196,6 +201,8 @@ class EncoderDepthSplat(nn.Module):
                 unet_channels=cfg.costvolume_unet_feat_dim,
                 unet_attn_resolutions=tuple(cfg.costvolume_unet_attn_res),
                 sweep_gather_dtype=cfg.sweep_gather_dtype,
+                spmd_depth_axis=cfg.spmd_depth_axis,
+                spmd_view_axis=cfg.spmd_view_axis,
             )
             if embed > FEATURE_PROJ_CHANNELS:
                 self.feature_proj = Conv(embed, FEATURE_PROJ_CHANNELS, 1, padding=0)

@@ -14,8 +14,10 @@ the JAX package reproduces on purpose are kept:
 
 Submodule names follow the reference state dict
 (``layers.{i}.self_attn.q_proj``, ``layers.{i}.cross_attn_ffn.mlp.{0,2}``).
-The ring attention over a view-sharded mesh (``view_shard_axis``) is not
-ported.
+With ``view_shard_axis`` (a mesh axis name) and every other view as kv (no
+kNN subset), the cross-attention runs as a ring over that axis
+(parallel/ring.py): each rank attends its V/P query views and the messages
+are gathered back, so every rank holds all V views before and after.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 import torch.nn as nn
 from torch import Tensor
 
+from ..parallel.ring import ring_cross_view_attention
 from .layers import Dense, LayerNorm
 
 
@@ -123,10 +126,16 @@ class AttentionLayer(nn.Module):
             )
             self.norm2 = LayerNorm(d_model)
 
-    def forward(self, source: Tensor, target: Tensor, attn_splits: int = 1) -> Tensor:
-        """source (..., H, W, C); target (..., M, H, W, C)."""
+    def forward(self, source: Tensor, target: Tensor, attn_splits: int = 1, ring_axis: str | None = None) -> Tensor:
+        """source (..., H, W, C); target (..., M, H, W, C), or with
+        ``ring_axis`` the views themselves (B, V, H, W, C): each view then
+        attends every other view on the ring over that mesh axis."""
         q, k, v = self.q_proj(source), self.k_proj(target), self.v_proj(target)
-        if attn_splits > 1:
+        if ring_axis is not None:
+            message = ring_cross_view_attention(
+                q, k, v, ring_axis, splits=attn_splits, with_shift=self.with_shift and attn_splits > 1
+            )
+        elif attn_splits > 1:
             message = _window_attention(q, k, v, attn_splits, self.with_shift)
         else:
             message = _full_attention(q, k, v)
@@ -142,13 +151,17 @@ class MultiViewTransformerBlock(nn.Module):
         self.self_attn = AttentionLayer(d_model, True, ffn_dim_expansion, with_shift)
         self.cross_attn_ffn = AttentionLayer(d_model, False, ffn_dim_expansion, with_shift)
 
-    def forward(self, x: Tensor, kv_idx: Tensor, attn_splits: int) -> Tensor:
+    def forward(self, x: Tensor, kv_idx: Tensor | None, attn_splits: int, ring_axis: str | None = None) -> Tensor:
         """x (B, V, H, W, C); kv_idx (B, V, M) int64: the views each view
-        takes its cross-attention keys and values from."""
+        takes its cross-attention keys and values from, or None with
+        ``ring_axis``: every other view, on the ring."""
         b = x.shape[0]
-        kv = x[torch.arange(b, device=x.device)[:, None, None], kv_idx]  # before self-attention
+        if ring_axis is not None:
+            kv = x  # before self-attention
+        else:
+            kv = x[torch.arange(b, device=x.device)[:, None, None], kv_idx]
         x = self.self_attn(x, x[:, :, None], attn_splits)
-        return self.cross_attn_ffn(x, kv, attn_splits)
+        return self.cross_attn_ffn(x, kv, attn_splits, ring_axis)
 
 
 def other_view_indices(b: int, v: int, device) -> Tensor:
@@ -161,8 +174,10 @@ class MultiViewFeatureTransformer(nn.Module):
     """Stack of (self, cross + FFN) blocks; odd layers use shifted windows
     (reference mv_transformer.py:540-650)."""
 
-    def __init__(self, num_layers: int = 6, d_model: int = 128, ffn_dim_expansion: int = 4):
+    def __init__(self, num_layers: int = 6, d_model: int = 128, ffn_dim_expansion: int = 4,
+                 view_shard_axis: str | None = None):
         super().__init__()
+        self.view_shard_axis = view_shard_axis
         self.layers = nn.ModuleList(
             MultiViewTransformerBlock(d_model, ffn_dim_expansion, with_shift=i % 2 == 1)
             for i in range(num_layers)
@@ -172,8 +187,12 @@ class MultiViewFeatureTransformer(nn.Module):
         """features (B, V, H, W, C); nn_idx (B, V, k+1) nearest views with the
         view itself first, or None for all other views."""
         b, v = features.shape[:2]
-        kv_idx = other_view_indices(b, v, features.device) if nn_idx is None else nn_idx[..., 1:]
+        # the ring only for all other views: kNN subsets stay gathers
+        ring = self.view_shard_axis if nn_idx is None else None
+        kv_idx = None
+        if ring is None:
+            kv_idx = other_view_indices(b, v, features.device) if nn_idx is None else nn_idx[..., 1:]
         x = features
         for layer in self.layers:
-            x = layer(x, kv_idx, attn_splits)
+            x = layer(x, kv_idx, attn_splits, ring)
         return x

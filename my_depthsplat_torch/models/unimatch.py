@@ -20,9 +20,12 @@ channels-last. Submodule names follow the reference state dict
 ``depth_head.{i}.{0,2}``, ``upsampler``).
 
 ``sweep_gather_dtype="bfloat16"`` gathers the plane sweep's features as
-bf16 (``ops/grid_sample.py``). Left out, and queued in ROADMAP.md: the
-mesh-sharded variants (``spmd_*``) and the window sweep
-(``sweep_mode="window"``).
+bf16 (``ops/grid_sample.py``). On a mesh (parallel/mesh.py),
+``spmd_depth_axis`` splits each plane sweep's depth candidates over that
+axis (each rank correlates its D/P, then the cost volumes are gathered
+along D under the mesh's gradient rule) and ``spmd_view_axis`` runs the
+multi-view transformer's cross-attention as a ring over its axis. Left
+out, and queued in ROADMAP.md: the window sweep (``sweep_mode="window"``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch.nn as nn
 from torch import Tensor
 
 from ..ops import plane_sweep_correlation, resize_bilinear
+from ..parallel.mesh import gather_split, resolve_axis, split_input
 from .backbone import CNNEncoder
 from .dpt import DPTUpsamplerHead
 from .layers import Conv, ViewGroupNorm
@@ -83,8 +87,11 @@ class MultiViewUniMatch(nn.Module):
         unet_channels: int = 128,
         unet_attn_resolutions: tuple[int, ...] = (),
         sweep_gather_dtype: str = "float32",
+        spmd_depth_axis: str | None = None,
+        spmd_view_axis: str | None = None,
     ):
         super().__init__()
+        self.spmd_depth_axis = spmd_depth_axis
         if sweep_gather_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"sweep_gather_dtype={sweep_gather_dtype!r}: 'float32' or 'bfloat16'")
         self.gather_dtype = torch.bfloat16 if sweep_gather_dtype == "bfloat16" else None
@@ -99,7 +106,7 @@ class MultiViewUniMatch(nn.Module):
         fc, embed = feature_channels, vit_cfg.embed_dim
 
         self.backbone = CNNEncoder(output_dim=fc, lowest_scale=lowest_feature_resolution)
-        self.transformer = MultiViewFeatureTransformer(num_transformer_layers, fc)
+        self.transformer = MultiViewFeatureTransformer(num_transformer_layers, fc, view_shard_axis=spmd_view_axis)
         self.pretrained = DinoViT(vit_cfg)
         scales = tuple(2.0**i for i in range(num_scales))
         if num_scales > 1:
@@ -220,13 +227,24 @@ class MultiViewUniMatch(nn.Module):
                 cand = lo + lin * (hi - lo)
 
             # plane-sweep cost volume; the reference view's intrinsics serve
-            # both sides (mv_unimatch.py:477-490)
-            src_feats = gather_source_views(feats.reshape(b, v, c, hs, ws), src_idx)
+            # both sides (mv_unimatch.py:477-490). On a depth axis each rank
+            # sweeps its contiguous D/P candidates.
+            sweep_feats, sweep_cand, axis = feats, cand, None
+            if self.spmd_depth_axis is not None:
+                axis = resolve_axis(self.spmd_depth_axis)
+                if num_d % axis.size:
+                    raise ValueError(f"{num_d} depth candidates do not split over {axis.size} ranks")
+                dl = num_d // axis.size
+                sweep_feats = split_input(feats, axis)
+                sweep_cand = cand[:, axis.index * dl : (axis.index + 1) * dl]
+            src_feats = gather_source_views(sweep_feats.reshape(b, v, c, hs, ws), src_idx)
             corr = plane_sweep_correlation(
-                src_feats.reshape(bv * m, c, hs, ws), per_pair(feats),
+                src_feats.reshape(bv * m, c, hs, ws), per_pair(sweep_feats),
                 per_pair(intr_s.reshape(bv, 3, 3)), rel_pose.reshape(bv * m, 4, 4),
-                1.0 / per_pair(cand), gather_dtype=self.gather_dtype,
+                1.0 / per_pair(sweep_cand), gather_dtype=self.gather_dtype,
             )
+            if axis is not None:
+                corr = gather_split(corr, axis, dim=1)
             cost = (corr.reshape(bv, m, num_d, hs, ws) / c**0.5).mean(dim=1)
 
             concat = torch.cat([cost, features_cnn[i], feats, mono_scales[i]], dim=1)

@@ -9,6 +9,7 @@ from .pallas_raster import (
     scatter_reduce,
     scatter_reduce_plain,
 )
+from .sharded import render_pallas_depth_sharded
 
 __all__ = [
     "DepthRenderingMode",
@@ -22,6 +23,7 @@ __all__ = [
     "render_depth",
     "render_orthographic",
     "render_pallas",
+    "render_pallas_depth_sharded",
     "scatter_reduce",
     "scatter_reduce_plain",
 ]

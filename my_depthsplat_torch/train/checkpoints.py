@@ -11,6 +11,9 @@ tree by path:
 - pretrained_monodepth: only the encoder's depth_predictor
 - pretrained_model: everything, or everything but depth_predictor
 - pretrained_depth: only the depth_predictor
+
+Under torchrun rank 0 alone saves and prunes while the others wait at a
+barrier; every rank then restores from the same file.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Callable, Mapping
 import torch
 
 from ..convert.depthsplat_ckpt import convert_encoder_checkpoint
+from ..parallel.distributed import barrier, world_rank
 
 Params = Mapping[str, torch.Tensor]
 
@@ -40,22 +44,25 @@ def _step_files(path: Path) -> list[tuple[int, Path]]:
 def save_checkpoint(path: Path, step: int, state: Any, keep: int | None = None) -> Path:
     """Save ``state`` (a train.step.TrainState) at ``path/step_{step}.pt``;
     ``keep`` (the reference's ``save_top_k`` on its monotonic global-step
-    monitor, main.py:115-123) prunes all but the newest ``keep`` files."""
+    monitor, main.py:115-123) prunes all but the newest ``keep`` files.
+    In a process group rank 0 writes and every rank returns after it."""
     path = Path(path).absolute()
-    path.mkdir(exist_ok=True, parents=True)
     out = path / f"step_{step}.pt"
-    tmp = out.with_suffix(".tmp")
-    torch.save(
-        {
-            "step": int(state.step),
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-        },
-        tmp,
-    )
-    tmp.replace(out)
-    if keep is not None and keep > 0:
-        prune_checkpoints(path, keep)
+    if world_rank()[0] == 0:
+        path.mkdir(exist_ok=True, parents=True)
+        tmp = out.with_suffix(".tmp")
+        torch.save(
+            {
+                "step": int(state.step),
+                "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+            },
+            tmp,
+        )
+        tmp.replace(out)
+        if keep is not None and keep > 0:
+            prune_checkpoints(path, keep)
+    barrier()
     return out
 
 

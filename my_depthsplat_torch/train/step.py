@@ -18,6 +18,15 @@ stay float32, and the gaussians reach the render in float32. Under
 ``encoder.train_depth_only`` the encoder returns its depth predictions
 alone and the loss is ``_depth_only_loss`` against the LiDAR/GT depth of
 the context views.
+
+On a mesh (parallel/mesh.py; ``main.train`` under torchrun) each rank
+takes its rows of the batch (``shard_batch``, in main.train), and with a
+model axis of more than one rank the flattened target views are split over
+it (``decode_splatting``'s ``render_axis``). After the last microbatch the
+gradients are averaged over the world in one all-reduce of their flattened
+values, the logs with them: the data axis's mean, in which the model
+axis's copies, equal by the mesh's gradient rule, keep every replica's
+parameters equal.
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ from torch import Tensor
 
 from ..models import DecoderSplattingCfg, EncoderDepthSplat, EncoderDepthSplatCfg, decode_splatting
 from ..models.precision import apply_with_precision
+from ..parallel import distributed
+from ..parallel.mesh import Mesh
 from ..utils.device import resolve_device
 from ..utils.shapes import check_views
 from .losses import LossCfg, compute_losses
@@ -101,6 +112,7 @@ def make_train_step(
     cfg: TrainCfg,
     lpips: nn.Module | None = None,
     device: torch.device | str | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[Callable, Callable]:
     """Returns (init_fn, train_step).
 
@@ -109,8 +121,13 @@ def make_train_step(
     updates the state in place; ``batch`` carries {"context": {...},
     "target": {image, extrinsics, intrinsics, near, far}} on the state's
     device. ``train_step.loss_fn(state, batch) -> (total, logs)`` is the
-    differentiable forward alone."""
+    differentiable forward alone. ``mesh``: the step's mesh (None or 1 x 1:
+    the single-process step)."""
     dev = resolve_device(device)
+    multi = mesh is not None and mesh.world > 1
+    render_axis = None
+    if mesh is not None and mesh.shape[mesh.axis_names[1]] > 1:
+        render_axis = mesh.axis_names[1]
 
     def init_fn(seed: int = 0) -> TrainState:
         model = EncoderDepthSplat(cfg.encoder, device=dev, seed=seed).train()
@@ -144,6 +161,7 @@ def make_train_step(
         dec = decode_splatting(
             cfg.decoder, gaussians, rep(target["extrinsics"]), rep(target["intrinsics"]),
             rep(target["near"]), rep(target["far"]), (h, w), depth_mode=cfg.depth_mode,
+            render_axis=render_axis,
         )
         total, logs = compute_losses(cfg.loss, dec.color, target["image"], state.step, state.lpips)
         logs = {k: v.detach() for k, v in logs.items()}
@@ -184,6 +202,10 @@ def make_train_step(
         # microbatch logs average to the full-batch value for all mean-style
         # metrics (equal microbatch sizes)
         logs = {k: torch.stack([lg[k] for lg in seq]).mean(0) for k in seq[0]}
+        if multi:  # once per step, after the last microbatch, the logs with the gradients
+            values = torch.stack([logs[k].float() for k in logs])
+            distributed.all_reduce_mean([p.grad for p in state.model.parameters() if p.grad is not None] + [values])
+            logs = dict(zip(logs, values.unbind()))
         logs["grad_norm"] = apply_gradients(cfg.optimizer, state.optimizer, state.step)
         logs.update(schedule_values(cfg.optimizer, state.step))
         state.step += 1

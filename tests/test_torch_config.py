@@ -16,7 +16,7 @@ from my_depthsplat_tpu.data.registry import build_dataset_cfg as jax_build_datas
 from my_depthsplat_torch import config as port_config
 from my_depthsplat_torch import main as port_main
 from my_depthsplat_torch.data import build_dataset_cfg
-from my_depthsplat_torch.models import EncoderDepthSplatCfg
+from my_depthsplat_torch.models import EncoderDepthSplat, EncoderDepthSplatCfg
 
 from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -100,8 +100,6 @@ def test_unknown_keys_raise(override):
         ("encoder.sweep_mode=window", "item 10"),
         ("encoder.sweep_window=8", "item 10"),
         ("encoder.sweep_window_groups_scale0=4", "item 10"),
-        ("encoder.spmd_depth_axis=model", "item 11"),
-        ("encoder.spmd_view_axis=model", "item 11"),
         ("decoder.backend=oracle", "port the semantics"),
         ("decoder.instance_budget_per_gaussian=null", "port the semantics"),
         ("decoder.big_tile_cap=128", "port the semantics"),
@@ -114,6 +112,18 @@ def test_unported_values_raise_naming_the_roadmap(override, item):
     jax_config.load_config(yaml_path, [override])
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}|{item}.*ROADMAP.md"):
         port_config.load_config(yaml_path, [override])
+
+
+@pytest.mark.parametrize("override", ["encoder.spmd_depth_axis=model", "encoder.spmd_view_axis=model"])
+def test_spmd_axes_load_and_need_a_mesh(override):
+    """Both packages load the mesh axis keys; the port's encoder raises,
+    naming torchrun, where no mesh with that axis is set (main.train sets
+    one under torchrun with trainer.mesh_model > 1)."""
+    yaml_path = REPO / "configs" / "re10k_720p_fast.yaml"
+    jax_config.load_config(yaml_path, [override])
+    cfg = port_config.load_config(yaml_path, [override])
+    with pytest.raises(RuntimeError, match="torchrun"):
+        EncoderDepthSplat(cfg.encoder, device="cpu")
 
 
 def test_defaults_and_dtypes():

@@ -687,3 +687,36 @@ def test_forward_kernel_feeds_the_backward_as_the_plain_forward_does(card, seed)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
     assert torch.equal((got != 0).any(1), (want != 0).any(1))
+
+
+def test_depth_sharded_render_on_two_ranks_matches_grouped(card, tmp_path, monkeypatch):
+    """render_pallas_depth_sharded on 2 gloo ranks sharing the card
+    (spawned by test_torch_parallel_workers), the occluded scene in 3 depth
+    groups of 112: rank 0 composites group 0 (kernel A's count and write
+    passes, one chained composite), whose end leaves no pixel live, so the
+    count pass of group 1 stops it; rank 1 composites group 2 from the
+    initial state. The ranks' images are identical and within 1e-4 of the
+    same 2-rank world on the CPU (the plain versions). Against the
+    single-process grouped render within 1e-2: where rank 0's walk stopped a
+    pixel, the fold still adds rank 1's colour weighted by the transmittance
+    left at the stop, at least 1e-4 and at most 1e-4 / (1 - 0.99) behind an
+    instance of the largest alpha, which this scene's opaque near layer
+    has. The backward raises."""
+    from test_torch_parallel_workers import run_world
+
+    args, shape = occluded_scene(0)
+    names = ("extr", "intr", "near", "far", "bg", "means", "cov", "sh", "opac")
+    np.savez(tmp_path / "sharded_in.npz", **dict(zip(names, args)), shape=np.array(shape))
+    res = run_world("sharded_render", 2, tmp_path, {"slots": 112, "device": "cuda"}, device="cuda")
+    plain = run_world("sharded_render", 2, tmp_path, {"slots": 112, "device": "cpu"})
+    monkeypatch.setattr(raster_mod, "_CHAIN_MIN_G", 1)
+    monkeypatch.setattr(raster_mod, "_CHAIN_GROUP_SLOTS", 112)
+    t = [torch.from_numpy(x).to(card) for x in args]
+    with torch.no_grad():
+        want = raster_mod.render_pallas(*t[:4], shape, t[4], *t[5:]).cpu().numpy()
+    assert [r["launches"] for r in res] == [[2, 1, 1], [1, 1, 1]]
+    for r, p in zip(res, plain):
+        np.testing.assert_array_equal(r["image"], res[0]["image"])
+        np.testing.assert_allclose(r["image"], p["image"], atol=1e-4, rtol=0)
+        np.testing.assert_allclose(r["image"], want, atol=1e-2, rtol=0)
+        assert "forward-only" in r["backward"]

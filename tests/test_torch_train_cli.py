@@ -148,14 +148,15 @@ def test_cli_train_validates_evaluates_checkpoints_and_resumes(tmp_path, monkeyp
 
 
 def test_cli_train_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """More than one device names its ROADMAP item; a pretrained slot
-    naming a missing file fails on the first batch, before any step; without
-    a card the CLI's train mode raises."""
+    """More than one device in one process names torchrun and
+    --nproc_per_node; a pretrained slot naming a missing file fails on the
+    first batch, before any step; without a card the CLI's train mode
+    raises."""
     from test_torch_unimatch_encoder import register_vitt  # it imports this file's fixture
 
     register_vitt(monkeypatch)
     overrides = _overrides(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
         port_main.train(load_config(YAML, overrides + ["trainer.mesh_model=2"]), device="cpu")
     with pytest.raises(FileNotFoundError):
         port_main.train(load_config(YAML, overrides + [f"checkpointing.pretrained_model={tmp_path / 'x.pth'}"]),
