@@ -294,13 +294,44 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    the backend printed (gloo: the ranks share the card). Prints each
    rank's step ms and the gradient all-reduce's ms.
 
+31. the native data path (my_depthsplat_torch/native): g++, jpeglib.h and
+   libjpeg probed, dataload.cpp built into build/ (a failed build fatal
+   where all three are found; else ``native: unavailable (...)`` and the
+   Pillow path alone), seeded JPEG decodes and Lanczos resizes bit for bit
+   against Pillow, then the ARKitScenes, re10k and dl3dv readers timed by
+   part on the host clock (phase 22's tree, phase 26's chunk, phase 24's
+   chunks, written again), native against MY_DEPTHSPLAT_NATIVE=0, their
+   examples bit-identical between the two;
+32. the window plane sweep: plane_sweep_correlation_window against the
+   gather sweep on the card at re10k_720p_fast's refinement scale (24
+   pairs, 64 x 128 x 240, 32 candidates; float32 within 1e-5 of the
+   largest entry, bf16 gathers 1e-2, overflow 0); configs/re10k_720p_fast.yaml
+   (bf16) served through main on phase 27's scenes in gather mode, with
+   encoder.sweep_mode=window test.allow_window_overflow=true, and with
+   sweep_window_groups_scale0=8 too: encoder ms, the overflow, A and row
+   3 per view against the walk; re10k_small trained 2 steps through the
+   CLI in window mode (scale 0 in 8 groups): finite logs, the overflow
+   logged;
+33. configs/dl3dv_base.yaml through the CLI on phase 24's chunks with
+   costvolume_unet_channel_mult=[1, 2, 2], multiview_trans_attn_split=4,
+   local_mv_match=3, regressor_feature_channels=null and
+   supervise_intermediate_depth=false: 2 steps and a test run, A-D once a
+   step;
+34. the oracle (render/oracle.py): render(backend="oracle") against the
+   kernels on a sparse seeded scene (images 2e-5, gradients 1e-4 of the
+   largest entry), on phase 4's served scene (the dense envelope), through
+   the CLI (decoder.backend=oracle on one arkit test scene, its PNGs at
+   most 2 levels from backend=auto's) and render_projections on phase
+   28's flat scene; the oracle's ms beside the kernels'.
+
 Phases 18-28 run first, in that order (28's training-batch part inside
-25), after the build; then 4-17, with 29 after 11-13 and 30 last. Each
+25), after the build; then 4-8, 31-34, 9-17, with 29 after 11-13 and
+30 last. Each
 phase prints its step ms, peak GiB and wall s where it trains or serves.
 The figures of phases 29-30 are of 2 ranks sharing 1 card: not a
 multi-card speed. The line before the card line is a JSON object
 {"kernels": [...]} (with each kernel's launches on the paths of phases
-19-30, per rank for 29-30); the card line is nvidia-smi's name and power
+19-34, per rank for 29-30); the card line is nvidia-smi's name and power
 limit; the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --cli-rank OUT <CLI arguments>
@@ -3798,6 +3829,678 @@ def train_cli_torchrun(torch, card):
     return {**figures, "launches": launches}
 
 
+NATIVE_EXAMPLES = 8  # phase 31: examples a reader yields per path (dl3dv: its 4 train scenes)
+WINDOW_SCALE0_GROUPS = 8  # phase 32: scale 0's 128 candidates in 8 bands of 16
+ORACLE_SCENE_G = 20_000  # phase 34: the sparse scene's gaussians per view
+ORACLE_TARGETS = 2  # phase 34: the sparse scene's views
+# phase 32: re10k_720p_fast's refinement scale, 12 views x 2 sources: pairs,
+# channels, height, width, candidates
+WINDOW_CHECK = (24, 64, 128, 240, 32)
+
+
+def same_arrays(a, b) -> bool:
+    """Nested dicts and lists of numpy arrays (and plain values) equal, bit
+    for bit."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_arrays(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_arrays(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    return a == b
+
+
+@contextlib.contextmanager
+def native_path(on: bool):
+    """The readers with the native library (``on``) or on Pillow alone
+    (MY_DEPTHSPLAT_NATIVE=0); the library's load state restored after."""
+    import os
+
+    from my_depthsplat_torch import native
+
+    saved = (native._LIB, native._TRIED, native._STATUS)
+    with mock.patch.dict(os.environ, {"MY_DEPTHSPLAT_NATIVE": "1" if on else "0"}):
+        native._LIB, native._TRIED = (saved[0], saved[1]) if on else (None, False)
+        try:
+            yield
+        finally:
+            native._LIB, native._TRIED, native._STATUS = saved
+
+
+def examples_by_part(module, parts, make_examples, n):
+    """``n`` examples of ``make_examples()`` and the host ms they took, in
+    all and in each part: ``parts`` maps a label to the names in ``module``
+    whose calls it times (a name may map to a replacement maker instead, a
+    function of the timer that returns the module attribute to install)."""
+    import itertools
+
+    spent = {label: 0.0 for label in parts}
+
+    def timer(label, fn):
+        def timed(*a, **k):
+            t_a = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[label] += time.perf_counter() - t_a
+        return timed
+
+    with contextlib.ExitStack() as stack:
+        for label, names in parts.items():
+            for name in names:
+                if callable(name):  # a replacement maker
+                    attr, value = name(lambda fn, _label=label: timer(_label, fn))
+                    stack.enter_context(mock.patch.object(module, attr, value))
+                else:
+                    stack.enter_context(mock.patch.object(module, name, timer(label, getattr(module, name))))
+        t_a = time.perf_counter()
+        examples = list(itertools.islice(make_examples(), n))
+        total = time.perf_counter() - t_a
+    return examples, total * 1e3, {k: v * 1e3 for k, v in spent.items()}
+
+
+def write_option_trees(torch, root):
+    """The synthetic trees of phases 22, 24 and 26 again, from the same
+    writers and seeds, for phases 31-34: the ARKitScenes tree, the DL3DV raw
+    tree converted to chunks, re10k_large's train chunk, and LPIPS(seed=1)'s
+    weights."""
+    from my_depthsplat_torch.train import LPIPS
+
+    t_a = time.perf_counter()
+    write_arkit_tree(root / "arkit", 1100)
+    write_dl3dv_raw(torch, root / "dl3dv_raw", 2400)
+    for split in ("train", "test"):
+        subprocess.run(
+            [sys.executable, "-m", "my_depthsplat_torch.data.convert_dl3dv", "--input", str(root / "dl3dv_raw" / split),
+             "--output", str(root / "dl3dv" / split)],
+            check=True, cwd=REPO, timeout=300,
+        )
+    write_re10k_chunk(torch, root / "re10k_large" / "train" / "000000.torch", LARGE_TRAIN_SCENES, LARGE_FRAMES,
+                      SMALL_RAW_SHAPE, 2600)
+    torch.save(LPIPS(seed=1).state_dict(), root / "lpips.pt")
+    print(f"phases 31-34: the trees of phases 22, 24 and 26 written in {time.perf_counter() - t_a:.1f} s")
+
+
+def native_phase(torch, root, card):
+    """Phase 31: the native data path (my_depthsplat_torch/native). Builds
+    dataload.cpp into build/ with g++ after probing for g++, jpeglib.h and
+    libjpeg (a failed build is fatal where all three are found; where one
+    is missing the phase prints ``native: unavailable (...)`` and times the
+    Pillow path alone); decodes seeded JPEGs at 720x1280 and 270x480 and
+    resizes seeded images at four sizes, bit for bit against Pillow; then
+    times three readers by part on the host clock, native against
+    MY_DEPTHSPLAT_NATIVE=0, NATIVE_EXAMPLES training examples each (dl3dv:
+    one per train scene) from one seed, each path's examples bit-identical
+    to the other's: the ARKitScenes
+    reader's ``_load_scene`` on phase 22's tree (the PNG decodes, the pose
+    trajectory read and interpolation, the augment and crop shims, and the
+    rest: listing, .pincam reads, the sampler), re10k_large's re10k reader
+    on phase 26's chunk and dl3dv_base's reader on phase 24's chunks (the
+    chunk loads, the JPEG decodes, the shims, the rest). Returns the
+    figures."""
+    import io
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from my_depthsplat_torch import main as cli
+    from my_depthsplat_torch import native
+    from my_depthsplat_torch.config import load_config
+    from my_depthsplat_torch.data import arkit as arkit_mod
+    from my_depthsplat_torch.data import dl3dv as dl3dv_mod
+    from my_depthsplat_torch.data import re10k as re10k_mod
+
+    probe_dir = REPO / "build" / "native_probe"
+    probe_dir.mkdir(parents=True, exist_ok=True)
+    gxx = shutil.which("g++")
+
+    def compiles(src, *libs):
+        if gxx is None:
+            return False
+        done = subprocess.run([gxx, "-x", "c++", "-", "-o", str(probe_dir / "probe"), *libs],
+                              input=src, capture_output=True, text=True)
+        return done.returncode == 0
+
+    header = compiles("#include <cstdio>\n#include <jpeglib.h>\nint main() { return 0; }\n")
+    libjpeg = header and compiles(
+        "#include <cstdio>\n#include <jpeglib.h>\nint main() { jpeg_error_mgr e; jpeg_std_error(&e); return 0; }\n",
+        "-ljpeg",
+    )
+    shutil.rmtree(probe_dir, ignore_errors=True)
+    native._LIB, native._TRIED = None, False
+    t_a = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t_a
+    print(f"native: g++ {gxx}; jpeglib.h {'found' if header else 'not found'}; libjpeg "
+          f"{'found' if libjpeg else 'not found'}; build line: {' '.join(native.command(native.target()))}")
+    if gxx and header and libjpeg:
+        check(ok, f"native: the build failed: {native.status()}")
+    if ok:
+        print(f"native: {native.status()} in {build_s:.2f} s into {native.target().parent}")
+    else:
+        print(f"native: unavailable ({native.status()}); the Pillow path alone")
+    figures = {"available": ok, "gxx": gxx, "jpeglib_h": header, "libjpeg": libjpeg, "build_s": build_s}
+
+    if ok:  # bit for bit against Pillow
+        rng = np.random.default_rng(3100)
+        for shape in (CLI_RAW_SHAPE, DL3DV_RAW_SHAPE):
+            bufs = [bytes(jpeg_frame(torch, rng, shape).numpy()) for _ in range(6)]
+            got = native.decode_jpeg_batch(bufs, *shape)
+            want = np.stack([np.asarray(Image.open(io.BytesIO(b)).convert("RGB")) for b in bufs])
+            check(got is not None and np.array_equal(got, want), f"native: the decode at {shape} differs from Pillow's")
+        src = rng.uniform(0, 255, (4, *SMALL_RAW_SHAPE, 3)).astype(np.uint8)
+        for oh, ow in ((256, 455), (192, 341), (360, 640), (97, 131)):
+            got = native.resize_lanczos_batch(src, oh, ow)
+            want = np.stack([np.asarray(Image.fromarray(s).resize((ow, oh), Image.LANCZOS)) for s in src])
+            check(np.array_equal(got, want), f"native: the Lanczos resize to {oh}x{ow} differs from Pillow's")
+        print("native: decodes at 720x1280 and 270x480 and Lanczos resizes from 360x640 to four sizes equal "
+              "Pillow's bit for bit")
+
+    def loading_image(timer):
+        class LoadingImage:
+            """PIL.Image whose ``open`` decodes at once, so the decode is timed."""
+
+            @staticmethod
+            def open(path):
+                img = Image.open(path)
+                img.load()
+                return img
+
+        LoadingImage.open = staticmethod(timer(LoadingImage.open))
+        return "Image", LoadingImage
+
+    shims = ["apply_augmentation_shim", "apply_crop_shim"]
+    readers = {
+        "arkit_promptda (ARKitScenes _load_scene, PNG frames at 192x256)": (
+            arkit_mod, ARKIT_YAML, root / "arkit",
+            {"png decodes": [loading_image], "trajectory": ["parse_trajectory", "interpolate_poses"], "shims": shims},
+        ),
+        "re10k_large (re10k reader, JPEG frames at 360x640)": (
+            re10k_mod, LARGE_YAML, root / "re10k_large",
+            {"chunk load": ["_load_chunk"], "jpeg decodes": ["decode_jpeg_batch"], "shims": shims},
+        ),
+        "dl3dv_base (dl3dv reader, JPEG frames at 270x480)": (
+            dl3dv_mod, DL3DV_YAML, root / "dl3dv",
+            {"chunk load": ["_load_chunk"], "jpeg decodes": ["decode_jpeg_batch"], "shims": shims},
+        ),
+    }
+    paths = (("native", True), ("pillow", False)) if ok else (("pillow", False),)
+    figures["readers"] = {}
+    for label, (module, yaml, data_root, parts) in readers.items():
+        extra = ["dataset.extra_args.min_views=4", "dataset.extra_args.max_views=4"] if yaml == DL3DV_YAML else []
+        cfg = load_config(yaml, [f"dataset.roots=[{data_root}]", *extra])
+        n_examples = DL3DV_TRAIN_SCENES if yaml == DL3DV_YAML else NATIVE_EXAMPLES
+        runs = {}
+        for name, on in paths:
+            with native_path(on):
+                dataset = cli.build_dataset(cfg, "train")
+                ex, total, spent = examples_by_part(
+                    module, parts, lambda: dataset.examples(np.random.default_rng(31), 0), n_examples
+                )
+            check(len(ex) == n_examples, f"native: {label} yielded {len(ex)} examples")
+            spent["rest"] = total - sum(spent.values())
+            runs[name] = {"examples": ex, "ms_per_example": total / n_examples,
+                          "parts_ms_per_example": {k: v / n_examples for k, v in spent.items()}}
+        if ok:
+            check(same_arrays(runs["native"]["examples"], runs["pillow"]["examples"]),
+                  f"native: {label}: the native path's examples differ from Pillow's")
+        for r in runs.values():
+            del r["examples"]
+        figures["readers"][label] = runs
+        print(
+            f"native: {label}, {n_examples} training examples, host ms an example: "
+            + "; ".join(
+                f"{name} {r['ms_per_example']:.2f} ("
+                + ", ".join(f"{k} {v:.2f}" for k, v in r["parts_ms_per_example"].items()) + ")"
+                for name, r in runs.items()
+            )
+            + ("; each example bit-identical between the paths" if ok else "")
+            + f" on the card's host ({card})"
+        )
+    return figures
+
+
+def window_sweep_check(torch, dev, card):
+    """Phase 32, part 1: plane_sweep_correlation_window against the gather
+    sweep on the card at re10k_720p_fast's refinement scale (12 views x 2
+    sources = 24 pairs, 64 channels at 128x240, 32 banded candidates a
+    pixel), with a camera step small enough that every tap fits the window:
+    float32 within 1e-5 of the largest entry, bf16 gathers within 1e-2, the
+    overflow 0. Returns the times of both."""
+    import numpy as np
+
+    from my_depthsplat_torch.ops.grid_sample import plane_sweep_correlation, plane_sweep_correlation_window
+
+    n, c, h, w, d = WINDOW_CHECK
+    g = torch.Generator(device=dev).manual_seed(32)
+    src = torch.randn(n, c, h, w, device=dev, generator=g)
+    ref = torch.randn(n, c, h, w, device=dev, generator=g)
+    intr = torch.tensor([[0.5 * w, 0, 0.5 * w], [0, 0.889 * h, 0.5 * h], [0, 0, 1]], device=dev).expand(n, 3, 3).contiguous()
+    pose = torch.eye(4, device=dev).repeat(n, 1, 1)
+    pose[:, 0, 3] = torch.linspace(-0.04, 0.04, n, device=dev)
+    inv_far, inv_near = 1 / 100.0, 1 / 0.5
+    interval = (inv_near - inv_far) / 127 / 2
+    centre = inv_far + (inv_near - inv_far) * torch.rand(n, 1, h, w, device=dev, generator=g) * 0.5
+    lin = torch.linspace(0, 1, d, device=dev).reshape(1, d, 1, 1)
+    lo = torch.clamp(centre - interval * (d // 2), min=inv_far)
+    hi = torch.clamp(centre + interval * (d // 2 - 1), max=inv_near)
+    depth = 1.0 / (lo + lin * (hi - lo))
+    out = {}
+    with torch.no_grad():
+        want = plane_sweep_correlation(src, ref, intr, pose, depth)
+        for name, gd in (("float32", None), ("bfloat16", torch.bfloat16)):
+            got, ovf = plane_sweep_correlation_window(src, ref, intr, pose, depth, gather_dtype=gd)
+            err = float((got - want).abs().max() / want.abs().max())
+            tol = 1e-5 if gd is None else 1e-2
+            check(int(ovf) == 0, f"window sweep {name}: {int(ovf)} taps overflow at a geometry meant to fit")
+            check(err <= tol, f"window sweep {name}: {err:.3e} of the largest entry from the gather sweep")
+            out[name] = {"rel_err": err, "ms": cuda_ms(torch, lambda: plane_sweep_correlation_window(
+                src, ref, intr, pose, depth, gather_dtype=gd), 5)}
+            if gd is not None:
+                out[name]["gather_ms"] = cuda_ms(torch, lambda: plane_sweep_correlation(
+                    src, ref, intr, pose, depth, gather_dtype=gd), 5)
+        out["float32"]["gather_ms"] = cuda_ms(torch, lambda: plane_sweep_correlation(src, ref, intr, pose, depth), 5)
+    for name, r in out.items():
+        print(f"window sweep vs gather sweep, {name}, {n} pairs of {c}x{h}x{w} features, {d} banded candidates: "
+              f"{r['rel_err']:.3e} of the largest entry (tolerance {1e-5 if name == 'float32' else 1e-2:.0e}), "
+              f"overflow 0; window {r['ms']:.2f} ms, gather {r['gather_ms']:.2f} ms (CUDA events, mean of 5) on {card}")
+    del src, ref, want
+    return out
+
+
+def walk_counts(torch, per_view, gaussians, cameras, shape, n_groups):
+    """Each rendered view's launches (kernel A's count and write passes, the
+    chained composite) against an independent walk over every depth group
+    of the same view (phase 27's check). Returns the composited groups a
+    view."""
+    from my_depthsplat_torch.render import pallas_raster as raster_mod
+    from my_depthsplat_torch.render.instances import grouped_expand_inputs
+    from my_depthsplat_torch.render.pallas_raster import screen_rows
+
+    slots = raster_mod._CHAIN_GROUP_SLOTS
+    expected = []
+    calls = iter(cameras)
+    per_scene = len(cameras) // len(gaussians)  # decodes a scene
+    for g in gaussians:
+        for cams in [next(calls) for _ in range(per_scene)]:
+            for view in range(cams["near"].shape[1]):
+                sg = project_view(torch, g, cams, view, shape)
+                order, per_group = grouped_expand_inputs(sg, shape, slots)
+                live = live_after_groups(torch, screen_rows(sg)[order], per_group, slots, shape)
+                expected.append(groups_to_composite(live))
+                del sg, order, per_group
+    check(len(per_view) == len(expected), f"{len(per_view)} views rendered, {len(expected)} walked")
+    for i, ((n_a, n_w, n_c), want) in enumerate(zip(per_view, expected)):
+        check(n_w == n_c == want and n_a == want + (want < n_groups),
+              f"view {i}: kernel A {n_a} count and {n_w} write passes, chained composite {n_c} launches; "
+              f"expected {want + (want < n_groups)}, {want} and {want}")
+    return expected
+
+
+def window_serve_phase(torch, root, card, reset_counters, read_counters, uncounted):
+    """Phase 32, part 2: configs/re10k_720p_fast.yaml as the YAML stands
+    (bf16) served through ``main.main`` in test mode on phase 27's scenes
+    and index (VIDEO_SCENES scenes, 6 context views and 2 targets at
+    512x960), in gather mode, with encoder.sweep_mode=window and
+    test.allow_window_overflow=true (the refinement scale through the
+    window), and with sweep_window_groups_scale0=WINDOW_SCALE0_GROUPS too
+    (scale 0 as well). Per run: the encoder's ms (host clock around the
+    synchronised call, the last scene), its overflow, and per rendered view
+    kernel A's and the chained composite's launches against an independent
+    walk over every depth group; finite depths and images."""
+    import numpy as np
+
+    from my_depthsplat_torch import main as cli
+    from my_depthsplat_torch.eval import runner as runner_mod
+    from my_depthsplat_torch.render import pallas_raster as raster_mod
+    from my_depthsplat_torch.render.expand import expand_tiles
+    from my_depthsplat_torch.render.pallas_raster import composite_chained
+
+    data = write_re10k_test_chunk(torch, root / "window_serve", VIDEO_SCENES, VIDEO_CONTEXT, seed=2700)
+    shape = RE10K_SHAPE
+    n_groups = -(-VIDEO_CONTEXT * shape[0] * shape[1] // raster_mod._CHAIN_GROUP_SLOTS)
+    runs = {}
+    for name, extra in (
+        ("gather", []),
+        ("window", ["encoder.sweep_mode=window", "test.allow_window_overflow=true"]),
+        ("window_scale0", ["encoder.sweep_mode=window", "test.allow_window_overflow=true",
+                           f"encoder.sweep_window_groups_scale0={WINDOW_SCALE0_GROUPS}"]),
+    ):
+        gaussians, cameras, per_view, enc_ms, overflow = [], [], [], [], []
+        real_apply, real_decode, real_render = cli.apply_with_precision, runner_mod.decode_splatting, raster_mod._render_grouped
+
+        def recording_apply(model, compute_dtype, context, **kwargs):
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            out = real_apply(model, compute_dtype, context, **kwargs)
+            torch.cuda.synchronize()
+            enc_ms.append((time.perf_counter() - t_a) * 1e3)
+            check(bool(torch.isfinite(out["depths"]).all()), f"window serving {name}: non-finite depths")
+            gaussians.append(out["gaussians"])
+            if "sweep_window_overflow" in out:
+                overflow.append(int(out["sweep_window_overflow"]))
+            return out
+
+        def recording_decode(*args, **kwargs):
+            cameras.append({k: x.clone() for k, x in zip(("extrinsics", "intrinsics", "near", "far"), args[2:6])})
+            dec = real_decode(*args, **kwargs)
+            check(bool(torch.isfinite(dec.color).all()), f"window serving {name}: non-finite image")
+            return dec
+
+        def count_view(*args):
+            def now():
+                return expand_tiles.launches, expand_tiles.write_launches, composite_chained.launches
+
+            before = now()
+            image = real_render(*args)
+            per_view.append(tuple(a - b for a, b in zip(now(), before)))
+            return image
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(cli, "apply_with_precision", recording_apply), \
+                mock.patch.object(runner_mod, "decode_splatting", recording_decode), \
+                mock.patch.object(raster_mod, "_render_grouped", count_view):
+            reset_counters()
+            t_a = time.perf_counter()
+            result = cli.main(["--config", str(RE10K_YAML), *data, f"output_dir={root / 'window_serve' / name}", *extra])
+            wall = time.perf_counter() - t_a
+            launches = read_counters()
+        check(np.isfinite(list(result["scores"].values())).all(), f"window serving {name}: scores {result['scores']}")
+        check((len(overflow) == VIDEO_SCENES) == (name != "gather"), f"window serving {name}: overflow {overflow}")
+        with torch.no_grad(), uncounted():
+            groups = walk_counts(torch, per_view, gaussians, cameras, shape, n_groups)
+        want = {"expand": sum(n + (n < n_groups) for n in groups), "expand_write": sum(groups),
+                "composite_fwd_chained": sum(groups), "composite_fwd": 0, "composite_bwd": 0,
+                "scatter_reduce": 0, "composite_bwd_chained": 0}
+        check(launches == want, f"window serving {name}: launches {launches}, expected {want}")
+        runs[name] = {"encoder_ms": enc_ms, "overflow": overflow, "launches": launches, "groups_per_view": groups,
+                      "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "scores": result["scores"]}
+        print(
+            f"CLI re10k_720p_fast bf16 serving, sweep {name} ({' '.join(extra) or 'as the YAML stands'}): encoder "
+            f"{[round(x, 1) for x in enc_ms]} ms per scene (host clock around the synchronised call; the first "
+            f"scene includes cuDNN's autotune), overflow {overflow or 'none (gather)'}; groups composited per view "
+            f"{groups} of {n_groups}, launches {launches} = the walk's; peak {runs[name]['peak_gib']:.2f} GiB, "
+            f"{wall:.1f} s wall on {card}"
+        )
+        del gaussians, cameras
+    return runs
+
+
+def window_train_phase(torch, root, card, reset_counters, read_counters):
+    """Phase 32, part 3: configs/re10k_small.yaml (one scale) trained for 2
+    steps through the CLI with encoder.sweep_mode=window and
+    sweep_window_groups_scale0=WINDOW_SCALE0_GROUPS (at one scale the window
+    runs only on scale 0's groups), on phase 19's kind of chunks: finite
+    logs, grad_norm > 0, sweep/window_overflow logged every step, kernels
+    A-D once a microbatch."""
+    import numpy as np
+
+    from my_depthsplat_torch import main as cli
+
+    for split, n, frames, seed in (("train", SMALL_TRAIN_SCENES, SMALL_TRAIN_FRAMES, 900),
+                                   ("test", SMALL_TEST_SCENES, SMALL_TEST_FRAMES, 901)):
+        write_re10k_chunk(torch, root / "re10k_small" / split / "000000.torch", n, frames, SMALL_RAW_SHAPE, seed)
+    out = root / "window_train"
+    steps = 2
+    state, r = run_cli_train(
+        torch, cli, SMALL_YAML,
+        [f"dataset.roots=[{root / 're10k_small'}]", f"loss.lpips_weights={root / 'lpips.pt'}", f"output_dir={out}",
+         f"trainer.max_steps={steps}", "trainer.val_check_interval=1000", "trainer.print_log_every_n_steps=1",
+         "checkpointing.every_n_train_steps=1000", "encoder.sweep_mode=window",
+         f"encoder.sweep_window_groups_scale0={WINDOW_SCALE0_GROUPS}"],
+        reset_counters, read_counters,
+    )
+    del state, r["batches"]
+    logs = check_train_logs("CLI re10k_small window", read_metrics(out / "metrics.jsonl"), steps)
+    check(all("sweep/window_overflow" in x and np.isfinite(x["sweep/window_overflow"]) for x in logs),
+          "CLI re10k_small window: sweep/window_overflow not logged every step")
+    renders = SMALL_ACCUM * steps  # one render a microbatch
+    want = {"expand": renders, "expand_write": renders, "composite_fwd": renders, "composite_bwd": renders,
+            "scatter_reduce": renders, "composite_fwd_chained": 0, "composite_bwd_chained": 0}
+    check(r["launches"] == want, f"CLI re10k_small window: launches {r['launches']}, expected {want}")
+    r["overflow"] = [x["sweep/window_overflow"] for x in logs]
+    r["grad_norm"] = [x["grad_norm"] for x in logs]
+    print_cli_train("re10k_small, sweep_mode=window", r, card)
+    print(f"CLI re10k_small window: sweep/window_overflow {r['overflow']} per step, grad_norm {r['grad_norm']}")
+    return r
+
+
+OPTION_OVERRIDES = [
+    "encoder.costvolume_unet_channel_mult=[1, 2, 2]", "encoder.multiview_trans_attn_split=4",
+    "encoder.local_mv_match=3", "encoder.regressor_feature_channels=null",
+    "encoder.supervise_intermediate_depth=false",
+]
+
+
+def options_phase(torch, root, card, reset_counters, read_counters):
+    """Phase 33: configs/dl3dv_base.yaml through the CLI on phase 24's
+    chunks with the options no configuration reaches (OPTION_OVERRIDES; no
+    combination of them raises in the JAX package's tests, so every key is
+    kept): 2 steps, then a test run from the checkpoint. Checks: the UNet's
+    levels are 128, 256, 256 wide (then 64, 128, 128, 64), no feature_proj,
+    the transformer splits its 32x56 features in 4x4 windows, no
+    intermediate loss (one prediction); kernels A-D once a step (A and B
+    once for the test scene); finite logs and scores."""
+    import numpy as np
+
+    from my_depthsplat_torch import main as cli
+
+    common = [f"dataset.roots=[{root / 'dl3dv'}]", f"loss.lpips_weights={root / 'lpips.pt'}",
+              "trainer.print_log_every_n_steps=1", "dataset.extra_args.min_views=4", "dataset.extra_args.max_views=4",
+              *OPTION_OVERRIDES]
+    steps = 2
+    runs = {}
+    state, runs["train"] = run_cli_train(
+        torch, cli, DL3DV_YAML,
+        [*common, f"output_dir={root / 'options'}", f"trainer.max_steps={steps}", "trainer.val_check_interval=1000",
+         f"checkpointing.every_n_train_steps={steps}"],
+        reset_counters, read_counters,
+    )
+    model = state.model
+    unet = model.depth_predictor.regressor[0][3]
+    widths = [b[0].out_layers[3].out_channels for b in unet.input_blocks[1:] if hasattr(b[0], "out_layers")]
+    check(widths == [128, 256, 256], f"CLI dl3dv_base options: scale 0's UNet levels {widths}")
+    check(model.feature_proj is None, "CLI dl3dv_base options: feature_proj built with regressor_feature_channels=null")
+    del state, model, runs["train"]["batches"]
+    logs = check_train_logs("CLI dl3dv_base options", read_metrics(root / "options" / "metrics.jsonl"), steps)
+    check(not any("loss/intermediate" in x for x in logs), "CLI dl3dv_base options: an intermediate loss was logged")
+    want = {"expand": steps, "expand_write": steps, "composite_fwd": steps, "composite_bwd": steps,
+            "scatter_reduce": steps, "composite_fwd_chained": 0, "composite_bwd_chained": 0}
+    check(runs["train"]["launches"] == want, f"CLI dl3dv_base options: launches {runs['train']['launches']}")
+    print_cli_train("dl3dv_base with " + " ".join(OPTION_OVERRIDES), runs["train"], card)
+    result, runs["test"] = run_cli_test(
+        torch, cli, DL3DV_YAML,
+        [*common, f"output_dir={root / 'options_test'}",
+         f"checkpointing.load={root / 'options' / 'checkpoints' / f'step_{steps}.pt'}"],
+        reset_counters, read_counters,
+    )
+    check(np.isfinite(list(result["scores"].values())).all(), f"CLI dl3dv_base options test: scores {result['scores']}")
+    want = {k: (DL3DV_TEST_SCENES if k in ("expand", "expand_write", "composite_fwd") else 0) for k in want}
+    check(runs["test"]["launches"] == want, f"CLI dl3dv_base options test: launches {runs['test']['launches']}")
+    runs["test"].update(scores=result["scores"], **serving_figures(root / "options_test" / "test"))
+    r = runs["test"]
+    print(f"CLI dl3dv_base options served from step_{steps}.pt: encoder {r['encoder']:.1f} ms a scene, decode "
+          f"{r['decoder']:.3f} ms a target view, scores {result['scores']}, launches {r['launches']} on {card}")
+    runs["train"]["per_step"] = {k: v / steps for k, v in runs["train"]["launches"].items()}
+    return runs
+
+
+def oracle_phase(torch, dev, card, served, root, large_scene, reset_counters, read_counters):
+    """Phase 34: the oracle (render/oracle.py) on the card. 1. A sparse
+    seeded scene (ORACLE_TARGETS views of ORACLE_SCENE_G gaussians at
+    192x192): ``render(backend="oracle")`` against the kernel route within
+    2e-5 (tests/test_pallas_raster.py's bound for Pallas against the
+    oracle), and the gradients of sum(image * weights) with respect to the
+    means, covariances, SH and opacities within 1e-4 of each one's largest
+    entry. 2. Phase 4's first served arkit scene (73,728 gaussians, 4
+    targets): the decode through both within phase 6's dense envelope (6e-3
+    max, 1e-5 mean). 3. decoder.backend=oracle through the CLI on one arkit
+    test scene (phase 22's tree, one Validation scene, 37 targets, random
+    weights from the YAML's seed) against backend=auto's PNGs: at most 2
+    levels of 255 apart. 4. render_projections(backend="oracle") on phase
+    28's flat scene (131,072 gaussians, 3 axes at 256x256) against "auto"
+    within the dense envelope. 5. The oracle's ms beside the kernels'. The
+    kernel launches of the "auto" sides are counted apart as this phase's
+    (the oracle launches none)."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from my_depthsplat_torch import main as cli
+    from my_depthsplat_torch.models import DecoderSplattingCfg, decode_splatting
+    from my_depthsplat_torch.render import render
+    from my_depthsplat_torch.utils.validation_viz import render_projections
+
+    figures = {}
+    launches = {}
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    reset_counters()
+    # 1. sparse scene: images and gradients
+    views = look_at_views(torch, np.random.default_rng(34), ORACLE_TARGETS, 1, dev)
+    cams = [views[k][:, 0] for k in ("extrinsics", "intrinsics", "near", "far")]
+    scene = random_gaussians(torch, 34, ORACLE_TARGETS, ORACLE_SCENE_G, dev, False)
+    bg = torch.tensor([[0.1, 0.2, 0.3]], device=dev).expand(ORACLE_TARGETS, 3).contiguous()
+    wts = torch.randn(ORACLE_TARGETS, *SHAPE, 3, generator=torch.Generator().manual_seed(35)).to(dev)
+    out = {}
+    for backend in ("oracle", "auto"):
+        leaves = [x.clone().requires_grad_(True) for x in scene]
+        img = render(*cams, SHAPE, bg, *leaves, backend=backend)
+        (img * wts).sum().backward()
+        out[backend] = (img.detach(), [x.grad for x in leaves])
+    d_img = float((out["oracle"][0] - out["auto"][0]).abs().max())
+    grads = {n: float((a - b).abs().max() / b.abs().max())
+             for n, a, b in zip(("means", "covariances", "sh", "opacities"), out["auto"][1], out["oracle"][1])}
+    print(f"oracle vs kernels, sparse scene ({ORACLE_TARGETS} views of {ORACLE_SCENE_G} gaussians at {SHAPE[0]}x{SHAPE[1]}): "
+          f"image max {d_img:.3e} (tolerance 2e-05); gradients {({k: f'{v:.3e}' for k, v in grads.items()})} of "
+          f"the largest entry (tolerance 1e-04)")
+    check(d_img <= 2e-5, "oracle: the sparse scene's image disagrees with the kernels'")
+    check(all(v <= 1e-4 for v in grads.values()), "oracle: the sparse scene's gradients disagree with the kernels'")
+    with torch.no_grad():
+        fwd_o = cuda_ms(torch, lambda: render(*cams, SHAPE, bg, *scene, backend="oracle"), 3)
+        fwd_k = cuda_ms(torch, lambda: render(*cams, SHAPE, bg, *scene), 3)
+    figures["sparse"] = {"image_max": d_img, "grad_rel": grads, "oracle_ms": fwd_o, "kernels_ms": fwd_k}
+    del out, scene
+
+    # 2. phase 4's served scene
+    (out0, _, _, _), (_, tgt) = served  # phase 4's first scene: (served, (context, targets))
+    with torch.no_grad():
+        decs = {b: decode_splatting(DecoderSplattingCfg(backend=b), out0["gaussians"], tgt["extrinsics"],
+                                    tgt["intrinsics"], tgt["near"], tgt["far"], SHAPE).color for b in ("oracle", "auto")}
+        diff = (decs["oracle"] - decs["auto"]).abs()
+        dec_o = cuda_ms(torch, lambda: decode_splatting(
+            DecoderSplattingCfg(backend="oracle"), out0["gaussians"], tgt["extrinsics"], tgt["intrinsics"],
+            tgt["near"], tgt["far"], SHAPE), 1)
+        dec_k = cuda_ms(torch, lambda: decode_splatting(
+            DecoderSplattingCfg(), out0["gaussians"], tgt["extrinsics"], tgt["intrinsics"], tgt["near"], tgt["far"],
+            SHAPE), 3)
+    n_g = out0["gaussians"].means.shape[1]
+    print(f"oracle vs kernels, phase 4's served scene ({n_g} gaussians, {N_TARGET} targets at {SHAPE[0]}x{SHAPE[1]}): "
+          f"max {diff.max().item():.3e} mean {diff.mean().item():.3e} (dense envelope 6e-03 / 1e-05); decode "
+          f"oracle {dec_o:.1f} ms, kernels {dec_k:.3f} ms (CUDA events) on {card}")
+    check(diff.max().item() <= 6e-3 and diff.mean().item() <= 1e-5, "oracle: the served scene's decode disagrees")
+    figures["served"] = {"max": diff.max().item(), "mean": diff.mean().item(), "oracle_ms": dec_o, "kernels_ms": dec_k}
+    del decs, diff
+    add_launches(read_counters())
+
+    # 3. decoder.backend=oracle through the CLI on one arkit test scene
+    val = sorted((root / "arkit" / "Validation").iterdir())
+    for extra_scene in val[1:]:
+        shutil.rmtree(extra_scene)
+    pngs, cli_runs = {}, {}
+    for backend in ("auto", "oracle"):
+        out_dir = root / f"oracle_cli_{backend}"
+        _, cli_runs[backend] = run_cli_test(
+            torch, cli, ARKIT_YAML,
+            [f"dataset.roots=[{root / 'arkit'}]", f"output_dir={out_dir}", f"decoder.backend={backend}"],
+            reset_counters, read_counters,
+        )
+        add_launches(cli_runs[backend]["launches"])
+        files = sorted((out_dir / "test").glob("*/color/*.png"))
+        pngs[backend] = np.stack([np.asarray(Image.open(p)).astype(np.int16) for p in files])
+        cli_runs[backend].update(serving_figures(out_dir / "test"))
+    check(pngs["auto"].shape == pngs["oracle"].shape and len(pngs["auto"]) > 0,
+          f"oracle CLI: {pngs['auto'].shape} and {pngs['oracle'].shape} PNGs")
+    levels = int(np.abs(pngs["auto"] - pngs["oracle"]).max())
+    differ = float((pngs["auto"] != pngs["oracle"]).mean())
+    print(f"CLI arkit_promptda decoder.backend=oracle vs auto, 1 scene, {len(pngs['auto'])} target PNGs: at most "
+          f"{levels} levels of 255 apart (limit 2), {differ * 100:.4f} % of the values differ; decode "
+          f"{cli_runs['oracle']['decoder']:.1f} ms a target view (oracle) and {cli_runs['auto']['decoder']:.3f} ms "
+          f"(kernels), benchmark.json means, on {card}")
+    check(levels <= 2, f"oracle CLI: the PNGs differ by {levels} levels")
+    check(cli_runs["oracle"]["launches"]["expand"] == 0 and cli_runs["oracle"]["launches"]["composite_fwd"] == 0,
+          f"oracle CLI: the oracle run launched kernels: {cli_runs['oracle']['launches']}")
+    figures["cli"] = {"levels": levels, "differ": differ, "oracle_decode_ms": cli_runs["oracle"]["decoder"],
+                      "kernels_decode_ms": cli_runs["auto"]["decoder"]}
+
+    # 4. render_projections on phase 28's flat scene
+    reset_counters()
+    with torch.no_grad():
+        t_a = time.perf_counter()
+        proj_o = render_projections(large_scene, resolution=ORTHO_RES, backend="oracle")
+        proj_ms = (time.perf_counter() - t_a) * 1e3
+        t_a = time.perf_counter()
+        proj_k = render_projections(large_scene, resolution=ORTHO_RES)
+        proj_k_ms = (time.perf_counter() - t_a) * 1e3
+    d = np.abs(proj_o - proj_k)
+    print(f"render_projections(backend='oracle') vs 'auto' on phase 28's flat scene ({large_scene.means.shape[1]} "
+          f"gaussians, 3 axes at {ORTHO_RES}x{ORTHO_RES}): max {d.max():.3e} mean {d.mean():.3e} (dense envelope); "
+          f"{proj_ms:.1f} ms against {proj_k_ms:.1f} ms (host clock, with the copies to the host) on {card}")
+    check(d.max() <= 6e-3 and d.mean() <= 1e-5, "oracle: render_projections disagrees")
+    figures["projections"] = {"max": float(d.max()), "mean": float(d.mean()), "oracle_ms": proj_ms, "kernels_ms": proj_k_ms}
+    add_launches(read_counters())
+    figures["launches"] = launches
+    return figures
+
+
+def option_phases(torch, dev, card, served, large_scene, reset_counters, read_counters, uncounted):
+    """Phases 31-34 in a row, on the trees of phases 22, 24 and 26 written
+    again under build/ and removed after. Returns each phase's figures and
+    the launch counts of their paths (for the kernels line)."""
+    import shutil
+
+    root = REPO / "build" / "option_phases"
+    shutil.rmtree(root, ignore_errors=True)
+    t_a = time.perf_counter()
+    try:
+        write_option_trees(torch, root)
+        figures = {"native": native_phase(torch, root, card)}
+        t_b = time.perf_counter()
+        figures["window_check"] = window_sweep_check(torch, dev, card)
+        figures["window_serve"] = window_serve_phase(torch, root, card, reset_counters, read_counters, uncounted)
+        figures["window_train"] = window_train_phase(torch, root, card, reset_counters, read_counters)
+        t_c = time.perf_counter()
+        figures["options"] = options_phase(torch, root, card, reset_counters, read_counters)
+        t_d = time.perf_counter()
+        figures["oracle"] = oracle_phase(torch, dev, card, served, root, large_scene, reset_counters, read_counters)
+        t_e = time.perf_counter()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    figures["wall_s"] = {"31": t_b - t_a, "32": t_c - t_b, "33": t_d - t_c, "34": t_e - t_d}
+    print(f"phases 31-34: {t_e - t_a:.1f} s wall ({({k: round(v, 1) for k, v in figures['wall_s'].items()})})")
+    launches = {
+        **{f"launches_window_serve_{k}": r["launches"] for k, r in figures["window_serve"].items()},
+        "launches_window_train_small": figures["window_train"]["launches"],
+        "launches_options_dl3dv_train": figures["options"]["train"]["launches"],
+        "launches_options_dl3dv_test": figures["options"]["test"]["launches"],
+        "launches_oracle_checks": figures["oracle"].pop("launches"),
+    }
+    for r in figures["window_train"], figures["options"]["train"], figures["options"]["test"]:
+        r.pop("launches")
+    for r in figures["window_serve"].values():
+        r.pop("launches")
+    return figures, launches
+
+
 def main() -> int:
     import torch
 
@@ -4050,7 +4753,7 @@ def main() -> int:
                 for i, sg in enumerate(sgs):
                     compare(f"{label}, axis {i}", sg, True, ortho)
         del sgs
-    del video_scene, large_scene
+    del video_scene  # large_scene stays for phase 34
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4152,6 +4855,16 @@ def main() -> int:
         d_small = (img_gpu.cpu() - img_cpu).abs().max().item()
         print(f"small render 2x40x56: CUDA kernels vs CPU plain max {d_small:.3e}")
         check(d_small <= 1e-4, "small render disagrees with the CPU plain path")
+
+    # ---- phases 31-34: the native data path, the window sweep at full
+    # width, the options no configuration reaches, the oracle on the card
+    options, option_launches = option_phases(
+        torch, dev, card, (served[0], scenes[0]), large_scene, reset_counters, read_counters, uncounted
+    )
+    new_paths.update(option_launches)
+    del large_scene
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- training path at full width (counters 0 just before, read just after)
     del encoder
@@ -4352,6 +5065,7 @@ def main() -> int:
                               ("re10k_large", large_cli), ("video_720p", video_cli))
            for k, r in runs.items()},
     }
+    kernels[0]["option_phases"] = options
     kernels[0]["multi_rank"] = {
         "note": "2 ranks share 1 card; not a multi-card speed",
         "sharded_render": {k: v for k, v in sharded.items() if k != "launches"},

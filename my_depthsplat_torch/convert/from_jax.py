@@ -150,18 +150,24 @@ def mv_transformer_state_dict(p: Mapping, module: nn.Module | None = None) -> di
 
 
 def vit_fpn_state_dict(p: Mapping, module: nn.Module | None = None) -> dict[str, np.ndarray]:
-    """models.vit_fpn.ViTFeaturePyramid flax params (scales 1 and 2) -> state dict."""
+    """models.vit_fpn.ViTFeaturePyramid flax params -> state dict. Stage i
+    is named ``s{i}_*``: two transposed convs (scale 4), one (scale 2) or
+    none (scale 0.5, a max-pool) before its conv; scale 1 has no weights."""
     sd: dict[str, np.ndarray] = {}
-    if "s1_up0" in p:
-        _put(sd, "stages.1.0", _deconv(p["s1_up0"]["ConvTranspose_0"]))
-        _put(sd, "stages.1.2", _conv(p["s1_conv"]["Conv_0"]))
+    stages = sorted({int(k[1:].split("_")[0]) for k in p})
+    for i in stages:
+        ups = [f"s{i}_up{j}" for j in range(2) if f"s{i}_up{j}" in p]
+        for j, name in enumerate(ups):
+            _put(sd, f"stages.{i}.{2 * j}", _deconv(p[name]["ConvTranspose_0"]))
+        # after each transposed conv (or the max-pool) a GELU, then the conv
+        _put(sd, f"stages.{i}.{2 * max(len(ups), 1)}", _conv(p[f"s{i}_conv"]["Conv_0"]))
     return sd
 
 
 def ldm_unet_state_dict(p: Mapping, module: nn.Module) -> dict[str, np.ndarray]:
     """models.ldm_unet.UNetModel flax params -> UNetModel state dict, found by
     walking ``module``'s blocks in the order the JAX module names them."""
-    from ..models.ldm_unet import AttentionBlock, Downsample, ResBlock, Upsample
+    from ..models.ldm_unet import AttentionBlock, ConditionCrossAttentionBlock, Downsample, ResBlock, Upsample
 
     sd: dict[str, np.ndarray] = {}
 
@@ -172,6 +178,15 @@ def ldm_unet_state_dict(p: Mapping, module: nn.Module) -> dict[str, np.ndarray]:
         _put(sd, f"{pre}.out_layers.3", _conv(q["out_conv"]["Conv_0"]))
         if "skip" in q:
             _put(sd, f"{pre}.skip_connection", _conv(q["skip"]["Conv_0"]))
+
+    def cond(pre: str, q: Mapping, layer: ConditionCrossAttentionBlock) -> None:
+        if layer.concat_condition:
+            _put(sd, f"{pre}.proj", _conv(q["proj"]["Conv_0"]))
+            return
+        for name in ("q", "kv", "proj"):
+            _put(sd, f"{pre}.{name}", _dense(q[name]))
+        if layer.norm1 is not None:
+            _put(sd, f"{pre}.norm1", _ln(q["norm1"]))
 
     def attn(pre: str, q: Mapping, heads: int) -> None:
         _put(sd, f"{pre}.norm", _ln(q["norm"]["GroupNorm_0"]))
@@ -193,6 +208,8 @@ def ldm_unet_state_dict(p: Mapping, module: nn.Module) -> dict[str, np.ndarray]:
                     res(pre, p[f"{stem}_res{blk}"])
                 elif isinstance(layer, AttentionBlock):
                     attn(pre, p[f"{stem}_attn{blk}"], layer.num_heads)
+                elif isinstance(layer, ConditionCrossAttentionBlock):
+                    cond(pre, p[f"{stem}_attn{blk}_cond"], layer)
                 elif isinstance(layer, Downsample):
                     _put(sd, f"{pre}.op", _conv(p[f"down{level}"]["Conv_0"]))
                     level += 1

@@ -130,8 +130,8 @@ class DatasetDL3DV:
                     continue
 
                 try:
-                    # Pillow raises OSError per corrupt image, which skips
-                    # the example
+                    # native threaded decode; its Pillow retry raises the
+                    # OSError of a corrupt image, which skips the example
                     ctx_images = decode_jpeg_batch(
                         [ex["images"][i] for i in ctx_idx]
                     )

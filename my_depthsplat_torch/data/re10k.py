@@ -7,8 +7,9 @@ context/target views, decodes JPEGs, and applies the augment + crop shims.
 Output is channels-last numpy.
 
 The port's own copy of my_depthsplat_tpu/data/re10k.py. JPEGs are decoded
-by Pillow (the JAX package's threaded libjpeg decoder, bit-identical to it,
-stays queued in ROADMAP.md). torch only deserializes the .torch chunks.
+by the threaded libjpeg decoder of ``native/`` and by Pillow where it is
+unavailable or fails; both give the same bytes. torch only deserializes the
+.torch chunks.
 """
 
 from __future__ import annotations
@@ -65,7 +66,21 @@ def decode_jpeg(buf: bytes) -> np.ndarray:
 
 
 def decode_jpeg_batch(buffers: list[bytes]) -> np.ndarray:
-    """Decode same-sized RGB JPEGs to (N, H, W, 3) float32 in [0, 1]."""
+    """Decode same-sized RGB JPEGs to (N, H, W, 3) float32 in [0, 1].
+
+    Takes the native threaded decoder (native/dataload.cpp, bit-identical to
+    Pillow: both are libjpeg) and decodes image by image with Pillow when it
+    is unavailable, the sizes are mixed or an image is corrupt (Pillow's
+    retry raises the image's own exception)."""
+    from .. import native
+
+    if buffers:
+        dims = native.jpeg_dims(buffers[0])
+        if dims is not None and dims[2] == 3:
+            h, w, _ = dims
+            out = native.decode_jpeg_batch(buffers, h, w)
+            if out is not None:
+                return out.astype(np.float32) / 255.0
     return np.stack([decode_jpeg(b) for b in buffers])
 
 

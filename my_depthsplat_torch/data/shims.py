@@ -1,8 +1,8 @@
 """Data shims (crop/augment/patch/bounds) in numpy, channels-last.
 
 The port's own copy of my_depthsplat_tpu/data/shims.py. The Lanczos resize
-takes Pillow's path (the JAX package's ``native/dataload.cpp`` is
-bit-identical to it and stays queued in ROADMAP.md). Reference:
+takes the threaded resampler of ``native/`` (bit-identical to Pillow's) and
+Pillow where it is unavailable. Reference:
 src/dataset/shims/*.py. Examples are nested dicts with per-view
 arrays: image (V, H, W, 3) float32 in [0,1], intrinsics (V, 3, 3) normalized,
 extrinsics (V, 4, 4), near/far (V,), optional depth (V, h, w).
@@ -21,6 +21,21 @@ def _rescale_lanczos(image: np.ndarray, shape: tuple[int, int]) -> np.ndarray:
     arr = np.clip(image * 255.0, 0, 255).astype(np.uint8)
     out = Image.fromarray(arr).resize((w, h), Image.LANCZOS)
     return np.asarray(out).astype(np.float32) / 255.0
+
+
+def _rescale_lanczos_batch(images: np.ndarray, shape: tuple[int, int]) -> np.ndarray:
+    """(V, H, W, 3) float batch resize: the native threaded resampler when it
+    is available (bit-identical to Pillow, native/dataload.cpp), else Pillow."""
+    from .. import native
+
+    h, w = shape
+    arr = np.clip(images * 255.0, 0, 255).astype(np.uint8)
+    if arr.shape[1:3] == (h, w):  # Pillow returns a copy at the same size
+        return arr.astype(np.float32) / 255.0
+    out = native.resize_lanczos_batch(arr, h, w)
+    if out is None:
+        return np.stack([_rescale_lanczos(im, shape) for im in images])
+    return out.astype(np.float32) / 255.0
 
 
 def _linear_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -65,7 +80,7 @@ def rescale_and_crop(images, intrinsics, shape, depths=None):
     scale = max(h_out / h_in, w_out / w_in)
     h_s, w_s = round(h_in * scale), round(w_in * scale)
     assert h_s == h_out or w_s == w_out  # one side fits by construction
-    images = np.stack([_rescale_lanczos(im, (h_s, w_s)) for im in images])
+    images = _rescale_lanczos_batch(images, (h_s, w_s))
     if depths is not None and tuple(depths.shape[-2:]) != (h_s, w_s):
         # bilinear align_corners=True (crop_shim.py:97-103)
         mh = _linear_matrix(depths.shape[-2], h_s)

@@ -49,7 +49,8 @@ class TestCfg:
     # model_wrapper.py:431,503-560): skip the decoder, dump depth
     # visualizations + .npy per context view, no color scores.
     forward_depth_only: bool = False
-    # The window-mode plane sweep this key guards is not ported.
+    # A window-mode plane sweep that dropped taps fails the run, unless this
+    # is set: then it warns.
     allow_window_overflow: bool = False
 
 
@@ -86,6 +87,17 @@ def run_test(
             with bench.time("encoder"):
                 out = encoder_apply(batch["context"])
             gaussians = out["gaussians"]
+
+            ovf = out.get("sweep_window_overflow")
+            if ovf is not None and int(ovf) != 0:
+                msg = (
+                    f"scene {scene}: window-mode plane sweep dropped {int(ovf)} taps "
+                    "(encoder.sweep_window too narrow for this geometry): the cost volumes "
+                    "are degraded; widen sweep_window or raise sweep_window_groups_scale0"
+                )
+                if not cfg.allow_window_overflow:
+                    raise AssertionError(msg)
+                print(f"WARNING: {msg}")
 
             if cfg.forward_depth_only or gaussians is None:
                 if write:

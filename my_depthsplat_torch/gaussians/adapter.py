@@ -49,6 +49,10 @@ def adapt_gaussians(
     eps: float = 1e-8,
 ) -> PerViewGaussians:
     n_sh = d_sh(cfg)
+    batch = tuple(raw_gaussians.shape[:-1])
+    if len(batch) != opacities.dim() or any(r not in (1, o) for r, o in zip(batch, opacities.shape)):
+        # the JAX package's adapter broadcasts each raw channel to the batch
+        raise ValueError(f"cannot broadcast raw gaussians of shape {batch} to {tuple(opacities.shape)}")
     scales = torch.clamp(
         F.softplus(raw_gaussians[..., 0:3] - 4.0),
         cfg.gaussian_scale_min,

@@ -1,8 +1,10 @@
 """Splatting decoder: render Gaussians into target views.
 
 Port of my_depthsplat_tpu/models/decoder.py. The (batch, view) axes are
-flattened and rendered by one batched ``render`` call; the tensors' device
-picks the kernels (CUDA) or their plain versions (CPU). With
+flattened and rendered by one batched ``render`` call through ``backend``:
+``"auto"``/``"pallas"`` take the tile route, where the tensors' device picks
+the kernels (CUDA) or their plain versions (CPU), and ``"oracle"`` the exact
+tile-free renderer (render/oracle.py). With
 ``render_axis`` (a mesh axis, the JAX package's ``render_sharding``) the
 flattened target views are split over that axis, each rank renders its
 share, and the images are gathered under the mesh's gradient rule.
@@ -19,8 +21,8 @@ from torch import Tensor
 from ..gaussians.types import Gaussians
 from ..parallel.mesh import gather_split, resolve_axis, split_input, split_sizes
 from ..render import DepthRenderingMode, render, render_depth
+from ..render.api import BACKENDS
 from ..utils.shapes import assert_shapes, check_gaussians
-from .encoder import check_fixed_keys
 
 
 class DecoderOutput(NamedTuple):
@@ -34,21 +36,26 @@ class DecoderOutput(NamedTuple):
 @dataclass(frozen=True)
 class DecoderSplattingCfg:
     background_color: tuple[float, float, float] = (0.0, 0.0, 0.0)
-    # The JAX package's render route and its TPU layout budgets. The port has
-    # one route (the CUDA kernels, or their plain versions on CPU tensors)
-    # and allocates dynamically, so it accepts these at their defaults only.
+    # "auto" | "pallas" (the tile route) | "oracle" (render/oracle.py). The
+    # JAX package's TPU layout budgets: the port allocates dynamically, so it
+    # accepts them at their defaults only.
     backend: str = "auto"
     instance_budget_per_gaussian: float | None = 6.0
     big_tile_cap: int | None = None
 
     def __post_init__(self) -> None:
-        check_fixed_keys(self, _TPU_ONLY)
+        if self.backend not in BACKENDS:
+            raise ValueError(f"decoder.backend must be one of {BACKENDS}, got {self.backend!r}")
+        for key, value in _TPU_ONLY.items():
+            if getattr(self, key) != value:
+                raise NotImplementedError(
+                    f"{type(self).__name__}.{key}={getattr(self, key)!r}: the port supports {value!r} only "
+                    "(a TPU-only knob; ROADMAP.md: port the semantics, not the TPU workarounds)"
+                )
 
 
-_WHY = "a TPU-only knob; ROADMAP.md: port the semantics, not the TPU workarounds"
-_TPU_ONLY = {
-    "backend": ("auto", _WHY), "instance_budget_per_gaussian": (6.0, _WHY), "big_tile_cap": (None, _WHY)
-}
+# the JAX package's TPU layout budgets, at the one value the port accepts
+_TPU_ONLY = {"instance_budget_per_gaussian": 6.0, "big_tile_cap": None}
 
 
 def decode_splatting(
@@ -103,14 +110,14 @@ def decode_splatting(
         bv(extrinsics), bv(intrinsics), bv(near), bv(far), image_shape,
         bg.expand(n, 3).contiguous(),
         rep(gaussians.means), rep(gaussians.covariances),
-        rep(gaussians.harmonics), rep(gaussians.opacities),
+        rep(gaussians.harmonics), rep(gaussians.opacities), backend=cfg.backend,
     ))
     depth = None
     if depth_mode is not None:
         depth = gathered(render_depth(
             bv(extrinsics), bv(intrinsics), bv(near), bv(far), image_shape,
             rep(gaussians.means), rep(gaussians.covariances), rep(gaussians.opacities),
-            mode=depth_mode,
+            mode=depth_mode, backend=cfg.backend,
         )).reshape(b, v, *image_shape)
     return DecoderOutput(
         color.reshape(b, v, *color.shape[1:]),

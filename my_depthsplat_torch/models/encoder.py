@@ -5,18 +5,21 @@ Port of my_depthsplat_tpu/models/encoder.py with both depth branches behind
 
 - ``"promptda"``: PromptDA depth + full-resolution ViT features;
 - ``"unimatch"``: the published multi-view branch (models/unimatch.py); its
-  1/8-resolution ViT features are projected to 64 channels by a 1x1 conv
-  when they are wider, and upsampled to full resolution. With more than 3
-  context views each view is matched against its 2 nearest cameras.
+  1/8-resolution ViT features are projected to ``regressor_feature_channels``
+  (64) by a 1x1 conv when they are wider (None keeps them as they are), and
+  upsampled to full resolution. With more than 3 context views each view is
+  matched against its ``local_mv_match`` (2) nearest cameras.
 
 Depth, image and features feed the gaussian regressor and head (reference
 encoder_depthsplat.py:200-273); the raw head output becomes gaussians
 through the adapter, along pixel rays shifted by a learned sub-pixel offset.
 In training, a UniMatch branch with more than one scale also returns its
-coarser depth predictions: the head's output is placed along each of them
-too, and the gaussians and depths come back stacked on the batch axis,
-intermediate predictions first (B' = B * num_preds), for the intermediate
-losses.
+coarser depth predictions: with ``supervise_intermediate_depth`` the head's
+output is placed along each of them too, and the gaussians and depths come
+back stacked on the batch axis, intermediate predictions first
+(B' = B * num_preds), for the intermediate losses. ``return_depth=False``
+leaves the depths out of the output; the window sweep's dropped taps come
+back as ``sweep_window_overflow``.
 Submodule names follow the reference checkpoint (``depth_predictor``,
 ``gaussian_regressor.{0,2}``, ``gaussian_head.{0,2}``). Under
 ``train_depth_only`` (depth-only pre-training) the regressor and the head
@@ -29,10 +32,10 @@ apply_with_precision`` (bf16 parameters and images, float32 cameras,
 float32 outputs), as the JAX package's drivers do. ``sweep_gather_dtype``
 rounds the plane sweep's gathered features to bf16 (``ops/grid_sample.py``).
 
-The configuration carries every key of the JAX package's, so the YAMLs in
-configs/ load; a key the port holds at one value (a constant below, or a
-feature not ported) is accepted at that value only, and any other raises
-naming the ROADMAP.md item that queues it.
+The configuration carries every key of the JAX package's, with the same
+meaning. ``num_surfaces`` > 1 fails where the JAX package fails: the head's
+width ignores it, and the adapter cannot broadcast the surfaces
+(``ValueError``).
 """
 
 from __future__ import annotations
@@ -57,37 +60,7 @@ from .unimatch import MultiViewUniMatch
 from .vit import VIT_CONFIGS
 
 
-# What every configuration of the reference leaves at its default.
-FEATURE_PROJ_CHANNELS = 64  # ViT features wider than this are 1x1-projected to it
-LOCAL_MV_MATCH = 2  # with more than 3 views, each matches its 2 nearest cameras
-ATTN_SPLITS = 2  # window splits per side in the multi-view transformer
-SUPERVISE_INTERMEDIATE_DEPTH = True  # training stacks every depth prediction's gaussians
-
-_UNREACHED = "queued in ROADMAP.md queue 1 item 10 (what no configuration reaches)"
-# JAX configuration key -> (the one value the port accepts, why)
-_FIXED_KEYS = {
-    "num_surfaces": (1, _UNREACHED),
-    "supervise_intermediate_depth": (SUPERVISE_INTERMEDIATE_DEPTH, _UNREACHED),
-    "return_depth": (True, _UNREACHED),
-    "costvolume_unet_channel_mult": ((1, 1, 1), _UNREACHED),
-    "multiview_trans_attn_split": (ATTN_SPLITS, _UNREACHED),
-    "regressor_feature_channels": (FEATURE_PROJ_CHANNELS, _UNREACHED),
-    "local_mv_match": (LOCAL_MV_MATCH, _UNREACHED),
-    "sweep_mode": ("gather", _UNREACHED),
-    "sweep_window": (6, _UNREACHED),
-    "sweep_window_groups_scale0": (0, _UNREACHED),
-}
 DTYPES = ("float32", "bfloat16")
-
-
-def check_fixed_keys(cfg: Any, fixed: dict[str, tuple[Any, str]]) -> None:
-    """Raise where ``cfg`` sets a key of ``fixed`` to another value."""
-    for key, (value, why) in fixed.items():
-        got = getattr(cfg, key)
-        if (tuple(got) if isinstance(value, tuple) else got) != value:
-            raise NotImplementedError(
-                f"{type(cfg).__name__}.{key}={got!r}: the port supports {value!r} only ({why})"
-            )
 
 
 @dataclass(frozen=True)
@@ -99,7 +72,7 @@ class EncoderDepthSplatCfg:
     num_surfaces: int = 1
     gaussian_regressor_channels: int = 64
     init_sh_input_img: bool = True
-    supervise_intermediate_depth: bool = SUPERVISE_INTERMEDIATE_DEPTH
+    supervise_intermediate_depth: bool = True
     return_depth: bool = True
     # Depth-only pre-training: no gaussians, the depth predictions alone,
     # trained by the masked depth L1 of train/step.py.
@@ -112,10 +85,13 @@ class EncoderDepthSplatCfg:
     costvolume_unet_feat_dim: int = 128
     costvolume_unet_channel_mult: tuple[int, ...] = (1, 1, 1)
     costvolume_unet_attn_res: tuple[int, ...] = ()
-    multiview_trans_attn_split: int = ATTN_SPLITS
+    multiview_trans_attn_split: int = 2
     monodepth_vit_type: str = "vits"
-    regressor_feature_channels: int | None = FEATURE_PROJ_CHANNELS
-    local_mv_match: int = LOCAL_MV_MATCH
+    # ViT features wider than this are 1x1-projected to it before the
+    # regressor (the UniMatch branch only); None keeps the raw width
+    regressor_feature_channels: int | None = 64
+    # with more than 3 context views, each matches its this many nearest
+    local_mv_match: int = 2
     # Mesh axis names (parallel/mesh.py), set by main.build_parallel when
     # trainer.mesh_model > 1: the plane sweep's candidates split over one,
     # the multi-view transformer's ring over the other. Either raises
@@ -124,8 +100,11 @@ class EncoderDepthSplatCfg:
     spmd_view_axis: str | None = None
     # plane-sweep gather precision: "float32" (reference-exact) | "bfloat16"
     sweep_gather_dtype: str = "float32"
+    # "gather" (every bilinear tap) | "window" (models/unimatch.py: banded
+    # scales through window correlations, taps beyond sweep_window counted)
     sweep_mode: str = "gather"
     sweep_window: int = 6
+    # in window mode, scale 0's candidates in this many contiguous groups (0: gather)
     sweep_window_groups_scale0: int = 0
     # Network compute precision, applied by the drivers
     # (models.precision.apply_with_precision): "float32" | "bfloat16".
@@ -135,7 +114,6 @@ class EncoderDepthSplatCfg:
     downscale_factor: int = 4
 
     def __post_init__(self) -> None:
-        check_fixed_keys(self, _FIXED_KEYS)
         for key in ("compute_dtype", "sweep_gather_dtype"):
             if getattr(self, key) not in DTYPES:
                 raise ValueError(f"{key}={getattr(self, key)!r}: one of {DTYPES}")
@@ -199,14 +177,19 @@ class EncoderDepthSplat(nn.Module):
                 num_depth_candidates=cfg.num_depth_candidates,
                 vit_type=cfg.monodepth_vit_type,
                 unet_channels=cfg.costvolume_unet_feat_dim,
+                unet_channel_mult=tuple(cfg.costvolume_unet_channel_mult),
                 unet_attn_resolutions=tuple(cfg.costvolume_unet_attn_res),
                 sweep_gather_dtype=cfg.sweep_gather_dtype,
+                sweep_mode=cfg.sweep_mode,
+                sweep_window=cfg.sweep_window,
+                sweep_window_groups_scale0=cfg.sweep_window_groups_scale0,
                 spmd_depth_axis=cfg.spmd_depth_axis,
                 spmd_view_axis=cfg.spmd_view_axis,
             )
-            if embed > FEATURE_PROJ_CHANNELS:
-                self.feature_proj = Conv(embed, FEATURE_PROJ_CHANNELS, 1, padding=0)
-                embed = FEATURE_PROJ_CHANNELS
+            proj = cfg.regressor_feature_channels
+            if proj is not None and embed > proj:
+                self.feature_proj = Conv(embed, proj, 1, padding=0)
+                embed = proj
         if not cfg.train_depth_only:
             self.gaussian_regressor = nn.Sequential(
                 Conv(3 + 1 + embed, ch, 3), nn.GELU(), Conv(ch, ch, 3)
@@ -227,9 +210,12 @@ class EncoderDepthSplat(nn.Module):
         extrinsics (B,V,4,4) c2w, near/far (B,V), depth (B,V,hp,wp) LiDAR
         prompt (the PromptDA branch only). Returns {"gaussians": Gaussians (B', V*H*W, ...),
         "per_view": PerViewGaussians, "depths": (B', V, H, W)}, B' = B * num_preds:
-        ``training`` with a multi-scale UniMatch branch stacks one set per
-        depth prediction, the final one last; else B' = B. Under
-        ``train_depth_only``: {"gaussians": None, "depths": (B', V, H, W)}."""
+        ``training`` with a multi-scale UniMatch branch and
+        ``supervise_intermediate_depth`` stacks one set per depth
+        prediction, the final one last; else B' = B. No "depths" with
+        ``return_depth=False``; "sweep_window_overflow" where the window
+        sweep ran. Under ``train_depth_only``: {"gaussians": None,
+        "depths": (B', V, H, W)}."""
         cfg = self.cfg
         check_views(context, "context")
         images = context["image"]
@@ -238,15 +224,15 @@ class EncoderDepthSplat(nn.Module):
         if cfg.depth_branch == "promptda":
             results = self.depth_predictor(images, context["depth"])
         else:
-            nn_idx = knn_view_indices(context["extrinsics"], LOCAL_MV_MATCH) if v > 3 else None
+            nn_idx = knn_view_indices(context["extrinsics"], cfg.local_mv_match) if v > 3 else None
             results = self.depth_predictor(
                 images, context["intrinsics"], context["extrinsics"],
                 1.0 / context["far"], 1.0 / context["near"],
-                attn_splits=ATTN_SPLITS, nn_idx=nn_idx, training=training,
+                attn_splits=cfg.multiview_trans_attn_split, nn_idx=nn_idx, training=training,
             )
         depth_preds = results["depth_preds"]  # [(B, V, H, W)], the final one last
         depth = depth_preds[-1]
-        num = len(depth_preds) if SUPERVISE_INTERMEDIATE_DEPTH else 1
+        num = len(depth_preds) if cfg.supervise_intermediate_depth else 1
         depths = torch.cat(depth_preds) if num > 1 else depth  # (B', V, H, W)
         if cfg.train_depth_only:
             return {"gaussians": None, "depths": depths}
@@ -271,7 +257,7 @@ class EncoderDepthSplat(nn.Module):
         raw = rep(raw)
         b_eff = b * num
         opacities = torch.sigmoid(raw[..., 0]).reshape(b_eff, v, h * w, 1, 1)
-        raw = raw[..., 1:].reshape(b_eff, v, h * w, 1, -1)  # one surface
+        raw = raw[..., 1:].reshape(b_eff, v, h * w, cfg.num_surfaces, -1)
 
         xy, _ = sample_image_grid((h, w), device=images.device)
         xy = xy.reshape(h * w, 1, 2)
@@ -289,4 +275,9 @@ class EncoderDepthSplat(nn.Module):
             raw[..., None, 2:],
             input_images=rep(images) if cfg.init_sh_input_img else None,
         )
-        return {"gaussians": gaussians.flattened(), "per_view": gaussians, "depths": depths}
+        out = {"gaussians": gaussians.flattened(), "per_view": gaussians}
+        if cfg.return_depth:
+            out["depths"] = depths
+        if "sweep_window_overflow" in results:
+            out["sweep_window_overflow"] = results["sweep_window_overflow"]
+        return out

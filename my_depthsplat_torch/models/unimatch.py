@@ -20,12 +20,17 @@ channels-last. Submodule names follow the reference state dict
 ``depth_head.{i}.{0,2}``, ``upsampler``).
 
 ``sweep_gather_dtype="bfloat16"`` gathers the plane sweep's features as
-bf16 (``ops/grid_sample.py``). On a mesh (parallel/mesh.py),
+bf16 (``ops/grid_sample.py``). ``sweep_mode="window"`` evaluates the
+refinement scales' banded candidates, and scale 0's when
+``sweep_window_groups_scale0`` divides them (in that many contiguous
+groups), through ``plane_sweep_correlation_window``: exact while the taps
+fit ``sweep_window``, the taps it drops summed into
+``results["sweep_window_overflow"]``. On a mesh (parallel/mesh.py),
 ``spmd_depth_axis`` splits each plane sweep's depth candidates over that
 axis (each rank correlates its D/P, then the cost volumes are gathered
-along D under the mesh's gradient rule) and ``spmd_view_axis`` runs the
-multi-view transformer's cross-attention as a ring over its axis. Left
-out, and queued in ROADMAP.md: the window sweep (``sweep_mode="window"``).
+along D under the mesh's gradient rule; it takes precedence over the
+window mode, as in the JAX package) and ``spmd_view_axis`` runs the
+multi-view transformer's cross-attention as a ring over its axis.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 import torch.nn as nn
 from torch import Tensor
 
-from ..ops import plane_sweep_correlation, resize_bilinear
+from ..ops import plane_sweep_correlation, plane_sweep_correlation_window, resize_bilinear
 from ..parallel.mesh import gather_split, resolve_axis, split_input
 from .backbone import CNNEncoder
 from .dpt import DPTUpsamplerHead
@@ -85,8 +90,12 @@ class MultiViewUniMatch(nn.Module):
         num_depth_candidates: int = 128,
         vit_type: str = "vits",
         unet_channels: int = 128,
+        unet_channel_mult: tuple[int, ...] = (1, 1, 1),
         unet_attn_resolutions: tuple[int, ...] = (),
         sweep_gather_dtype: str = "float32",
+        sweep_mode: str = "gather",
+        sweep_window: int = 6,
+        sweep_window_groups_scale0: int = 0,
         spmd_depth_axis: str | None = None,
         spmd_view_axis: str | None = None,
     ):
@@ -95,8 +104,9 @@ class MultiViewUniMatch(nn.Module):
         if sweep_gather_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"sweep_gather_dtype={sweep_gather_dtype!r}: 'float32' or 'bfloat16'")
         self.gather_dtype = torch.bfloat16 if sweep_gather_dtype == "bfloat16" else None
-        if num_scales not in (1, 2):
-            raise ValueError(f"num_scales={num_scales}: one or two scales are supported")
+        self.sweep_mode = sweep_mode
+        self.sweep_window = sweep_window
+        self.sweep_window_groups_scale0 = sweep_window_groups_scale0
         self.num_scales = num_scales
         self.upsample_factor = upsample_factor
         self.lowest_feature_resolution = lowest_feature_resolution
@@ -126,7 +136,7 @@ class MultiViewUniMatch(nn.Module):
             unet = UNetModel(
                 channels, channels, channels,
                 attention_resolutions=tuple(r * 2**i for r in unet_attn_resolutions),
-                channel_mult=(1, 1, 1) + (1,) * i,
+                channel_mult=tuple(unet_channel_mult) + (1,) * i,
                 num_head_channels=32,
             )
             self.regressor.append(_Regressor(concat, channels, unet))
@@ -159,8 +169,10 @@ class MultiViewUniMatch(nn.Module):
     ) -> dict[str, Any]:
         """Returns ``depth_preds`` [(B, V, H, W)] (depth: the final
         prediction, preceded with ``training`` by each coarser scale's,
-        resized to (H, W)), ``match_probs`` [(B*V, D, hs, ws)] per scale and
-        ``features_mono_intermediate`` [(B*V, C, H/8, W/8)] per ViT stage."""
+        resized to (H, W)), ``match_probs`` [(B*V, D, hs, ws)] per scale,
+        ``features_mono_intermediate`` [(B*V, C, H/8, W/8)] per ViT stage
+        and, where the window sweep ran, ``sweep_window_overflow`` (an int32
+        scalar: the taps it dropped)."""
         b, v, h, w, _ = images.shape
         bv = b * v
         flat = normalize_imagenet(images.reshape(bv, h, w, 3).permute(0, 3, 1, 2))
@@ -208,6 +220,7 @@ class MultiViewUniMatch(nn.Module):
 
         depth = None  # inverse depth (B*V, 1, hs, ws)
         match_probs, inv_preds = [], []
+        results: dict[str, Any] = {}
         for i in range(self.num_scales):
             df = self.upsample_factor * 2 ** (self.num_scales - 1 - i)
             num_d = self.num_depth_candidates // 4**i
@@ -238,11 +251,29 @@ class MultiViewUniMatch(nn.Module):
                 sweep_feats = split_input(feats, axis)
                 sweep_cand = cand[:, axis.index * dl : (axis.index + 1) * dl]
             src_feats = gather_source_views(sweep_feats.reshape(b, v, c, hs, ws), src_idx)
-            corr = plane_sweep_correlation(
+            pairs = (
                 src_feats.reshape(bv * m, c, hs, ws), per_pair(sweep_feats),
                 per_pair(intr_s.reshape(bv, 3, 3)), rel_pose.reshape(bv * m, 4, 4),
-                1.0 / per_pair(sweep_cand), gather_dtype=self.gather_dtype,
             )
+            groups = self.sweep_window_groups_scale0 if i == 0 else 1
+            if axis is None and self.sweep_mode == "window" and groups > 0 and num_d % groups == 0:
+                # scale 0's uniform candidates in contiguous groups, each a
+                # band narrow enough for the window; refinement scales are
+                # one band
+                dg = num_d // groups
+                corr = []
+                for g in range(groups):
+                    cost_g, ovf = plane_sweep_correlation_window(
+                        *pairs, 1.0 / per_pair(sweep_cand[:, g * dg : (g + 1) * dg]),
+                        window=self.sweep_window, gather_dtype=self.gather_dtype,
+                    )
+                    corr.append(cost_g)
+                    results["sweep_window_overflow"] = results.get("sweep_window_overflow", 0) + ovf
+                corr = torch.cat(corr, dim=1)
+            else:
+                corr = plane_sweep_correlation(
+                    *pairs, 1.0 / per_pair(sweep_cand), gather_dtype=self.gather_dtype
+                )
             if axis is not None:
                 corr = gather_split(corr, axis, dim=1)
             cost = (corr.reshape(bv, m, num_d, hs, ws) / c**0.5).mean(dim=1)
@@ -259,8 +290,9 @@ class MultiViewUniMatch(nn.Module):
         depth_full = resize_bilinear(depth, (h, w), align_corners=True) + residual
         depth_full = torch.maximum(torch.minimum(depth_full, inv_near), inv_far)
         inv_preds.append(depth_full)
-        return {
-            "depth_preds": [(1.0 / d[:, 0]).reshape(b, v, h, w) for d in inv_preds],
-            "match_probs": match_probs,
-            "features_mono_intermediate": mono_intermediate,
-        }
+        results.update(
+            depth_preds=[(1.0 / d[:, 0]).reshape(b, v, h, w) for d in inv_preds],
+            match_probs=match_probs,
+            features_mono_intermediate=mono_intermediate,
+        )
+        return results

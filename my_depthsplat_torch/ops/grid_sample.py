@@ -8,9 +8,15 @@ sampled bilinearly there (``align_corners=True`` pixel coordinates, taps
 outside the image weigh zero) and dotted with the reference features. The
 JAX package computes this outside any Pallas kernel, so here it is PyTorch
 ops. Its TPU shaping (16-bit column gathers, feature-major tables, the pair
-scan and the window mode) is not carried over: the source features stay
-pixel-major, so one bilinear tap is one row gather, and the (view, source)
-pairs are processed a few at a time to bound the gathered tensor. NCHW.
+scan) is not carried over: the source features stay pixel-major, so one
+bilinear tap is one row gather, and the (view, source) pairs are processed
+a few at a time to bound the gathered tensor. NCHW.
+
+``plane_sweep_correlation_window`` is the JAX package's window mode for
+banded candidates: one gather of a k x k lattice per pixel, the per-cell
+correlations, and each candidate as a separable-hat combination of them
+(exact while the taps fit the window; the taps outside are counted). It is
+plain gathers and einsums, differentiated by autograd.
 
 The correlation is one ``torch.autograd.Function`` that differentiates the
 two feature maps: its forward keeps no gathered tap (autograd through the
@@ -145,6 +151,87 @@ class _PlaneSweep(torch.autograd.Function):
             d_src[sl] = d_table.reshape(k, h * w, c).transpose(1, 2).reshape(k, c, h, w)
             d_ref[sl] = d_ref_rows.transpose(1, 2).reshape(k, c, h, w)
         return d_src, d_ref, None, None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """table[idx] for a (R, C) table and (M,) indices whose backward
+    scatter-adds the rows' cotangent in float32 and rounds it to the table's
+    dtype once, as the JAX package's column gathers (``_gather_cols``,
+    ``_gather_cols_bf16``) transpose."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        d = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
+        return d.index_add_(0, idx, g.float()).to(ctx.dtype), None
+
+
+def plane_sweep_correlation_window(
+    src: Tensor,  # (N, C, H, W) source-view features
+    ref: Tensor,  # (N, C, H, W) reference-view features
+    intrinsics: Tensor,  # (N, 3, 3) pixel intrinsics
+    pose: Tensor,  # (N, 4, 4) reference camera -> source camera
+    depth: Tensor,  # (N, D, H, W) depth candidates per reference pixel
+    window: int = 6,
+    clamp_min_depth: float = 1e-3,
+    gather_dtype: torch.dtype | None = None,
+) -> tuple[Tensor, Tensor]:
+    """Window-correlation plane sweep for banded candidates -> (cost (N, D,
+    H, W) in src's dtype, not divided by sqrt(C); overflow, an int32 scalar).
+
+    Per reference pixel the source features are gathered once on a
+    ``window`` x ``window`` integer lattice whose origin sits at the band's
+    centre (no gradient: a shifted window whose taps fit is the same
+    function), each cell is dotted with the reference features in float32,
+    and every candidate is the separable hat combination of those cell
+    correlations: exact against ``plane_sweep_correlation`` while every
+    candidate's bilinear taps lie in the window; taps outside weigh zero and
+    are counted in the overflow. ``gather_dtype=torch.bfloat16`` (or bf16
+    features) gathers and dots bf16 features with float32 accumulation.
+    Pairs are taken a chunk at a time, bounded by ``SWEEP_CHUNK_BYTES`` of
+    gathered lattice."""
+    n, d, h, w = depth.shape
+    c = src.shape[1]
+    k = window
+    out_dtype = src.dtype
+    if gather_dtype == torch.bfloat16 or src.dtype == torch.bfloat16:
+        src, ref = src.to(torch.bfloat16), ref.to(torch.bfloat16)
+    cells = torch.arange(k, device=src.device)
+    step = max(1, SWEEP_CHUNK_BYTES // (src.element_size() * k * k * h * w * c))
+    costs, overflow = [], torch.zeros((), dtype=torch.int32, device=src.device)
+    for i in range(0, n, step):
+        sl = slice(i, i + step)
+        m = src[sl].shape[0]
+        gx, gy = _warp_pixel_coords(intrinsics[sl], pose[sl], depth[sl], clamp_min_depth)  # (m, D, HW)
+        with torch.no_grad():  # the band's endpoints bracket every candidate
+            ox = (torch.floor(0.5 * (gx[:, 0] + gx[:, -1])) - (k // 2 - 1)).long()  # (m, HW)
+            oy = (torch.floor(0.5 * (gy[:, 0] + gy[:, -1])) - (k // 2 - 1)).long()
+        yi = oy[:, None, None, :] + cells[None, :, None, None]  # (m, k, 1, HW)
+        xi = ox[:, None, None, :] + cells[None, None, :, None]  # (m, 1, k, HW)
+        inb = (yi >= 0) & (yi <= h - 1) & (xi >= 0) & (xi <= w - 1)  # (m, k, k, HW)
+        base = (torch.arange(m, device=src.device) * (h * w))[:, None, None, None]
+        idx = base + yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+        table = src[sl].flatten(2).transpose(1, 2).reshape(m * h * w, c)  # pixel-major rows
+        vals = _GatherRows.apply(table, idx.reshape(-1)).reshape(m, k * k, h * w, c)
+        ref_rows = ref[sl].flatten(2).transpose(1, 2)  # (m, HW, C)
+        wcorr = torch.einsum("mpc,mepc->mep", ref_rows.float(), vals.float())
+        wcorr = wcorr * inb.reshape(m, k * k, h * w)  # (m, k*k, HW) float32, cells (j, i)
+        fx = gx - ox[:, None].to(gx.dtype)  # (m, D, HW)
+        fy = gy - oy[:, None].to(gy.dtype)
+        overflow = overflow + ((fx < 0.0) | (fx > k - 1) | (fy < 0.0) | (fy > k - 1)).sum(dtype=torch.int32)
+        cf = cells.to(gx.dtype)[None, :, None, None]
+        zero = gx.new_zeros(())
+        u = torch.maximum(zero, 1.0 - (fx[:, None] - cf).abs())  # (m, k[i], D, HW)
+        v = torch.maximum(zero, 1.0 - (fy[:, None] - cf).abs())  # (m, k[j], D, HW)
+        t = torch.einsum("mjdp,mjip->midp", v, wcorr.reshape(m, k, k, h * w))
+        costs.append(torch.einsum("midp,midp->mdp", u, t).reshape(m, d, h, w))
+    return torch.cat(costs).to(out_dtype), overflow
 
 
 def plane_sweep_correlation(

@@ -1,5 +1,6 @@
 from .api import DepthRenderingMode, render, render_depth, render_orthographic
 from .expand import expand_plain, expand_tiles
+from .oracle import render_oracle
 from .pallas_raster import (
     composite_bwd,
     composite_bwd_plain,
@@ -21,6 +22,7 @@ __all__ = [
     "expand_tiles",
     "render",
     "render_depth",
+    "render_oracle",
     "render_orthographic",
     "render_pallas",
     "render_pallas_depth_sharded",

@@ -1,8 +1,10 @@
 """Public rendering API.
 
 Port of my_depthsplat_tpu/render/api.py (``render``, ``render_depth``,
-``render_orthographic``).
-There is no backend switch: the tensors' device decides. CUDA tensors go
+``render_orthographic``), with its backend switch. ``backend="oracle"``
+takes the exact tile-free renderer (oracle.py, plain PyTorch on any
+device), and only when asked for. ``"auto"`` and ``"pallas"`` take the tile
+route, where the tensors' device decides: CUDA tensors go
 through the kernels (expand.cu, composite_fwd.cu and, in the backward,
 composite_bwd.cu and scatter_reduce.cu); CPU tensors through their plain
 PyTorch versions. Both are differentiable; views of 2**21 gaussians or more
@@ -18,9 +20,18 @@ import torch
 from torch import Tensor
 
 from ..geometry import homogenize_points
+from .oracle import render_oracle
 from .pallas_raster import render_pallas
 
 DepthRenderingMode = Literal["depth", "disparity", "relative_disparity", "log"]
+Backend = Literal["auto", "oracle", "pallas"]
+BACKENDS = ("auto", "oracle", "pallas")
+
+
+def _resolve_backend(backend: Backend):
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    return render_oracle if backend == "oracle" else render_pallas
 
 
 def render(
@@ -36,11 +47,12 @@ def render(
     gaussian_opacities: Tensor,  # (B, G)
     scale_invariant: bool = True,
     use_sh: bool = True,
+    backend: Backend = "auto",
 ) -> Tensor:
     """3DGS render -> (B, h, w, 3) images (channels-last)."""
     if not (use_sh or gaussian_sh_coefficients.shape[-1] == 1):
         raise ValueError("use_sh=False takes a single (DC) color coefficient")
-    return render_pallas(
+    return _resolve_backend(backend)(
         extrinsics, intrinsics, near, far, image_shape, background_color,
         gaussian_means, gaussian_covariances, gaussian_sh_coefficients,
         gaussian_opacities, scale_invariant=scale_invariant, use_sh=use_sh,
@@ -58,6 +70,7 @@ def render_depth(
     gaussian_opacities: Tensor,
     scale_invariant: bool = True,
     mode: DepthRenderingMode = "depth",
+    backend: Backend = "auto",
 ) -> Tensor:
     """Render camera-space depth as color (cuda_splatting.py:225-264) ->
     (B, h, w)."""
@@ -75,7 +88,7 @@ def render_depth(
         extrinsics, intrinsics, near, far, image_shape,
         fake_color.new_zeros(b, 3), gaussian_means, gaussian_covariances,
         fake_color[..., None, None].expand(b, g, 3, 1), gaussian_opacities,
-        scale_invariant=scale_invariant, use_sh=False,
+        scale_invariant=scale_invariant, use_sh=False, backend=backend,
     )
     return result.mean(dim=-1)
 
@@ -94,6 +107,7 @@ def render_orthographic(
     gaussian_opacities: Tensor,
     fov_degrees: float = 0.1,
     use_sh: bool = True,
+    backend: Backend = "auto",
 ) -> Tensor:
     """Fake-orthographic render (cuda_splatting.py:129-219): the camera is
     pushed back by 0.5 * width / tan(fov / 2) with a tiny fov, through
@@ -121,5 +135,5 @@ def render_orthographic(
     return render(
         extrinsics, intr, near, far, image_shape, background_color, gaussian_means,
         gaussian_covariances, gaussian_sh_coefficients, gaussian_opacities,
-        scale_invariant=False, use_sh=use_sh,
+        scale_invariant=False, use_sh=use_sh, backend=backend,
     )

@@ -168,6 +168,10 @@ def make_train_step(
         if dec.num_dropped is not None:
             # instance-budget overflow (the port allocates dynamically: 0)
             logs["render/num_dropped"] = dec.num_dropped.float()
+        if out.get("sweep_window_overflow") is not None:
+            # taps the window-mode plane sweep dropped (must stay 0: a too
+            # narrow encoder.sweep_window silently degrades cost volumes)
+            logs["sweep/window_overflow"] = out["sweep_window_overflow"].float()
         if dec.depth is not None:
             logs["render/depth_mean"] = dec.depth.detach().mean()
         # train/psnr on the final prediction (model_wrapper.py:238-243)

@@ -27,9 +27,11 @@ def _pose(look: np.ndarray, up: np.ndarray, center: np.ndarray) -> np.ndarray:
     return m
 
 
-def render_projections(gaussians: Gaussians, resolution: int = 256, margin: float = 0.1) -> np.ndarray:
+def render_projections(
+    gaussians: Gaussians, resolution: int = 256, margin: float = 0.1, backend: str = "auto"
+) -> np.ndarray:
     """(3, res, res, 3) orthographic projections of batch element 0 along
-    the +z, +x and +y axes."""
+    the +z, +x and +y axes, through ``render``'s ``backend``."""
     means = gaussians.means[0].float().cpu().numpy()
     lo = means.min(axis=0)
     hi = means.max(axis=0)
@@ -49,7 +51,7 @@ def render_projections(gaussians: Gaussians, resolution: int = 256, margin: floa
             torch.from_numpy(_pose(look, up, center))[None].to(dev), full(extent), full(extent),
             full(0.0), full(2 * extent), (resolution, resolution),
             torch.zeros((1, 3), device=dev), gaussians.means, gaussians.covariances,
-            gaussians.harmonics, gaussians.opacities,
+            gaussians.harmonics, gaussians.opacities, backend=backend,
         )
         views.append(img[0].cpu().numpy())
     return np.stack(views)

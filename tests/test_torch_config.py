@@ -1,9 +1,10 @@
 """The port's configuration loader (``my_depthsplat_torch/config.py``)
 against the JAX package's: every YAML in configs/ loads in both with the
-same values, dot-overrides compose the same way, unknown keys raise, and a
-key the port holds at one value raises at any other, naming the ROADMAP.md
-item that queues it. Also the registry's arkit and dl3dv readers and the
-loaders' refusal of a checkpoint in neither format."""
+same values, dot-overrides compose the same way, unknown keys raise, every
+option that no configuration reaches loads in both and builds the port's
+encoder or decoder, and the TPU-only layout budgets raise at any value but
+their default, naming ROADMAP.md. Also the registry's arkit and dl3dv
+readers and the loaders' refusal of a checkpoint in neither format."""
 
 import dataclasses
 from pathlib import Path
@@ -106,10 +107,25 @@ def test_unknown_keys_raise(override):
     ],
 )
 def test_unported_values_raise_naming_the_roadmap(override, item):
-    """Each loads in the JAX package; the port refuses it and names where it
-    is queued (or why it is not ported)."""
+    """Each loads in the JAX package. The options that ROADMAP.md queue 1
+    item 10 once queued, and ``decoder.backend=oracle``, load in the port
+    too, with the value set, and build the port's encoder (on the meta
+    device: the YAML's ViT-B at full width) or decoder configuration;
+    ``num_surfaces=2`` builds and raises at the first forward in both
+    packages (tests/test_torch_options.py). The TPU-only layout budgets are
+    still refused, naming why they are not ported."""
     yaml_path = REPO / "configs" / "re10k_720p_fast.yaml"
-    jax_config.load_config(yaml_path, [override])
+    want = jax_config.load_config(yaml_path, [override])
+    if item == "item 10" or override == "decoder.backend=oracle":
+        got = port_config.load_config(yaml_path, [override])
+        section, key = override.split("=")[0].split(".")
+        assert getattr(getattr(got, section), key) == getattr(getattr(want, section), key)
+        if section == "encoder":
+            with torch.device("meta"):
+                EncoderDepthSplat(got.encoder, device="meta")
+        else:
+            assert got.decoder.backend == "oracle"
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}|{item}.*ROADMAP.md"):
         port_config.load_config(yaml_path, [override])
 

@@ -1,9 +1,9 @@
 """The port's data path (``my_depthsplat_torch/data``, ``geometry_np``)
 against the JAX package's: the re10k reader, the loader, every view
 sampler and the patch and bounds shims give the same numpy arrays, bit for
-bit. The JAX side runs with ``MY_DEPTHSPLAT_NATIVE=0``, so both decode and
-resize through Pillow (the JAX package's native decoder is bit-identical to
-it, and not ported)."""
+bit. The JAX side runs with ``MY_DEPTHSPLAT_NATIVE=0``, so it decodes and
+resizes through Pillow, which the port's native library matches bit for
+bit (tests/test_torch_native.py holds the two native paths together)."""
 
 import json
 
@@ -17,6 +17,7 @@ from my_depthsplat_tpu.data.re10k import DatasetRE10k as JaxRE10k
 from my_depthsplat_tpu.data.re10k import DatasetRE10kCfg as JaxRE10kCfg
 from my_depthsplat_tpu.geometry_np import get_fov_np as jax_get_fov
 from my_depthsplat_torch import data as port_data
+from my_depthsplat_torch import native as port_native
 from my_depthsplat_torch.data import view_samplers as port_samplers
 from my_depthsplat_torch.data.re10k import DatasetRE10k, DatasetRE10kCfg, convert_poses
 from my_depthsplat_torch.geometry_np import get_fov_np
@@ -27,11 +28,13 @@ from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixtur
 
 @pytest.fixture
 def pil_only(monkeypatch):
-    """The JAX package's Pillow path: MY_DEPTHSPLAT_NATIVE=0, and its native
-    loader's cache reset so that the setting is read."""
+    """Both packages on Pillow: MY_DEPTHSPLAT_NATIVE=0, and both native
+    loaders' caches reset so that the setting is read (and restored after,
+    so that no later test in the process inherits the disabled state)."""
     monkeypatch.setenv("MY_DEPTHSPLAT_NATIVE", "0")
-    monkeypatch.setattr(jax_native, "_LIB", None)
-    monkeypatch.setattr(jax_native, "_TRIED", False)
+    for module in (jax_native, port_native):
+        monkeypatch.setattr(module, "_LIB", None)
+        monkeypatch.setattr(module, "_TRIED", False)
 
 
 @pytest.fixture

@@ -4,8 +4,9 @@
 ``min_views``/``max_views``), the converter's chunks and index, the
 dl3dv_base configuration built narrow in both packages from its YAML (one
 train step's loss on a converted tree), and the view-count trap of both
-loaders at B = 2. The JAX side decodes with Pillow
-(``MY_DEPTHSPLAT_NATIVE=0``), as the port does.
+loaders at B = 2. Both sides decode with Pillow
+(``MY_DEPTHSPLAT_NATIVE=0``); tests/test_torch_native.py holds the native
+path to it.
 """
 
 import dataclasses

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import my_depthsplat_tpu.native as jax_native
+import my_depthsplat_torch.native as port_native
 from my_depthsplat_tpu import main as jax_main
 from my_depthsplat_tpu.config import load_config as jax_load_config
 from my_depthsplat_tpu.eval import metrics as jax_metrics
@@ -93,8 +94,9 @@ def test_run_test_matches_jax(tmp_path, monkeypatch):
     5e-6)."""
     register_vitt(monkeypatch)
     monkeypatch.setenv("MY_DEPTHSPLAT_NATIVE", "0")
-    monkeypatch.setattr(jax_native, "_LIB", None)
-    monkeypatch.setattr(jax_native, "_TRIED", False)
+    for module in (jax_native, port_native):
+        monkeypatch.setattr(module, "_LIB", None)
+        monkeypatch.setattr(module, "_TRIED", False)
     overrides = _write_data(tmp_path) + ["encoder.compute_dtype=float32", "encoder.sweep_gather_dtype=float32"]
     cfg_j, cfg_t = jax_load_config(YAML, overrides), load_config(YAML, overrides)
 

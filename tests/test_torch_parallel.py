@@ -37,7 +37,7 @@ from test_torch_promptda import redraw
 from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_unimatch_encoder import H, W, encoder_cfgs, make_context, register_vitt
 
-RING_CONFIGS = [(1, False), (2, False), (2, True)]
+RING_CONFIGS = [(1, False), (2, False), (2, True), (4, False), (4, True)]
 GRIDS = [(2, 2), (-1, 2)]
 
 

@@ -6,6 +6,7 @@ monkeypatch to the config tables of both packages, so the whole
 encoder -> gaussians -> render path runs at 2 x 28 x 28 in seconds.
 """
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -197,8 +198,9 @@ def test_entry_point_without_device_raises_without_card(monkeypatch):
 
 
 def test_unimatch_branch_names_the_roadmap(monkeypatch):
-    """The UniMatch branch builds, and so does its training step; what the
-    port still refuses names its ROADMAP item: the window-mode plane sweep."""
+    """The UniMatch branch builds, and so does its training step; the
+    window-mode plane sweep, which ROADMAP.md once queued, builds too
+    (tests/test_torch_options.py holds it against the JAX package)."""
     from my_depthsplat_torch.train import TrainCfg, make_train_step
     from test_torch_unimatch_encoder import register_vitt
 
@@ -213,5 +215,5 @@ def test_unimatch_branch_names_the_roadmap(monkeypatch):
     init, step = make_train_step(TrainCfg(encoder=cfg), device="cpu")
     state = init(seed=0)
     assert type(state.model.depth_predictor).__name__ == "MultiViewUniMatch" and callable(step)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        EncoderDepthSplatCfg(depth_branch="unimatch", sweep_mode="window")
+    window = EncoderDepthSplat(dataclasses.replace(cfg, sweep_mode="window"), device="cpu")
+    assert window.depth_predictor.sweep_mode == "window"
