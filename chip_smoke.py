@@ -323,15 +323,21 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    the CLI (decoder.backend=oracle on one arkit test scene, its PNGs at
    most 2 levels from backend=auto's) and render_projections on phase
    28's flat scene; the oracle's ms beside the kernels'.
+35. the bf16 composite (render_pallas(..., composite_dtype="bfloat16"),
+   rows 2-5 in bf16; bf16_phase): phase 4's served scene, phase 11's
+   request 0 view 0 and a re10k_small microbatch forward and backward
+   with only the bf16 instantiations counted, each bf16 kernel against its
+   bf16 plain version at the float32 rows' limits, against float32 and the
+   reference's doubling-scan association, and timed beside float32.
 
 Phases 18-28 run first, in that order (28's training-batch part inside
-25), after the build; then 4-8, 31-34, 9-17, with 29 after 11-13 and
-30 last. Each
+25), after the build; then 4-8, 31-34, 9-17, with 29 after 11-13,
+then 30 and 35 last. Each
 phase prints its step ms, peak GiB and wall s where it trains or serves.
 The figures of phases 29-30 are of 2 ranks sharing 1 card: not a
 multi-card speed. The line before the card line is a JSON object
 {"kernels": [...]} (with each kernel's launches on the paths of phases
-19-34, per rank for 29-30); the card line is nvidia-smi's name and power
+19-35, per rank for 29-30); the card line is nvidia-smi's name and power
 limit; the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --cli-rank OUT <CLI arguments>
@@ -355,6 +361,9 @@ from unittest import mock
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+# bfloat16 outside the tensor cores (packed bf16x2), twice the float32 rate
+# (NVIDIA H100 Tensor Core GPU Architecture whitepaper, SXM5)
+PEAK_BF16_FLOPS = 133.8e12
 # float operations per evaluation, counted from the kernels' sources:
 # kernel A culls a candidate tile with 4 clamped edge quadratics (~60 ops).
 # Kernels B and C evaluate the gate of every (instance, pixel) pair up to
@@ -367,6 +376,11 @@ OPS_PER_CANDIDATE = 60
 OPS_PER_GATE = 12
 OPS_PER_FWD_HIT = 13
 OPS_PER_BWD_HIT = 38
+# Of those, the bf16 instantiations of B and C do in bf16 the gate's
+# quadratic (its 9 products and sums of an evaluation) and the in-chunk
+# product of (1 - alpha) (1 multiply a hit); the rest stays float32.
+OPS_GATE_BF16 = 9
+OPS_HIT_BF16 = 1
 
 N_CONTEXT, N_TARGET = 2, 4
 SHAPE = (192, 192)
@@ -456,6 +470,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def lap(fn):
+    """fn() -> (its result, host ms around it), the card synchronised
+    before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, (time.perf_counter() - t_a) * 1e3
+
+
 def cuda_ms(torch, fn, reps: int, device_only: bool = False) -> float:
     """Mean ms per call over ``reps`` calls after one warm-up (CUDA events).
     ``device_only``: a device spin queued first lets the host enqueue every
@@ -475,11 +501,23 @@ def cuda_ms(torch, fn, reps: int, device_only: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
+def bound(nbytes: float, nops: float, bf16_ops: float = 0.0) -> tuple[float, str]:
     """The least ms the card could take: bytes over the memory rate or
-    operations over the float32 peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_FLOPS * 1e3
+    operations over their type's peak, whichever is larger. ``nops``
+    counts all operations, ``bf16_ops`` of them at the bf16 peak and the
+    rest at the float32 peak."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ((nops - bf16_ops) / PEAK_F32_FLOPS + bf16_ops / PEAK_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def composite_bound(nbytes: float, evals: int, hits: int, ops_per_hit: int, compute_dtype: str) -> tuple[float, str]:
+    """``bound`` of kernel B or C (flat or chained): OPS_PER_GATE a gate
+    evaluation and ``ops_per_hit`` a gated hit; in the bf16 instantiation
+    OPS_GATE_BF16 and OPS_HIT_BF16 of them at the bf16 peak."""
+    nops = evals * OPS_PER_GATE + hits * ops_per_hit
+    bf16_ops = evals * OPS_GATE_BF16 + hits * OPS_HIT_BF16 if compute_dtype == "bfloat16" else 0
+    return bound(nbytes, nops, bf16_ops)
 
 
 def screen_views(torch, means, cov, sh, opac, views, shape):
@@ -639,10 +677,13 @@ def print_layouts(label, layouts, card):
         )
 
 
-def time_composite(torch, dev, card, label, sg, shape, reps):
+def time_composite(torch, dev, card, label, sg, shape, reps, compute_dtype="float32"):
     """Kernel B, and kernels C and D on its T_final and n_contrib (a seeded
     cotangent, background 0), on one binning: device times, plain versions,
-    index_add_ for D, bounds."""
+    index_add_ for D, bounds. ``compute_dtype``: B's and C's instantiation
+    and their plain versions' (the bounds count the same bytes and
+    operations in either; bf16 prices its bf16 share at the bf16 peak,
+    ``composite_bound``)."""
     from my_depthsplat_torch.render.instances import build_tile_instances
     from my_depthsplat_torch.render.pallas_raster import (
         composite_bwd,
@@ -659,13 +700,13 @@ def time_composite(torch, dev, card, label, sg, shape, reps):
     inst = build_tile_instances(sg, shape)
     rows = screen_rows(sg)
     bg = torch.zeros(v, 3, device=dev)
-    fargs = (rows, inst.gaussian_id, inst.starts, inst.counts, bg, shape)
+    fargs = (rows, inst.gaussian_id, inst.starts, inst.counts, bg, shape, compute_dtype)
     b_ms = cuda_ms(torch, lambda: composite_fwd(*fargs), reps, True)
     b_wrapper = cuda_ms(torch, lambda: composite_fwd(*fargs), reps)
     b_plain = cuda_ms(torch, lambda: composite_plain(*fargs), 1)
     _, t_f, n_c = composite_fwd(*fargs)
     g_img = torch.randn(v, h, w, 3, generator=torch.Generator().manual_seed(4)).to(dev)
-    bargs = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, bg, t_f, n_c, g_img, shape)
+    bargs = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, bg, t_f, n_c, g_img, shape, compute_dtype)
     c_ms = cuda_ms(torch, lambda: composite_bwd(*bargs), reps, True)
     c_plain = cuda_ms(torch, lambda: composite_bwd_plain(*bargs), 1)
     d_inst = composite_bwd(*bargs)
@@ -681,12 +722,12 @@ def time_composite(torch, dev, card, label, sg, shape, reps):
     # B: every gaussian's row, the sorted ids, starts/counts and background
     # read; image, T_final and n_contrib (20 B) per pixel written
     b_bytes = rows.numel() * 4 + n_i * 4 + inst.starts.numel() * 8 + v * 12 + v * h * w * 20
-    b_bound, b_by = bound(b_bytes, evals * OPS_PER_GATE + hits * OPS_PER_FWD_HIT)
+    b_bound, b_by = composite_bound(b_bytes, evals, hits, OPS_PER_FWD_HIT, compute_dtype)
     # C: rows of the referenced gaussians, sorted ids, destinations,
     # starts/counts, background, T_final + n_contrib + cotangent per
     # pixel read; 36 B per instance written
     c_bytes = n_ref * 36 + n_i * (4 + 8) + inst.starts.numel() * 8 + v * 12 + v * h * w * 20 + n_i * 36
-    c_bound, c_by = bound(c_bytes, evals * OPS_PER_GATE + hits * OPS_PER_BWD_HIT)
+    c_bound, c_by = composite_bound(c_bytes, evals, hits, OPS_PER_BWD_HIT, compute_dtype)
     # D: 36 B per instance row and 12 B per gaussian (offset, count) read; 36 B per gaussian written
     d_bound, d_by = bound(n_i * 36 + n_g * (12 + 36), n_i * 9)
     print(
@@ -745,6 +786,32 @@ def chained_fwd_bytes(torch, inst, live_in, live_out, n_k):
     n_live = int(live_in.sum())
     state_bytes = n_live * 44 + (h * w - n_live) * 8
     return n_ref * 36 + int(need.sum()) * 4 + counts.numel() * 8 + state_bytes, state_bytes
+
+
+def chained_bwd_bytes(torch, inst, n_k):
+    """The bytes one group's chained backward must move on this run's data
+    -> (all of them, the zero rows' share). Per instance 36 B of row
+    written, the zero-fill included; per instance up to its tile's largest
+    n_contrib 4 B of id and 8 B of destination, and 36 B of row per gaussian
+    those reference (a zero row's place needs no destination: the
+    contiguous zero-fill writes it); starts and counts; per pixel of a tile
+    with instances 4 B of n_contrib; per pixel with n_contrib > 0 12 B of
+    cotangent and 8 B of carry read, 8 B written. The (1, H, W) n_contrib
+    is whole tiles."""
+    from my_depthsplat_torch.render.camera import TILE_X, TILE_Y
+
+    _, h, w = n_k.shape
+    dev = n_k.device
+    counts = inst.counts.long()
+    nc_t = n_k.reshape(h // TILE_Y, TILE_Y, w // TILE_X, TILE_X).transpose(1, 2).reshape(-1, TILE_Y * TILE_X)
+    live = torch.minimum(nc_t.amax(dim=1).long(), counts)
+    tile_of = torch.repeat_interleave(torch.arange(counts.numel(), device=dev), counts)
+    pos = torch.arange(tile_of.numel(), device=dev) - inst.starts.long()[tile_of]
+    n_ref = torch.unique(inst.gaussian_id[pos < live[tile_of]]).numel()
+    n_inst, n_live = counts.sum().item(), live.sum().item()
+    pix = int((counts > 0).sum()) * TILE_Y * TILE_X * 4 + int((n_k > 0).sum()) * 28
+    zero_rows = (n_inst - n_live) * 36
+    return n_inst * 36 + n_live * (4 + 8) + n_ref * 36 + counts.numel() * 8 + pix, zero_rows
 
 
 def look_at_views(torch, rng, b, v, dev):
@@ -1025,13 +1092,6 @@ def encoder_by_part(torch, encoder, context):
     the host clock between synchronises, and the whole pass ("whole")."""
     from my_depthsplat_torch.models import unimatch as unimatch_mod
 
-    def lap(fn):
-        torch.cuda.synchronize()
-        t_a = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        return result, (time.perf_counter() - t_a) * 1e3
-
     parts: dict[str, float] = {}
 
     def timed(name, fn):
@@ -1087,13 +1147,6 @@ def compare_chained(torch, label, sg, pick, shape):
 
     h, w = shape
     dev = sg.depth.device
-
-    def lap(fn):
-        torch.cuda.synchronize()
-        t_a = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        return result, (time.perf_counter() - t_a) * 1e3
 
     slots = raster_mod._CHAIN_GROUP_SLOTS
     order, groups = build_tile_instances_grouped(sg, shape, slots)
@@ -1212,13 +1265,6 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
         return decode_splatting(
             dec_cfg, gaussians, *(tgt[k][:, views] for k in ("extrinsics", "intrinsics", "near", "far")), shape
         )
-
-    def lap(fn):
-        torch.cuda.synchronize()
-        t_a = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        return result, (time.perf_counter() - t_a) * 1e3
 
     with torch.no_grad():
         # warm-up (cuDNN autotune) and the instance count before any decode
@@ -1456,7 +1502,6 @@ def train_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
 
     from my_depthsplat_torch.models import DecoderSplattingCfg, decode_splatting
     from my_depthsplat_torch.render import pallas_raster as raster_mod
-    from my_depthsplat_torch.render.camera import TILE_X, TILE_Y
     from my_depthsplat_torch.render.instances import build_tile_instances_grouped, grouped_expand_inputs
     from my_depthsplat_torch.render.pallas_raster import (
         BwdCarry,
@@ -1491,13 +1536,6 @@ def train_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
 
     def make_batch(v):
         return re10k_train_batch(torch, v, dev)
-
-    def lap(fn):
-        torch.cuda.synchronize()
-        t_a = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        return result, (time.perf_counter() - t_a) * 1e3
 
     # ---- how many context views one step fits in the card's memory: 12 as
     # configured, else the largest count from 5 (5 x 491,520 >= 2^21 keeps
@@ -1690,7 +1728,7 @@ def train_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
         n_path = groups_to_composite(fwd_stats["live"])
         chained_walk_ms(torch, rows, groups, shape)  # warm-up
         fwd_ms = [statistics.median(col) for col in zip(*(chained_walk_ms(torch, rows, groups, shape) for _ in range(5)))]
-        fwd_bound, fwd_by = bound(fwd_stats["bytes"], fwd_stats["evals"] * OPS_PER_GATE + fwd_stats["hits"] * OPS_PER_FWD_HIT)
+        fwd_bound, fwd_by = composite_bound(fwd_stats["bytes"], fwd_stats["evals"], fwd_stats["hits"], OPS_PER_FWD_HIT, "float32")
         chained_training = {
             "launches_per_view": n_path, "groups_per_view": n, "ms": sum(fwd_ms[:n_path]), "ms_every_group": sum(fwd_ms),
             "bound_ms": fwd_bound, "bound_by": fwd_by,
@@ -1702,30 +1740,6 @@ def train_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
             f"({fwd_stats['evals']} evaluations to the last contributor, {fwd_stats['hits']} of them gated hits, "
             f"{fwd_stats['bytes']} bytes needed); over all {n} groups {sum(fwd_ms):.4f} ms on {card}"
         )
-
-        def per_tile(x):
-            return x.reshape(h // TILE_Y, TILE_Y, w // TILE_X, TILE_X).transpose(1, 2).reshape(-1, TILE_Y * TILE_X)
-
-        def needed_bytes(inst, n_k):
-            """The bytes one group's chained backward must move on this run's
-            data -> (all of them, the zero rows' share). Per instance 36 B of
-            row written, the zero-fill included; per instance up to its tile's
-            largest n_contrib 4 B of id and 8 B of destination, and 36 B of
-            row per gaussian those reference (a zero row's place needs no
-            destination: the contiguous zero-fill writes it); starts and
-            counts; per pixel of a tile with instances 4 B of n_contrib; per
-            pixel with n_contrib > 0 12 B of cotangent and 8 B of carry read,
-            8 B written."""
-            counts = inst.counts.long()
-            nc_t = per_tile(n_k)
-            live = torch.minimum(nc_t.amax(dim=1).long(), counts)
-            tile_of = torch.repeat_interleave(torch.arange(counts.numel(), device=dev), counts)
-            pos = torch.arange(tile_of.numel(), device=dev) - inst.starts.long()[tile_of]
-            n_ref = torch.unique(inst.gaussian_id[pos < live[tile_of]]).numel()
-            n_inst, n_live = counts.sum().item(), live.sum().item()
-            pix = int((counts > 0).sum()) * TILE_Y * TILE_X * 4 + int((n_k > 0).sum()) * 28
-            zero_rows = (n_inst - n_live) * 36
-            return n_inst * 36 + n_live * (4 + 8) + n_ref * 36 + counts.numel() * 8 + pix, zero_rows
 
         stats = {"err": 0.0, "carry_err": 0.0, "plain_ms": 0.0, "plain_groups": [], "evals": 0, "hits": 0,
                  "bytes": 0, "zero_bytes": 0, "live_groups": []}
@@ -1764,7 +1778,7 @@ def train_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
             if live:  # the launches the path makes: a dead group is skipped
                 stats["evals"] += n_contrib[k].long().sum().item()
                 stats["hits"] += gated_hits(torch, rows, inst, n_contrib[k])
-                nbytes, zero_bytes = needed_bytes(inst, n_contrib[k])
+                nbytes, zero_bytes = chained_bwd_bytes(torch, inst, n_contrib[k])
                 stats["bytes"] += nbytes
                 stats["zero_bytes"] += zero_bytes
         check(bool(torch.isfinite(carry.ta).all() and torch.isfinite(carry.g_dot_ra).all()), "chained backward: non-finite carry")
@@ -1808,7 +1822,7 @@ def train_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
         every_group = walk_ms(list(range(n)))
         r_ms_plain_groups = sum(every_group[k] for k in stats["plain_groups"])
         n_inst = sum(groups[k].gaussian_id.numel() for k in live_groups)
-        r_bound, r_by = bound(stats["bytes"], stats["evals"] * OPS_PER_GATE + stats["hits"] * OPS_PER_BWD_HIT)
+        r_bound, r_by = composite_bound(stats["bytes"], stats["evals"], stats["hits"], OPS_PER_BWD_HIT, "float32")
         zero_ms = stats["zero_bytes"] / PEAK_BYTES_PER_S * 1e3
         print(
             f"chained backward (row 5), one trained view: {r_ms:.4f} ms device over its {len(live_groups)} launches, the "
@@ -1891,7 +1905,8 @@ def train_re10k_small(torch, dev, card, reset_counters, read_counters):
     targets at 256x256, B = 8 as grad_accum = 2 microbatches, MSE + LPIPS
     0.05, lr 2e-4 / 4e-6 over 150,000 steps; 1 warm-up + 3 counted steps on
     the flat route; then kernels C and D timed at one microbatch's shapes.
-    Returns the counted run's launch counts and those timings."""
+    Returns the counted run's launch counts, those timings and the
+    microbatch's gaussians and target cameras on the host (for phase 35)."""
     import numpy as np
 
     from my_depthsplat_torch.models import DecoderSplattingCfg, EncoderDepthSplatCfg
@@ -1954,7 +1969,9 @@ def train_re10k_small(torch, dev, card, reset_counters, read_counters):
     mb = SMALL_BATCH // SMALL_ACCUM
     with torch.no_grad():
         gs = state.model({k: x[:mb] for k, x in batch["context"].items()})["gaussians"]
-        leaves = (x.repeat_interleave(N_TARGET, 0) for x in (gs.means, gs.covariances, gs.harmonics, gs.opacities))
+        fields = (gs.means, gs.covariances, gs.harmonics, gs.opacities)
+        microbatch = ([x.cpu() for x in fields], {k: x[:mb].cpu() for k, x in batch["target"].items() if k != "image"})
+        leaves = (x.repeat_interleave(N_TARGET, 0) for x in fields)
         sg = screen_views(torch, *leaves, {k: x[:mb] for k, x in batch["target"].items()}, SMALL_SHAPE)
         del state, batch, gs
         label = f"re10k_small microbatch, {mb * N_TARGET} views at {h}x{w}"
@@ -1968,7 +1985,7 @@ def train_re10k_small(torch, dev, card, reset_counters, read_counters):
     del sg
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, timing
+    return launches, timing, microbatch
 
 
 def serve_cli(torch, card, reset_counters, read_counters):
@@ -2395,13 +2412,6 @@ def train_cli_bf16(torch, dev, card, reset_counters, read_counters, uncounted):
 
     # ---- one step taken apart (encoder under the policy, render, losses)
     batch = re10k_train_batch(torch, v, dev)
-
-    def lap(fn):
-        torch.cuda.synchronize()
-        t_a = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        return result, (time.perf_counter() - t_a) * 1e3
 
     torch.cuda.reset_peak_memory_stats()
     out, enc_f = lap(lambda: apply_with_precision(state.model, "bfloat16", batch["context"], training=True))
@@ -4501,6 +4511,373 @@ def option_phases(torch, dev, card, served, large_scene, reset_counters, read_co
     return figures, launches
 
 
+BF16_PLAIN_GROUPS = 2  # phase 35: the re10k view's live groups held against the bf16 plain versions
+BF16_REPS = 10  # phase 35: launches per timing
+
+
+def doubling_scan(f):
+    """The reference's in-chunk product (``_lane_cumprod``,
+    my_depthsplat_tpu/render/pallas_raster.py:107): an inclusive doubling
+    scan over the last axis, each of its log2(256) levels a bf16 multiply,
+    -> float32. Phase 35 measures the bf16 envelope with it, through the
+    plain versions."""
+    import torch
+
+    acc, shift = f, 1
+    while shift < f.shape[-1]:
+        acc = acc * torch.cat([torch.ones_like(acc[..., :shift]), acc[..., :-shift]], -1)
+        shift *= 2
+    return acc.float()
+
+
+def bf16_phase(torch, dev, card, parts, reset_counters, read_counters):
+    """Phase 35: the bf16 composite, ``render_pallas(...,
+    composite_dtype="bfloat16")``, whose four bf16 instantiations no
+    configuration reaches. ``parts``: label -> (leaves (means, covariances,
+    SH, opacities), cameras (extrinsics, intrinsics, near, far), shape) on
+    the card: phase 4's first served arkit scene (4 targets, flat route),
+    phase 11's request 0 view 0 (5,898,240 gaussians, grouped route) and a
+    re10k_small microbatch under phase 17's trained model (16 views, flat).
+    1. The path: each part rendered forward and backward (a seeded
+       cotangent) in bf16 with the counters 0 just before and read just
+       after; every bf16 instantiation must have launched and no float32
+       one. The same in float32 after: the microbatch's gradients within
+       3e-2 of float32's largest entries. The re10k view's bf16 image
+       against the same bf16 render with the reference's in-chunk
+       association (a doubling scan, ``doubling_scan``, through the plain
+       versions): it differs from its float32 image (max > 1e-5, which a
+       float32 render fails) and lies no more than twice as far from it
+       (max and mean) as the scan's image. On this view neither bf16 image
+       meets 2e-2 max / 2e-3 mean from float32 (on an H100 80GB HBM3 at
+       700 W: 5.2e-2 / 4.7e-3 sequential, 4.2e-2 / 3.2e-3 the scan), and
+       the two bf16 images lie 3.7e-3 (mean) apart, farther than the scan's
+       from float32: the association alone moves the image by bf16's
+       envelope there. All are printed.
+    2. Rows 2 and 4 (with D) on the arkit binning against their bf16 plain
+       versions at the float32 rows' limits (B within the dense 6e-3 max /
+       1e-5 mean, n_contrib on 99.9 % of pixels; C within 1e-5 of the
+       largest entry; D within 1e-6 of ``index_add_``), then timed in bf16
+       and float32 on the same inputs (time_composite).
+    3. Rows 3 and 5 on the re10k view: the chained forward threaded over
+       all its depth groups, the first BF16_PLAIN_GROUPS held against the
+       bf16 plain version from the kernel's incoming state (rgb and T within
+       6e-3 max / 1e-5 mean, n_contrib on 99.9 %, the stopped flag); the
+       chained backward over the live groups farthest first, the nearest
+       BF16_PLAIN_GROUPS held against the bf16 plain version from the
+       kernel's incoming carry (rows and carry within 1e-5 of the largest
+       entry); both timed in bf16 and float32 over the launches the path
+       makes (forward: up to the first group after which no pixel is live;
+       backward: the live groups), with their bounds.
+    Returns the kernels line's four bf16 entries."""
+    from my_depthsplat_torch.render import pallas_raster as raster_mod
+    from my_depthsplat_torch.render.instances import build_tile_instances, build_tile_instances_grouped
+    from my_depthsplat_torch.render.pallas_raster import (
+        BwdCarry,
+        ChainState,
+        composite_bwd,
+        composite_bwd_chained,
+        composite_bwd_chained_plain,
+        composite_bwd_plain,
+        composite_chained,
+        composite_chained_plain,
+        composite_chained_plain_into,
+        composite_fwd,
+        composite_plain,
+        composite_tiles,
+        initial_chain_state,
+        render_pallas,
+        scatter_reduce,
+        scatter_reduce_plain,
+        screen_rows,
+    )
+
+    t_start = time.perf_counter()
+    wrappers = {
+        "composite_fwd": composite_tiles, "composite_bwd": composite_bwd,
+        "composite_fwd_chained": composite_chained, "composite_bwd_chained": composite_bwd_chained,
+    }
+
+    def render(part, dtype, seed):
+        leaves, cams, shape = part
+        xs = [x.detach().clone().requires_grad_(True) for x in leaves]
+        img = render_pallas(*cams, shape, torch.zeros(cams[0].shape[0], 3, device=dev), *xs, composite_dtype=dtype)
+        wts = torch.randn(img.shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+        (img * wts).sum().backward()
+        return img.detach(), [x.grad for x in xs]
+
+    # 1. the path, counted
+    torch.cuda.synchronize()
+    reset_counters()
+    for w in wrappers.values():
+        w.launches_bf16 = 0
+    t_a = time.perf_counter()
+    got = {label: render(part, "bfloat16", i) for i, (label, part) in enumerate(parts.items())}
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_a
+    launches = {**read_counters(), **{f"{k}_bf16": w.launches_bf16 for k, w in wrappers.items()}}
+    print(f"bf16 composite: {len(parts)} renders forward and backward in {path_s:.2f} s, launches {launches}")
+    for k in wrappers:
+        check(launches[f"{k}_bf16"] > 0, f"bf16 composite: the bf16 {k} was not launched: {launches}")
+        check(launches[k] == launches[f"{k}_bf16"], f"bf16 composite: a float32 {k} was launched: {launches}")
+    names = ("means", "covariances", "sh", "opacities")
+    vs_float32 = {}
+    for i, (label, part) in enumerate(parts.items()):
+        img32, grads32 = render(part, "float32", i)
+        img, grads = got.pop(label)
+        check(bool(torch.isfinite(img).all()) and all(bool(torch.isfinite(g).all()) for g in grads),
+              f"bf16 composite, {label}: non-finite image or gradient")
+        di = (img - img32).abs()
+        rel = {n: (g - g32).abs().max().item() / g32.abs().max().item() for n, g, g32 in zip(names, grads, grads32)}
+        vs_float32[label] = {"image_max": di.max().item(), "image_mean": di.mean().item(), "grad_rel": rel}
+        print(
+            f"bf16 composite, {label}: bf16 vs float32 image max {di.max().item():.3e} mean {di.mean().item():.3e}; "
+            f"gradients (of the largest float32 entry) {({n: f'{x:.3e}' for n, x in rel.items()})}"
+        )
+        if label.startswith("re10k_720p_fast"):
+            # the same bf16 render with the reference's in-chunk association
+            # (a doubling scan), through the plain versions: how far bf16
+            # itself lies from float32 on this view
+            leaves, cams, shape = part
+            with torch.no_grad(), mock.patch.object(raster_mod, "composite_chained", composite_chained_plain_into), \
+                    mock.patch.object(raster_mod, "_bf16_running_product", doubling_scan):
+                ref = render_pallas(*cams, shape, torch.zeros(1, 3, device=dev), *leaves, composite_dtype="bfloat16")
+            dr, ds = (ref - img32).abs(), (img - ref).abs()
+            vs_float32[label].update(reference_scan_max=dr.max().item(), reference_scan_mean=dr.mean().item(),
+                                     port_vs_scan_max=ds.max().item(), port_vs_scan_mean=ds.mean().item())
+            print(
+                f"bf16 composite, {label}: the reference's doubling-scan product vs float32 image max "
+                f"{dr.max().item():.3e} mean {dr.mean().item():.3e}, vs the port's bf16 image max "
+                f"{ds.max().item():.3e} mean {ds.mean().item():.3e} (the bf16 envelope here; 2e-2 max / 2e-3 mean "
+                f"from float32 met by the port: {di.max().item() <= 2e-2 and di.mean().item() <= 2e-3}, by the scan: "
+                f"{dr.max().item() <= 2e-2 and dr.mean().item() <= 2e-3})"
+            )
+            view_checks = [
+                (di.max().item() > 1e-5, f"bf16 composite, {label}: the bf16 image equals the float32 one"),
+                (di.max().item() <= 2 * dr.max().item() and di.mean().item() <= 2 * dr.mean().item(),
+                 f"bf16 composite, {label}: the image lies more than twice as far from float32 as the "
+                 f"reference's association does"),
+            ]
+            del ref, dr, ds
+        if label.startswith("re10k_small"):
+            small_check = (max(rel.values()) <= 3e-2, f"bf16 composite, {label}: gradients vs float32")
+        del img, img32, grads, grads32
+    gc.collect()
+    torch.cuda.empty_cache()
+    for cond, msg in (*view_checks, small_check):
+        check(cond, msg)
+
+    def screen(part):
+        leaves, (e, k, n, f), shape = part
+        views = {"extrinsics": e, "intrinsics": k, "near": n, "far": f}
+        return screen_views(torch, *(x.detach() for x in leaves), views, shape), shape
+
+    errs = {}
+    with torch.no_grad():
+        # 2. rows 2 and 4 (and D) on the arkit binning
+        label = next(x for x in parts if x.startswith("arkit"))
+        sg, shape = screen(parts[label])
+        v, (h, w) = sg.depth.shape[0], shape
+        inst = build_tile_instances(sg, shape)
+        rows = screen_rows(sg)
+        bg = torch.rand(v, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+        fargs = (rows, inst.gaussian_id, inst.starts, inst.counts, bg, shape, "bfloat16")
+        (img_k, t_k, n_k), (img_p, t_p, n_p) = composite_fwd(*fargs), composite_plain(*fargs)
+        di, dt = (img_k - img_p).abs(), (t_k - t_p).abs()
+        same_n = (n_k == n_p).float().mean().item()
+        g_img = torch.randn(v, h, w, 3, generator=torch.Generator().manual_seed(2)).to(dev)
+        bargs = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, bg, t_k, n_k, g_img, shape, "bfloat16")
+        d_k, d_again, d_p = composite_bwd(*bargs), composite_bwd(*bargs), composite_bwd_plain(*bargs)
+        c_rel = (d_k - d_p).abs().max().item() / d_p.abs().max().item()
+        dargs = (d_k, inst.offset, inst.per_gaussian)
+        r_k, r_p = scatter_reduce(*dargs), scatter_reduce_plain(*dargs)
+        d_rel = (r_k - r_p).abs().max().item() / r_p.abs().max().item()
+        print(
+            f"bf16 composite, {label} ({inst.gaussian_id.numel()} instances): kernel B bf16 vs its plain version image "
+            f"max {di.max().item():.3e} mean {di.mean().item():.3e}, T max {dt.max().item():.3e}, n_contrib equal "
+            f"{same_n * 100:.4f}%; kernel C bf16 {c_rel:.3e} of the largest row entry; kernel D on its rows vs "
+            f"index_add_ {d_rel:.3e}"
+        )
+        for what, dd in (("image", di), ("T_final", dt)):
+            check(dd.max().item() <= 6e-3 and dd.mean().item() <= 1e-5, f"bf16 composite: kernel B bf16 {what} disagrees")
+        check(same_n >= 0.999, f"bf16 composite: kernel B bf16 n_contrib agrees on only {same_n:.5f}")
+        check(torch.equal(d_k, d_again), "bf16 composite: kernel C bf16 differs between two runs")
+        check(c_rel <= 1e-5, "bf16 composite: kernel C bf16 disagrees with its plain version")
+        check(d_rel <= 1e-6, "bf16 composite: kernel D disagrees with index_add_ on kernel C bf16's rows")
+        errs["composite_fwd"] = max(di.max().item(), dt.max().item())
+        errs["composite_bwd"] = (d_k - d_p).abs().max().item()
+        del img_k, img_p, t_k, t_p, n_k, n_p, d_k, d_again, d_p, r_k, r_p
+        flat = {dt_: time_composite(torch, dev, card, f"{label}, {dt_}", sg, shape, BF16_REPS, dt_)
+                for dt_ in ("bfloat16", "float32")}
+        del sg, inst, rows
+
+        # 3. rows 3 and 5 on the re10k view
+        label = next(x for x in parts if x.startswith("re10k_720p_fast"))
+        sg, shape = screen(parts[label])
+        h, w = shape
+        order, groups = build_tile_instances_grouped(sg, shape, 1 << 18)
+        rows = screen_rows(sg)[order]
+        del sg
+
+        def walk_forward(dtype, compare):
+            """Every group threaded from the initial state -> n_contrib per
+            group, the final state, live pixels after each group, the
+            incoming live masks, the largest error and the plain calls' ms;
+            ``compare``: the first BF16_PLAIN_GROUPS groups against the
+            plain version."""
+            state = initial_chain_state(1, shape, dev)
+            n_c, live, live_in, err, plain_ms = [], [], [], 0.0, 0.0
+            for k, inst in enumerate(groups):
+                args = (rows, inst.gaussian_id, inst.starts, inst.counts)
+                incoming = ChainState(*(x.clone() for x in state)) if compare and k < BF16_PLAIN_GROUPS else None
+                live_in.append(state.p_raw >= 1e-4)
+                state, n_k = composite_chained(*args, state, shape, None, dtype)
+                n_c.append(n_k)
+                live.append(int((state.p_raw >= 1e-4).sum()))
+                if incoming is not None:
+                    (want, n_p), ms = lap(lambda: composite_chained_plain(*args, incoming, shape, dtype))
+                    plain_ms += ms
+                    dr, dt_ = (state.rgb - want.rgb).abs(), (state.t - want.t).abs()
+                    same = (n_k == n_p).float().mean().item()
+                    clear = (want.p_raw - 1e-4).abs() > 1e-6
+                    flag = torch.equal((state.p_raw >= 1e-4)[clear], (want.p_raw >= 1e-4)[clear])
+                    print(
+                        f"bf16 composite, {label}, group {k}: row 3 bf16 vs its plain version rgb max "
+                        f"{dr.max().item():.3e} mean {dr.mean().item():.3e}, T max {dt_.max().item():.3e}, n_contrib "
+                        f"equal {same * 100:.4f}%, stopped flag equal: {flag}"
+                    )
+                    for what, dd in (("rgb", dr), ("T", dt_)):
+                        check(dd.max().item() <= 6e-3 and dd.mean().item() <= 1e-5,
+                              f"bf16 composite, group {k}: row 3 bf16 {what} disagrees")
+                    check(same >= 0.999 and flag, f"bf16 composite, group {k}: row 3 bf16 n_contrib or stop disagrees")
+                    err = max(err, dr.max().item())
+            return n_c, state, live, live_in, err, plain_ms
+
+        n16, s16, live16, live_in16, errs["composite_fwd_chained"], f_plain = walk_forward("bfloat16", True)
+        n32, s32, live32, live_in32, _, _ = walk_forward("float32", False)
+        g_img = torch.randn(1, h, w, 3, generator=torch.Generator().manual_seed(3)).to(dev)
+
+        def path_groups(live):
+            return next((k + 1 for k, x in enumerate(live) if x == 0), len(live))
+
+        def walk_backward(dtype, n_c, t_final, compare):
+            """The live groups farthest first from the seeds (background 0);
+            ``compare``: the nearest BF16_PLAIN_GROUPS of them against the
+            plain version from the kernel's incoming carry. -> the live
+            groups, the largest error, the plain calls' ms."""
+            live_groups = [k for k, n in enumerate(n_c) if int(n.amax()) > 0]
+            carry = BwdCarry(t_final.clone(), torch.zeros_like(t_final))
+            err, plain_ms = 0.0, 0.0
+            for k in reversed(live_groups):
+                inst = groups[k]
+                args = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, n_c[k], g_img)
+                incoming = BwdCarry(*(x.clone() for x in carry))
+                d_k, carry = composite_bwd_chained(*args, carry, shape, dtype)
+                if compare and k in live_groups[:BF16_PLAIN_GROUPS]:
+                    (want, want_carry), ms = lap(lambda: composite_bwd_chained_plain(*args, incoming, shape, dtype))
+                    plain_ms += ms
+                    rel = (d_k - want).abs().max().item() / want.abs().max().item()
+                    carry_rel = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(carry, want_carry))
+                    print(
+                        f"bf16 composite, {label}, group {k}: row 5 bf16 vs its plain version {rel:.3e} of the largest "
+                        f"row entry, the carry {carry_rel:.3e} of its largest entry"
+                    )
+                    check(rel <= 1e-5 and carry_rel <= 1e-5, f"bf16 composite, group {k}: row 5 bf16 disagrees")
+                    err = max(err, (d_k - want).abs().max().item())
+            return live_groups, err, plain_ms
+
+        live_groups16, errs["composite_bwd_chained"], b_plain = walk_backward("bfloat16", n16, s16.t, True)
+        live_groups32, _, _ = walk_backward("float32", n32, s32.t, False)
+
+        def time_walks(dtype, n_c, t_final, n_path, live_groups):
+            """Device ms of the forward's n_path launches and of the
+            backward's launches on the live groups (one event pair each; a
+            device spin lets the host enqueue them all first), median of 3."""
+            fwd, bwd = [], []
+            for _ in range(3):
+                state = initial_chain_state(1, shape, dev)
+                carry = BwdCarry(t_final.clone(), torch.zeros_like(t_final))
+                torch.cuda.synchronize()
+                torch.cuda._sleep(100_000_000)
+                pairs_f, pairs_b = [], []
+                for inst in groups[:n_path]:
+                    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                    composite_chained(rows, inst.gaussian_id, inst.starts, inst.counts, state, shape, None, dtype)
+                    ev[1].record()
+                    pairs_f.append(ev)
+                for k in reversed(live_groups):
+                    inst = groups[k]
+                    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                    composite_bwd_chained(rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, n_c[k], g_img,
+                                          carry, shape, dtype)
+                    ev[1].record()
+                    pairs_b.append(ev)
+                torch.cuda.synchronize()
+                fwd.append(sum(a.elapsed_time(b) for a, b in pairs_f))
+                bwd.append(sum(a.elapsed_time(b) for a, b in pairs_b))
+            return statistics.median(fwd), statistics.median(bwd)
+
+        chained = {}
+        for dtype, n_c, st, live, live_in, live_groups in (
+            ("bfloat16", n16, s16, live16, live_in16, live_groups16),
+            ("float32", n32, s32, live32, live_in32, live_groups32),
+        ):
+            n_path = path_groups(live)
+            f_ms, b_ms = time_walks(dtype, n_c, st.t, n_path, live_groups)
+            f_evals = sum(n_c[k].long().sum().item() for k in range(n_path))
+            f_hits = sum(gated_hits(torch, rows, groups[k], n_c[k]) for k in range(n_path))
+            # a group's outgoing live mask is the next group's incoming one (the last: the final state's)
+            outs = [*live_in[1:], st.p_raw >= 1e-4]
+            f_bytes = sum(chained_fwd_bytes(torch, groups[k], live_in[k], outs[k], n_c[k])[0] for k in range(n_path))
+            b_evals = sum(n_c[k].long().sum().item() for k in live_groups)
+            b_hits = sum(gated_hits(torch, rows, groups[k], n_c[k]) for k in live_groups)
+            b_bytes = sum(chained_bwd_bytes(torch, groups[k], n_c[k])[0] for k in live_groups)
+            f_bound, f_by = composite_bound(f_bytes, f_evals, f_hits, OPS_PER_FWD_HIT, dtype)
+            b_bound, b_by = composite_bound(b_bytes, b_evals, b_hits, OPS_PER_BWD_HIT, dtype)
+            chained[dtype] = {
+                "fwd": {"ms": f_ms, "bound_ms": f_bound, "bound_by": f_by, "launches_per_view": n_path,
+                        "evaluations": f_evals, "gated_hits": f_hits, "bytes_needed": f_bytes},
+                "bwd": {"ms": b_ms, "bound_ms": b_bound, "bound_by": b_by, "live_groups": live_groups,
+                        "evaluations": b_evals, "gated_hits": b_hits, "bytes_needed": b_bytes},
+            }
+            print(
+                f"bf16 composite, {label}, {dtype}: row 3 {f_ms:.4f} ms device over the {n_path} launches the path "
+                f"makes, bound {f_bound:.4f} ms by {f_by}; row 5 {b_ms:.4f} ms device over the live groups "
+                f"{live_groups}, bound {b_bound:.4f} ms by {b_by} on {card}"
+            )
+    del rows, groups, n16, n32, s16, s32, g_img
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_start
+    print(f"phase 35 (bf16 composite): {phase_s:.1f} s wall on {card}")
+    check(phase_s <= 120.0, f"phase 35 took {phase_s:.1f} s, more than its 120 s")
+
+    def entry(name, source, replaces, counter, fig, fig32, plain_ms, extra):
+        return {
+            "name": name, "route": "cuda", "source": f"my_depthsplat_torch/csrc/{source}",
+            "replaces": f"my_depthsplat_tpu/render/pallas_raster.py:{replaces}", "launches": launches[counter],
+            "max_abs_err": errs[counter.removesuffix("_bf16")], "ms": fig["ms"], "plain_ms": plain_ms,
+            "bound_ms": fig["bound_ms"], "bound_by": fig["bound_by"], "library_ms": None,
+            "float32_ms": fig32["ms"], **extra,
+        }
+
+    common = {"path_s": path_s, "phase_s": phase_s, "vs_float32": vs_float32}
+    return [
+        entry("composite_fwd_bf16", "composite_fwd.cu", 162, "composite_fwd_bf16", flat["bfloat16"]["composite_fwd"],
+              flat["float32"]["composite_fwd"], flat["bfloat16"]["composite_fwd"]["plain_ms"], common),
+        entry("composite_bwd_bf16", "composite_bwd.cu", 322, "composite_bwd_bf16", flat["bfloat16"]["composite_bwd"],
+              flat["float32"]["composite_bwd"], flat["bfloat16"]["composite_bwd"]["plain_ms"],
+              {"scatter_reduce_on_its_rows": flat["bfloat16"]["scatter_reduce"]}),
+        entry("composite_fwd_chained_bf16", "composite_fwd.cu", 172, "composite_fwd_chained_bf16",
+              chained["bfloat16"]["fwd"], chained["float32"]["fwd"], f_plain,
+              {**chained["bfloat16"]["fwd"], "plain_groups": BF16_PLAIN_GROUPS}),
+        entry("composite_bwd_chained_bf16", "composite_bwd.cu", 342, "composite_bwd_chained_bf16",
+              chained["bfloat16"]["bwd"], chained["float32"]["bwd"], b_plain,
+              {**chained["bfloat16"]["bwd"], "plain_groups": BF16_PLAIN_GROUPS}),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -4988,6 +5365,9 @@ def main() -> int:
     # ---- phase 29: the depth-range-sharded render of a served view, 2 ranks
     # sharing the card over gloo
     sharded = sharded_render_phase(torch, dev, card, *served_scene)
+    re10k_view0 = ([x.cpu() for x in (served_scene[0].means, served_scene[0].covariances, served_scene[0].harmonics,
+                                      served_scene[0].opacities)],
+                   {k: served_scene[1][k][:, :1].cpu() for k in ("extrinsics", "intrinsics", "near", "far")})
     del served_scene
     gc.collect()
     torch.cuda.empty_cache()
@@ -4998,7 +5378,7 @@ def main() -> int:
     re10k_train_launches, row5_entry, chained_training, trained_layouts = train_re10k(
         torch, dev, card, reset_counters, read_counters, uncounted
     )
-    small_launches, small_timing = train_re10k_small(torch, dev, card, reset_counters, read_counters)
+    small_launches, small_timing, small_microbatch = train_re10k_small(torch, dev, card, reset_counters, read_counters)
 
     # ---- phase 30: re10k_small through the CLI under torchrun, 2 ranks on
     # the card, on the data axis and on the model axis
@@ -5006,6 +5386,23 @@ def main() -> int:
     torchrun = train_cli_torchrun(torch, card)
     new_paths.update(sharded["launches"])
     new_paths.update(torchrun["launches"])
+
+    # ---- phase 35: the bf16 composite (rows 2-5 in bf16) on phase 4's served
+    # arkit scene, phase 11's request 0 view 0 and a re10k_small microbatch
+    def on_card(leaves, views, repeat):
+        cams = [views[k].reshape(-1, *views[k].shape[2:]).to(dev) for k in ("extrinsics", "intrinsics", "near", "far")]
+        return [x.to(dev).repeat_interleave(repeat, 0) for x in leaves], cams
+
+    torch.cuda.empty_cache()
+    bf16_parts = {
+        "arkit_promptda served scene 0": (*on_card(served_leaves, tgt0, 1), shape),
+        "re10k_720p_fast request 0 view 0": (*on_card(*re10k_view0, 1), RE10K_SHAPE),
+        "re10k_small microbatch": (*on_card(*small_microbatch, N_TARGET), SMALL_SHAPE),
+    }
+    bf16_entries = bf16_phase(torch, dev, card, bf16_parts, reset_counters, read_counters)
+    del bf16_parts, re10k_view0, small_microbatch
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # A and B: times at the served scene's shapes, launches from the serving
     # run. C and D: times at the training batch's shapes, launches from the
@@ -5065,6 +5462,7 @@ def main() -> int:
                               ("re10k_large", large_cli), ("video_720p", video_cli))
            for k, r in runs.items()},
     }
+    kernels += bf16_entries
     kernels[0]["option_phases"] = options
     kernels[0]["multi_rank"] = {
         "note": "2 ranks share 1 card; not a multi-card speed",

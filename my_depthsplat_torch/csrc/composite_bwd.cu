@@ -103,6 +103,32 @@
 // Instance l's row goes to d_inst[dst[l]]: the caller passes the key sort's
 // permutation, so the rows land in gaussian-major order for the segmented
 // reduction that follows (scatter_reduce.cu).
+//
+// bfloat16 (composite_bwd_bf16, composite_bwd_chained_bf16; the reference's
+// composite_dtype="bfloat16", pallas_raster.py:443-456): the same kernel
+// instantiated with C = __nv_bfloat16, the gate as composite_fwd.cu's bf16
+// instantiation decides it. The transmittance before instance i of a chunk
+// (256 instances counted from the run's first, as the forward counts them)
+// is T_i = (ta / Q_c) q_(i-1): q the chunk's bf16 running product of
+// bf16(max(1 - alpha, 1e-6)) over the pixel's hits up to its n_contrib,
+// Q_c its last value, ta the transmittance after the chunk. The walk goes
+// back to front, so q_(i-1) is not had by division. Design:
+// - on entering a chunk (its last batch), each pixel walks the chunk's
+//   instances forward once, reading the rows through the ids from global
+//   memory (every lane of a warp at one address: a broadcast from L1), and
+//   keeps q at each of the chunk's four batch starts and Q_c; ta becomes
+//   ta / Q_c, which is also the carry for the next, nearer chunk;
+// - before the walk of a batch, each pixel runs forward over the batch's
+//   staged candidates from the batch's start value and stores q_(i-1) of
+//   each as a bf16 in dynamic shared memory (64 x 256 x 2 B = 32 KB a CTA,
+//   one column per thread); the walk reads it back at each hit.
+// So every pair up to n_contrib costs the gate three times (chunk pass,
+// batch pass, walk) instead of once, and a CTA holds 75 KB of shared
+// memory instead of 43 KB. The strip cull stays, with a slack that covers
+// the bf16 power's rounding (strip_may_pass<C>, composite_common.cuh): a
+// pair it dropped would be missing both from its own rows and from the
+// batch's q. The colour behind, the row gradients and the carries are
+// float32, as in the float32 instantiation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,6 +140,8 @@ namespace {
 using namespace composite;
 
 constexpr int BATCH = 64;  // instances staged per step
+constexpr int CHUNK = 256;  // bf16: instances per chunk of the transmittance's product
+constexpr size_t Q_BYTES = BATCH * NPIX * sizeof(unsigned short);  // bf16: s_q
 
 // One transposing step over 2H values: a lane with bit 4H set keeps values
 // H..2H-1 (moved to 0..H-1) and sends 0..H-1; its partner the reverse.
@@ -148,7 +176,7 @@ __device__ __forceinline__ void warp_sum_rows(const float (&v)[ROWS], bool hit, 
     if (lane == 1) out[8] = r8;
 }
 
-template <bool CHAINED>
+template <bool CHAINED, typename C>
 __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
     const float* __restrict__ rows,      // (N, 9) per-gaussian screen rows
     const int* __restrict__ gid,         // (L,) sorted instance -> gaussian
@@ -168,6 +196,9 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
     __shared__ int s_gid[2][BATCH];
     __shared__ int64_t s_dst[4][BATCH];
     __shared__ int s_max[NWARP];
+    // bf16: q_(i-1) of each candidate of the batch, one column per thread
+    extern __shared__ unsigned short s_q[];  // the bits of a bf16 each
+    constexpr bool BF16 = !std::is_same_v<C, float>;
 
     const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
     const int tile = (b * gy + ty) * gx + tx;
@@ -187,6 +218,8 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
     float T = 1.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
     // g . (colour behind the current instance)
     float gdr = 0.0f;
+    // bf16: q at the starts of the current chunk's four batches
+    float qb0 = 1.0f, qb1 = 1.0f, qb2 = 1.0f, qb3 = 1.0f;
     if (inside) ncon = n_contrib[p];
     // a pixel without a contributor never hits: nothing else of it is read
     if (ncon > 0) {
@@ -258,6 +291,33 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
         if (q > 0) write_rows(q - 1);
 
         const int base = base_of(q);
+        if constexpr (BF16) {
+            // entering a chunk: q at its batch starts and ta / Q_c, from one
+            // forward pass over its instances up to the pixel's n_contrib
+            if ((q == 0 || (base & (CHUNK - 1)) == CHUNK - BATCH) && ncon > 0) {
+                const int c0 = base & ~(CHUNK - 1);
+                const int c1 = min(c0 + CHUNK, ncon);
+                float qq = 1.0f;
+                float qs[CHUNK / BATCH];
+#pragma unroll
+                for (int k = 0; k < CHUNK / BATCH; ++k) {
+                    qs[k] = qq;
+                    const int hi = min(c0 + (k + 1) * BATCH, c1);
+                    for (int i = c0 + k * BATCH; i < hi; ++i) {
+                        const float* r = rows + (size_t)__ldg(gid + start + i) * ROWS;
+                        float dx, dy, e, alpha;
+                        if (gate<C>(px, py, __ldg(r), __ldg(r + 1), __ldg(r + 2), __ldg(r + 3), __ldg(r + 4),
+                                    __ldg(r + 5), dx, dy, e, alpha))
+                            qq = rnd<C>(qq * rnd<C>(fmaxf(1.0f - alpha, 1e-6f)));
+                    }
+                }
+                qb0 = qs[0];
+                qb1 = qs[1];
+                qb2 = qs[2];
+                qb3 = qs[3];
+                T = T / qq;
+            }
+        }
         const float* s = s_row[q & 1];
         float* part = s_part[q & 1][warp];
         const int n = size_of(q);
@@ -270,9 +330,25 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
         // the instances of 0..m-1 that a pixel of the warp's 16x2 strip may
         // hit, one lane testing each; walked last first
         const float x0 = (float)(tx * TILE), y0 = (float)(ty * TILE + 2 * warp);
-        const unsigned lo = __ballot_sync(FULL, lane < m && strip_may_pass(s + lane * ROWS, x0, y0));
-        const unsigned hi = __ballot_sync(FULL, lane + 32 < m && strip_may_pass(s + (lane + 32) * ROWS, x0, y0));
+        const unsigned lo = __ballot_sync(FULL, lane < m && strip_may_pass<C>(s + lane * ROWS, x0, y0));
+        const unsigned hi =
+            __ballot_sync(FULL, lane + 32 < m && strip_may_pass<C>(s + (lane + 32) * ROWS, x0, y0));
         unsigned long long todo = (unsigned long long)hi << 32 | lo;
+        if constexpr (BF16) {
+            // q_(i-1) of each candidate, forward from the batch's start
+            const int k = (base & (CHUNK - 1)) / BATCH;
+            float qq = k == 0 ? qb0 : k == 1 ? qb1 : k == 2 ? qb2 : qb3;
+            for (unsigned long long rest = todo; rest; rest &= rest - 1) {
+                const int j = __ffsll((long long)rest) - 1;
+                s_q[j * NPIX + t] = __bfloat16_as_ushort(__float2bfloat16_rn(qq));
+                if (base + j < ncon) {
+                    const float* r = s + j * ROWS;
+                    float dx, dy, e, alpha;
+                    if (gate<C>(px, py, r[0], r[1], r[2], r[3], r[4], r[5], dx, dy, e, alpha))
+                        qq = rnd<C>(qq * rnd<C>(fmaxf(1.0f - alpha, 1e-6f)));
+                }
+            }
+        }
         while (todo) {
             const int j = 63 - __clzll(todo);
             todo ^= 1ull << j;
@@ -280,34 +356,29 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
             float v[ROWS];
             bool hit = false;
             if (base + j < ncon) {
-                const float dx = px - r[0];
-                const float dy = py - r[1];
                 const float ca = r[2], cb = r[3], cc = r[4], op = r[5];
-                const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-                if (power <= 0.0f && may_pass(power, op)) {
-                    const float e = expf(power);
-                    const float u = op * e;
-                    const float alpha = u > ALPHA_MAX ? ALPHA_MAX : u;
-                    if (alpha >= ALPHA_MIN) {
-                        hit = true;
-                        const float om = fmaxf(1.0f - alpha, 1e-6f);
-                        const float t_i = T / om;
-                        const float wgt = alpha * t_i;
-                        const float gc = g0 * r[6] + g1 * r[7] + g2 * r[8];
-                        const float da = t_i * gc - gdr / om;
-                        const float d_power = op * e * da;
-                        v[0] = d_power * (ca * dx + cb * dy);
-                        v[1] = d_power * (cc * dy + cb * dx);
-                        v[2] = d_power * (-0.5f * dx * dx);
-                        v[3] = d_power * (-dx * dy);
-                        v[4] = d_power * (-0.5f * dy * dy);
-                        v[5] = e * da;
-                        v[6] = wgt * g0;
-                        v[7] = wgt * g1;
-                        v[8] = wgt * g2;
-                        gdr += gc * wgt;
-                        T = t_i;
-                    }
+                float dx, dy, e, alpha;
+                if (gate<C>(px, py, r[0], r[1], ca, cb, cc, op, dx, dy, e, alpha)) {
+                    hit = true;
+                    const float om = fmaxf(1.0f - alpha, 1e-6f);
+                    // bf16: T is ta before the chunk
+                    const float t_i =
+                        BF16 ? T * __bfloat162float(__ushort_as_bfloat16(s_q[j * NPIX + t])) : T / om;
+                    const float wgt = alpha * t_i;
+                    const float gc = g0 * r[6] + g1 * r[7] + g2 * r[8];
+                    const float da = t_i * gc - gdr / om;
+                    const float d_power = op * e * da;
+                    v[0] = d_power * (ca * dx + cb * dy);
+                    v[1] = d_power * (cc * dy + cb * dx);
+                    v[2] = d_power * (-0.5f * dx * dx);
+                    v[3] = d_power * (-dx * dy);
+                    v[4] = d_power * (-0.5f * dy * dy);
+                    v[5] = e * da;
+                    v[6] = wgt * g0;
+                    v[7] = wgt * g1;
+                    v[8] = wgt * g2;
+                    gdr += gc * wgt;
+                    if (!BF16) T = t_i;
                 }
             }
             if (!hit) {
@@ -325,6 +396,24 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
     }
 }
 
+template <bool CHAINED, typename C>
+int launch(
+    const float* rows, const int* gid, const int64_t* dst, const int* starts, const int* counts,
+    const float* bg, const float* t_final, const int* n_contrib, const float* g_img, int b, int gy,
+    int gx, int h, int w, float* ta, float* g_dot_ra, float* d_inst, void* stream) {
+    size_t smem = 0;
+    if constexpr (!std::is_same_v<C, float>) {
+        smem = Q_BYTES;  // above the 48 KB of static and dynamic shared memory a launch gets unasked
+        const cudaError_t err = cudaFuncSetAttribute(
+            composite_bwd_kernel<CHAINED, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const dim3 grid(gx, gy, b);
+    composite_bwd_kernel<CHAINED, C><<<grid, NPIX, smem, (cudaStream_t)stream>>>(
+        rows, gid, dst, starts, counts, bg, t_final, n_contrib, g_img, gy, gx, h, w, ta, g_dot_ra, d_inst);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int composite_bwd(
@@ -332,11 +421,18 @@ extern "C" int composite_bwd(
     const int* counts, const float* bg, const float* t_final, const int* n_contrib,
     const float* g_img, int b, int gy, int gx, int h, int w, float* d_inst,
     void* stream) {
-    const dim3 grid(gx, gy, b);
-    composite_bwd_kernel<false><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
-        rows, gid, dst, starts, counts, bg, t_final, n_contrib, g_img, gy, gx, h, w,
-        nullptr, nullptr, d_inst);
-    return (int)cudaGetLastError();
+    return launch<false, float>(rows, gid, dst, starts, counts, bg, t_final, n_contrib, g_img, b, gy, gx, h, w,
+                                nullptr, nullptr, d_inst, stream);
+}
+
+// The bf16 instantiation, same arguments.
+extern "C" int composite_bwd_bf16(
+    const float* rows, const int* gid, const int64_t* dst, const int* starts,
+    const int* counts, const float* bg, const float* t_final, const int* n_contrib,
+    const float* g_img, int b, int gy, int gx, int h, int w, float* d_inst,
+    void* stream) {
+    return launch<false, __nv_bfloat16>(rows, gid, dst, starts, counts, bg, t_final, n_contrib, g_img, b, gy, gx,
+                                        h, w, nullptr, nullptr, d_inst, stream);
 }
 
 // One depth group of the reverse walk: resumed from, and written back into,
@@ -345,9 +441,15 @@ extern "C" int composite_bwd_chained(
     const float* rows, const int* gid, const int64_t* dst, const int* starts,
     const int* counts, const int* n_contrib, const float* g_img, int b, int gy,
     int gx, int h, int w, float* ta, float* g_dot_ra, float* d_inst, void* stream) {
-    const dim3 grid(gx, gy, b);
-    composite_bwd_kernel<true><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
-        rows, gid, dst, starts, counts, nullptr, nullptr, n_contrib, g_img, gy, gx, h, w,
-        ta, g_dot_ra, d_inst);
-    return (int)cudaGetLastError();
+    return launch<true, float>(rows, gid, dst, starts, counts, nullptr, nullptr, n_contrib, g_img, b, gy, gx, h, w,
+                               ta, g_dot_ra, d_inst, stream);
+}
+
+// The bf16 instantiation, same arguments.
+extern "C" int composite_bwd_chained_bf16(
+    const float* rows, const int* gid, const int64_t* dst, const int* starts,
+    const int* counts, const int* n_contrib, const float* g_img, int b, int gy,
+    int gx, int h, int w, float* ta, float* g_dot_ra, float* d_inst, void* stream) {
+    return launch<true, __nv_bfloat16>(rows, gid, dst, starts, counts, nullptr, nullptr, n_contrib, g_img, b, gy,
+                                       gx, h, w, ta, g_dot_ra, d_inst, stream);
 }

@@ -83,6 +83,21 @@
 //   too small to pay for a tensor map and an mbarrier. No tensor cores: the
 //   gates must decide every pair exactly in float32, and the per-pixel walk
 //   is a sequential scan with a data-dependent stop, not a product.
+//
+// bfloat16 (composite_fwd_bf16, composite_fwd_chained_bf16; the reference's
+// composite_dtype="bfloat16", pallas_raster.py:246-257): the same kernel
+// instantiated with C = __nv_bfloat16. The gate's quadratic runs in bf16
+// (gate<C>, composite_common.cuh), and the transmittance is the reference's
+// chunked product: a chunk is one staging batch, 256 instances counted from
+// the run's first, so a chained launch starts its chunks afresh. Inside a
+// chunk q, the running product of f = bf16(1 - alpha), is rounded to bf16
+// after every multiply (held in a float: a float product of two bf16 values
+// is exact, then one rounding); the float P carries it across chunks
+// (P <- P q at a chunk's end, seeded with the carried p_raw). A hit is
+// included while P q_i >= 1e-4 (else the pixel stops, sticky as before)
+// with weight alpha (P q_(i-1)); T is the last included P q_i, so T = P for
+// a pixel still live and p_raw is written as in float32. The state stays
+// float32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,7 +111,7 @@ using namespace composite;
 constexpr int BATCH = NPIX;  // instances staged per step: one per thread
 constexpr int RSTRIDE = 12;  // floats per row in shared memory: three float4
 
-template <bool CHAINED>
+template <bool CHAINED, typename C>
 __global__ void __launch_bounds__(NPIX) composite_fwd_kernel(
     const float* __restrict__ rows,    // (N, 9) per-gaussian screen rows
     const int* __restrict__ gid,       // (L,) sorted instance -> gaussian
@@ -141,6 +156,9 @@ __global__ void __launch_bounds__(NPIX) composite_fwd_kernel(
         }
     }
 
+    constexpr bool BF16 = !std::is_same_v<C, float>;
+    float P = praw;  // bf16: the product carried from the run's earlier chunks
+
     const float4* s = reinterpret_cast<const float4*>(s_row);
     for (int base = 0; base < count; base += BATCH) {
         // barrier: the previous batch is walked before it is overwritten
@@ -152,30 +170,35 @@ __global__ void __launch_bounds__(NPIX) composite_fwd_kernel(
         }
         __syncthreads();
         const int n = min(BATCH, count - base);
+        float q = 1.0f;  // bf16: the chunk's running product
         // a warp whose 32 pixels have all stopped leaves the loop at once
         for (int j = 0; j < n && !done; ++j) {
             const float4 r0 = s[3 * j];      // x, y, conic a, b
             const float4 r1 = s[3 * j + 1];  // conic c, opacity, r, g
-            const float dx = px - r0.x;
-            const float dy = py - r0.y;
-            const float power = -0.5f * (r0.z * dx * dx + r1.x * dy * dy) - r0.w * dx * dy;
-            if (!(power <= 0.0f && may_pass(power, r1.y))) continue;
-            const float v = r1.y * expf(power);
-            const float alpha = v > ALPHA_MAX ? ALPHA_MAX : v;
-            if (!(alpha >= ALPHA_MIN)) continue;
-            const float test_t = T * (1.0f - alpha);
+            float dx, dy, e, alpha;
+            if (!gate<C>(px, py, r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, dx, dy, e, alpha)) continue;
+            float test_t, wgt, qn = 1.0f;
+            if constexpr (BF16) {
+                qn = rnd<C>(q * rnd<C>(1.0f - alpha));
+                test_t = P * qn;
+                wgt = alpha * (P * q);
+            } else {
+                test_t = T * (1.0f - alpha);
+                wgt = alpha * T;
+            }
             if (test_t < TRANSMITTANCE_EPS) {
                 done = true;
                 praw = test_t;
                 break;
             }
-            const float wgt = alpha * T;
             c0 += wgt * r1.z;
             c1 += wgt * r1.w;
             c2 += wgt * s[3 * j + 2].x;
             T = test_t;
+            q = qn;
             last = base + j + 1;
         }
+        if constexpr (BF16) P = P * q;  // the chunk's end
     }
     if (CHAINED && live != nullptr) {
         const int n_live = __syncthreads_count(!done);  // outside pixels count as done
@@ -200,16 +223,44 @@ __global__ void __launch_bounds__(NPIX) composite_fwd_kernel(
     n_contrib[p] = last;
 }
 
+template <typename C>
+int launch_flat(
+    const float* rows, const int* gid, const int* starts, const int* counts,
+    const float* bg, int b, int gy, int gx, int h, int w, float* image,
+    float* t_final, int* n_contrib, void* stream) {
+    const dim3 grid(gx, gy, b);
+    composite_fwd_kernel<false, C><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
+        rows, gid, starts, counts, bg, gy, gx, h, w, image, t_final, nullptr, n_contrib, nullptr);
+    return (int)cudaGetLastError();
+}
+
+template <typename C>
+int launch_chained(
+    const float* rows, const int* gid, const int* starts, const int* counts,
+    int b, int gy, int gx, int h, int w, float* rgb, float* t_frozen,
+    float* p_raw, int* n_contrib, void* stream, int* live) {
+    const dim3 grid(gx, gy, b);
+    composite_fwd_kernel<true, C><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
+        rows, gid, starts, counts, nullptr, gy, gx, h, w, rgb, t_frozen, p_raw, n_contrib, live);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int composite_fwd(
     const float* rows, const int* gid, const int* starts, const int* counts,
     const float* bg, int b, int gy, int gx, int h, int w, float* image,
     float* t_final, int* n_contrib, void* stream) {
-    const dim3 grid(gx, gy, b);
-    composite_fwd_kernel<false><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
-        rows, gid, starts, counts, bg, gy, gx, h, w, image, t_final, nullptr, n_contrib, nullptr);
-    return (int)cudaGetLastError();
+    return launch_flat<float>(rows, gid, starts, counts, bg, b, gy, gx, h, w, image, t_final, n_contrib, stream);
+}
+
+// The bf16 instantiation, same arguments.
+extern "C" int composite_fwd_bf16(
+    const float* rows, const int* gid, const int* starts, const int* counts,
+    const float* bg, int b, int gy, int gx, int h, int w, float* image,
+    float* t_final, int* n_contrib, void* stream) {
+    return launch_flat<__nv_bfloat16>(rows, gid, starts, counts, bg, b, gy, gx, h, w, image, t_final, n_contrib,
+                                      stream);
 }
 
 // One depth group resumed from, and written back into, the state arrays rgb,
@@ -221,8 +272,15 @@ extern "C" int composite_fwd_chained(
     const float* rows, const int* gid, const int* starts, const int* counts,
     int b, int gy, int gx, int h, int w, float* rgb, float* t_frozen,
     float* p_raw, int* n_contrib, void* stream, int* live) {
-    const dim3 grid(gx, gy, b);
-    composite_fwd_kernel<true><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
-        rows, gid, starts, counts, nullptr, gy, gx, h, w, rgb, t_frozen, p_raw, n_contrib, live);
-    return (int)cudaGetLastError();
+    return launch_chained<float>(rows, gid, starts, counts, b, gy, gx, h, w, rgb, t_frozen, p_raw, n_contrib,
+                                 stream, live);
+}
+
+// The bf16 instantiation, same arguments.
+extern "C" int composite_fwd_chained_bf16(
+    const float* rows, const int* gid, const int* starts, const int* counts,
+    int b, int gy, int gx, int h, int w, float* rgb, float* t_frozen,
+    float* p_raw, int* n_contrib, void* stream, int* live) {
+    return launch_chained<__nv_bfloat16>(rows, gid, starts, counts, b, gy, gx, h, w, rgb, t_frozen, p_raw,
+                                         n_contrib, stream, live);
 }

@@ -26,6 +26,22 @@ normalisation, fovs, projection, binning, composite, untiling to
 autograd. The name keeps the reference's, so the two packages line up module
 for module. With CUDA tensors every wrapper launches its kernel or raises;
 ``<wrapper>.launches`` counts kernel runs.
+
+``composite_dtype="bfloat16"`` (reference :921, ``_chunk_alpha`` :129-159,
+:246-257, :443-456) runs the gate's quadratic and each chunk's products of
+(1 - alpha) in bfloat16 on both routes, forward and backward: the pixel
+deltas are float32 rounded to bf16, the quadratic rounds after every
+operation, and exp, alpha and the gates are float32. A chunk is 256
+instances counted from the first instance of a launch's run; inside it the
+running product q rounds to bf16 after every multiply, and a float32
+product P carries it across chunks (forward: included while P q_i >= 1e-4,
+weight alpha P q_(i-1); backward: T_i = (ta / Q_c) q_(i-1) from the
+chunk's total Q_c). The carried state, the carries and the gradient
+assembly stay float32. Each kernel has a bf16 instantiation
+(``<wrapper>.launches_bf16`` counts its runs apart; ``.launches`` counts
+both) and each plain version a bf16 branch (``_composite_chained_plain_bf16``,
+``_composite_bwd_chained_plain_bf16``) that computes every chunk of a block
+of tiles at once.
 """
 
 from __future__ import annotations
@@ -58,6 +74,107 @@ from .instances import (
 from .projection import ScreenGaussians, project_gaussians
 
 _NPIX = TILE_X * TILE_Y
+# bfloat16 composite: instances per chunk of a run, counted from its first
+# instance (reference CHUNK; its windows' 128-aligned start is a DMA
+# alignment and is not carried over)
+_CHUNK = 256
+# bfloat16 plain versions: at most this many chunks (whole tiles) at a time
+_PLAIN_CHUNKS = 96
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a ``composite_dtype`` name; only "float32" and
+    "bfloat16" exist."""
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"composite_dtype must be 'float32' or 'bfloat16', got {name!r}")
+    return _COMPUTE_DTYPES[name]
+
+
+def gate_alpha(px: Tensor, py: Tensor, d: Tensor, cdt: torch.dtype = torch.float32):
+    """The alpha gate of pixels (px, py), each (..., P, 1), against instance
+    rows ``d`` (..., n, 9) (reference ``_chunk_alpha`` :129-159) -> dx, dy
+    (float32 deltas), e = exp(power), alpha = min(0.99, op * e) and the gate
+    (power <= 0 and alpha >= 1/255), each (..., P, n). With ``cdt`` bfloat16
+    the deltas and the conic are rounded to bf16 and the quadratic rounds
+    after every operation, in the reference's order; the power is then
+    widened to float32."""
+    x, y = d[..., None, :, 0], d[..., None, :, 1]
+    ca, cb, cc, op = (d[..., None, :, k] for k in (2, 3, 4, 5))
+    dx, dy = px - x, py - y
+    if cdt == torch.float32:
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    else:
+        bx, by, ba, bb, bc = (v.to(cdt) for v in (dx, dy, ca, cb, cc))
+        power = (-0.5 * (ba * bx * bx + bc * by * by) - bb * bx * by).float()
+    e = torch.exp(power)
+    alpha = torch.minimum(op * e, torch.full_like(power, ALPHA_MAX))
+    return dx, dy, e, alpha, (power <= 0.0) & (alpha >= ALPHA_MIN)
+
+
+def _bf16_running_product(f: Tensor) -> Tensor:
+    """Inclusive running product of bfloat16 factors along the last axis,
+    rounded to bf16 after every multiply (``torch.cumprod`` multiplies in
+    float and rounds once), -> float32. A float32 product of two bf16 values
+    is exact, so one rounding per step is the kernels' own."""
+    steps = f.movedim(-1, 0).contiguous()
+    out = torch.empty_like(steps)
+    q = out[0] = steps[0]
+    for j in range(1, steps.shape[0]):
+        q = out[j] = q * steps[j]
+    return out.movedim(0, -1).float()
+
+
+def _tile_blocks(n_chunks: list[int], budget: int) -> list[list[int]]:
+    """Consecutive tiles with chunks, grouped so that a group holds at most
+    ``budget`` chunks (a tile with more holds a group of its own)."""
+    blocks: list[list[int]] = []
+    size = 0
+    for tile, n in enumerate(n_chunks):
+        if n == 0:
+            continue
+        if not blocks or size + n > budget:
+            blocks.append([])
+            size = 0
+        blocks[-1].append(tile)
+        size += n
+    return blocks
+
+
+class _Chunks(NamedTuple):
+    """The 256-instance chunks of a block of tiles' runs, tile by tile and
+    in run order, with the gate of each of their tile's pixels."""
+
+    loc: Tensor  # (K,) the chunk's tile, as an index into the block
+    idx: Tensor  # (K,) the chunk's position in its run
+    lane: Tensor  # (K, 256) 0-based position in the run of each lane
+    valid: Tensor  # (K, 256) the lane holds an instance
+    inst: Tensor  # (K, 256) sorted instance of each lane (0 where not valid)
+    d: Tensor  # (K, 256, 9) each lane's row
+    gate: tuple  # gate_alpha's (dx, dy, e, alpha, gate), each (K, 256 pixels, 256 lanes)
+
+
+def _chunks(rows, gid, starts, lengths, tiles, image_shape, cdt) -> _Chunks:
+    """The chunks of the runs ``starts[t], lengths[t]`` of the tiles
+    ``tiles`` (a list of flat tile indices) and their bf16 gates."""
+    dev = rows.device
+    gy, gx = tile_grid(image_shape)
+    tiles_t = torch.tensor(tiles, device=dev)
+    n_chunks = (lengths[tiles_t] + _CHUNK - 1) // _CHUNK
+    loc = torch.repeat_interleave(torch.arange(len(tiles), device=dev), n_chunks)
+    tile = tiles_t[loc]
+    first_chunk = torch.cumsum(n_chunks, 0) - n_chunks
+    idx = torch.arange(loc.shape[0], device=dev) - torch.repeat_interleave(first_chunk, n_chunks)
+    lane = idx[:, None] * _CHUNK + torch.arange(_CHUNK, device=dev)
+    valid = lane < lengths[tile][:, None]
+    inst = torch.where(valid, starts[tile][:, None].long() + lane, 0)
+    d = rows[gid[inst].long()]
+    p = torch.arange(_NPIX, device=dev)
+    ty, tx = (tile % (gy * gx)) // gx, tile % gx
+    px = (tx[:, None] * TILE_X + p % TILE_X).float()[..., None]
+    py = (ty[:, None] * TILE_Y + p // TILE_X).float()[..., None]
+    dx, dy, e, alpha, gate = gate_alpha(px, py, d, cdt)
+    return _Chunks(loc, idx, lane, valid, inst, d, (dx, dy, e, alpha, gate & valid[:, None, :]))
 
 
 def screen_rows(sg: ScreenGaussians) -> Tensor:
@@ -88,6 +205,7 @@ def composite_chained_plain(
     counts: Tensor,  # (B*T,) int32
     state: ChainState,
     image_shape: tuple[int, int],
+    compute_dtype: str = "float32",
 ) -> tuple[ChainState, Tensor]:
     """Per-tile loop resumed from ``state``; inside a tile, a cumulative
     product seeded with the carried ``p_raw`` reproduces the sticky stop (an
@@ -95,7 +213,10 @@ def composite_chained_plain(
     >= 1e-4; a pixel whose carried ``p_raw`` is already below never includes
     again). Returns the new state (new tensors) and n_contrib (B, H, W)
     int32, the 1-based position in this call's run of the last contributor.
-    No background: the caller adds ``t * background`` after the last group."""
+    No background: the caller adds ``t * background`` after the last group.
+    ``compute_dtype="bfloat16"``: ``_composite_chained_plain_bf16``."""
+    if compute_dtype_of(compute_dtype) == torch.bfloat16:
+        return _composite_chained_plain_bf16(rows, gid, starts, counts, state, image_shape)
     h, w = image_shape
     b = state.t.shape[0]
     gy, gx = tile_grid(image_shape)
@@ -113,12 +234,7 @@ def composite_chained_plain(
         d = rows[gid[start : start + count].long()]  # (n, 9)
         px = (tx * TILE_X + col).float()[:, None]
         py = (ty * TILE_Y + row).float()[:, None]
-        dx = px - d[None, :, 0]
-        dy = py - d[None, :, 1]
-        ca, cb, cc, op = d[None, :, 2], d[None, :, 3], d[None, :, 4], d[None, :, 5]
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        alpha = torch.minimum(op * torch.exp(power), torch.full_like(power, ALPHA_MAX))
-        gate = (power <= 0.0) & (alpha >= ALPHA_MIN)
+        _, _, _, alpha, gate = gate_alpha(px, py, d)
         a = torch.where(gate, alpha, torch.zeros_like(alpha))
         p0, t0 = p_t[tile][:, None], t_t[tile][:, None]
         cp = torch.cumprod(torch.cat([p0, 1.0 - a], dim=1), dim=1)
@@ -138,6 +254,52 @@ def composite_chained_plain(
     return ChainState(untile(rgb_t), untile(t_t), untile(p_t)), untile(n_t)
 
 
+def _composite_chained_plain_bf16(rows, gid, starts, counts, state, image_shape):
+    """``composite_chained_plain`` with the bf16 gate and chunk products
+    (reference :246-257): per chunk, q the bf16 running product of
+    bf16(1 - a); P, the float32 product carried from the run's earlier
+    chunks (seeded with the carried p_raw), is multiplied by each chunk's
+    total at its end. An instance is included while P q_i >= 1e-4 (q_i
+    falls with i, so the stop is sticky) with weight a P q_(i-1); the frozen
+    T is the last included P q_i and p_raw the product over the whole run."""
+    h, w = image_shape
+    b = state.t.shape[0]
+    gy, gx = tile_grid(image_shape)
+    rgb_t = _tile_major(state.rgb, image_shape)
+    t_t = _tile_major(state.t, image_shape)
+    p_t = _tile_major(state.p_raw, image_shape)
+    n_t = torch.zeros_like(p_t, dtype=torch.int32)
+    n_chunks = ((counts + _CHUNK - 1) // _CHUNK).tolist()
+    for tiles in _tile_blocks(n_chunks, _PLAIN_CHUNKS):
+        c = _chunks(rows, gid, starts, counts, tiles, image_shape, torch.bfloat16)
+        _, _, _, alpha, gate = c.gate
+        a = torch.where(gate, alpha, torch.zeros_like(alpha))
+        q = _bf16_running_product((1.0 - a).to(torch.bfloat16))  # (K, P, 256)
+        q_prev = torch.cat([torch.ones_like(q[..., :1]), q[..., :-1]], -1)
+        carried = torch.empty_like(q[..., 0])
+        cur = p_t[tiles]
+        for k in range(int(c.idx.max()) + 1):  # a tile's chunks in run order
+            sel = (c.idx == k).nonzero()[:, 0]
+            carried[sel] = cur[c.loc[sel]]
+            cur[c.loc[sel]] = carried[sel] * q[sel, :, -1]
+        p_full = carried[..., None] * q
+        include = p_full >= TRANSMITTANCE_EPS
+        weight = torch.where(include, a * (carried[..., None] * q_prev), torch.zeros_like(a))
+        tile_idx = torch.tensor(tiles, device=rows.device)[c.loc]
+        rgb_t.index_add_(0, tile_idx, torch.bmm(weight, c.d[..., 6:9]))
+        frozen = torch.where(include, p_full, torch.full_like(p_full, float("inf"))).amin(-1)
+        t_t.scatter_reduce_(0, tile_idx[:, None].expand_as(frozen), frozen, "amin")
+        last = torch.where(weight > 0.0, c.lane[:, None, :] + 1, 0).amax(-1).int()
+        n_t.scatter_reduce_(0, tile_idx[:, None].expand_as(last), last, "amax")
+        p_t[tiles] = cur
+
+    def untile(x: Tensor) -> Tensor:
+        x = x.reshape(b, gy, gx, TILE_Y, TILE_X, *x.shape[2:]).transpose(2, 3)
+        return x.reshape(b, gy * TILE_Y, gx * TILE_X, *x.shape[5:])[:, :h, :w].contiguous()
+
+    return ChainState(untile(rgb_t), untile(t_t), untile(p_t)), untile(n_t)
+
+
 def composite_plain(
     rows: Tensor,  # (N, 9)
     gid: Tensor,  # (L,) int32
@@ -145,12 +307,13 @@ def composite_plain(
     counts: Tensor,  # (B*T,) int32
     background: Tensor,  # (B, 3)
     image_shape: tuple[int, int],
+    compute_dtype: str = "float32",
 ) -> tuple[Tensor, Tensor, Tensor]:
     """The chained plain composite from the initial state, plus the
     background. Returns image (B, H, W, 3), T_final (B, H, W), n_contrib
     (B, H, W) int32."""
     state = initial_chain_state(background.shape[0], image_shape, rows.device)
-    (rgb, t, _), n = composite_chained_plain(rows, gid, starts, counts, state, image_shape)
+    (rgb, t, _), n = composite_chained_plain(rows, gid, starts, counts, state, image_shape, compute_dtype)
     return rgb + t[..., None] * background[:, None, None, :], t, n
 
 
@@ -183,6 +346,7 @@ def composite_bwd_chained_plain(
     g_img: Tensor,  # (B, H, W, 3) image cotangent
     carry: BwdCarry,
     image_shape: tuple[int, int],
+    compute_dtype: str = "float32",
 ) -> tuple[Tensor, BwdCarry]:
     """Per-tile loop over the live range (up to the tile's largest
     n_contrib), resumed from ``carry``: T_i by division from the carried ta,
@@ -191,7 +355,12 @@ def composite_bwd_chained_plain(
     clamp is ignored in the gradient, as there). Returns (L, 9) with sorted
     instance l's row at ``dst[l]``, and the new carry (new tensors): ta
     before the run's first instance, g_dot_ra with the run's colour added. A
-    pixel with n_contrib = 0 keeps its carry."""
+    pixel with n_contrib = 0 keeps its carry. ``compute_dtype="bfloat16"``:
+    ``_composite_bwd_chained_plain_bf16``."""
+    if compute_dtype_of(compute_dtype) == torch.bfloat16:
+        return _composite_bwd_chained_plain_bf16(
+            rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape
+        )
     gy, gx = tile_grid(image_shape)
     n_tiles = gy * gx
     b = n_contrib.shape[0]
@@ -210,14 +379,12 @@ def composite_bwd_chained_plain(
         ty, tx = divmod(tile % n_tiles, gx)
         d = rows[gid[start : start + live].long()]  # (n, 9)
         g = g_t[tile]  # (256, 3)
-        dx = (tx * TILE_X + col).float()[:, None] - d[None, :, 0]
-        dy = (ty * TILE_Y + row).float()[:, None] - d[None, :, 1]
+        px = (tx * TILE_X + col).float()[:, None]
+        py = (ty * TILE_Y + row).float()[:, None]
+        dx, dy, e, alpha, gate = gate_alpha(px, py, d)
         ca, cb, cc, op = d[None, :, 2], d[None, :, 3], d[None, :, 4], d[None, :, 5]
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        e = torch.exp(power)
-        alpha = torch.minimum(op * e, torch.full_like(power, ALPHA_MAX))
         pos = torch.arange(1, live + 1, dtype=torch.int32, device=dev)
-        gate = (power <= 0.0) & (alpha >= ALPHA_MIN) & (pos[None] <= nc_t[tile][:, None])
+        gate = gate & (pos[None] <= nc_t[tile][:, None])
         zero = torch.zeros_like(alpha)
         a = torch.where(gate, alpha, zero)
         om = torch.clamp(1.0 - a, min=1e-6)
@@ -255,6 +422,83 @@ def composite_bwd_chained_plain(
     return d_inst, BwdCarry(untile(ta_t), untile(gdr_t))
 
 
+def _composite_bwd_chained_plain_bf16(rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape):
+    """``composite_bwd_chained_plain`` with the bf16 gate and chunk products
+    (reference :443-456), the chunks of each tile's live range walked
+    farthest first: q the chunk's bf16 running product of
+    bf16(max(1 - a, 1e-6)), with factor 1 past the pixel's n_contrib, Q_c
+    its last value; ta before the chunk = ta / Q_c and T_i = (ta / Q_c)
+    q_(i-1). The colour behind, the row gradients and the carries are
+    float32 from float32 deltas and rows, as in the float32 version."""
+    gy, gx = tile_grid(image_shape)
+    b = n_contrib.shape[0]
+    ta_t = _tile_major(carry.ta, image_shape)
+    gdr_t = _tile_major(carry.g_dot_ra, image_shape)
+    nc_t = _tile_major(n_contrib, image_shape)
+    g_t = _tile_major(g_img, image_shape)
+    d_sorted = rows.new_zeros(gid.shape[0], 9)
+    live = torch.minimum(nc_t.amax(dim=1), counts)
+    n_chunks = ((live + _CHUNK - 1) // _CHUNK).tolist()
+    for tiles in _tile_blocks(n_chunks, _PLAIN_CHUNKS):
+        c = _chunks(rows, gid, starts, live, tiles, image_shape, torch.bfloat16)
+        dx, dy, e, alpha, gate = c.gate
+        tile_idx = torch.tensor(tiles, device=rows.device)[c.loc]
+        gate = gate & (c.lane[:, None, :] < nc_t[tile_idx][..., None])
+        zero = torch.zeros_like(alpha)
+        a = torch.where(gate, alpha, zero)
+        om = torch.clamp(1.0 - a, min=1e-6)
+        q = _bf16_running_product(om.to(torch.bfloat16))
+        q_prev = torch.cat([torch.ones_like(q[..., :1]), q[..., :-1]], -1)
+        ta_before = torch.empty_like(q[..., 0])
+        ta_cur = ta_t[tiles]
+        order = range(int(c.idx.max()), -1, -1)  # a tile's chunks, farthest first
+        for k in order:
+            sel = (c.idx == k).nonzero()[:, 0]
+            ta_before[sel] = ta_cur[c.loc[sel]] / q[sel, :, -1]
+            ta_cur[c.loc[sel]] = ta_before[sel]
+        t_i = ta_before[..., None] * q_prev
+        wgt = a * t_i
+        g = g_t[tile_idx]  # (K, 256, 3)
+        gc = torch.bmm(g, c.d[..., 6:9].transpose(1, 2))  # (K, 256 pixels, 256 lanes) g_p . c_i
+        contrib = gc * wgt
+        gdr_after = torch.empty_like(ta_before)
+        gdr_cur = gdr_t[tiles]
+        for k in order:
+            sel = (c.idx == k).nonzero()[:, 0]
+            gdr_after[sel] = gdr_cur[c.loc[sel]]
+            gdr_cur[c.loc[sel]] = gdr_after[sel] + contrib[sel].sum(-1)
+        behind = torch.cumsum(contrib.flip(-1), dim=-1).flip(-1) - contrib
+        g_dot_r = gdr_after[..., None] + behind
+        da = torch.where(gate, t_i * gc - g_dot_r / om, zero)
+        ca, cb, cc, op = (c.d[:, None, :, k] for k in (2, 3, 4, 5))
+        d_op = torch.where(gate, e * da, zero)
+        d_power = torch.where(gate, op * e * da, zero)
+        rows_k = torch.stack(
+            [
+                (d_power * (ca * dx + cb * dy)).sum(1),
+                (d_power * (cc * dy + cb * dx)).sum(1),
+                (d_power * (-0.5 * dx * dx)).sum(1),
+                (d_power * (-dx * dy)).sum(1),
+                (d_power * (-0.5 * dy * dy)).sum(1),
+                d_op.sum(1),
+                *torch.bmm(wgt.transpose(1, 2), g).unbind(-1),
+            ],
+            dim=-1,
+        )  # (K, 256 lanes, 9)
+        d_sorted[c.inst[c.valid]] = rows_k[c.valid]
+        ta_t[tiles] = ta_cur
+        gdr_t[tiles] = gdr_cur
+    d_inst = torch.empty_like(d_sorted)
+    d_inst[dst] = d_sorted
+
+    def untile(x: Tensor) -> Tensor:
+        h, w = image_shape
+        x = x.reshape(b, gy, gx, TILE_Y, TILE_X).transpose(2, 3)
+        return x.reshape(b, gy * TILE_Y, gx * TILE_X)[:, :h, :w].contiguous()
+
+    return d_inst, BwdCarry(untile(ta_t), untile(gdr_t))
+
+
 def composite_bwd_plain(
     rows: Tensor,  # (N, 9)
     gid: Tensor,  # (L,) int32 sorted instance -> gaussian
@@ -266,13 +510,14 @@ def composite_bwd_plain(
     n_contrib: Tensor,  # (B, H, W) int32
     g_img: Tensor,  # (B, H, W, 3) image cotangent
     image_shape: tuple[int, int],
+    compute_dtype: str = "float32",
 ) -> Tensor:
     """The chained plain backward from the seeds of a whole run: ta =
     T_final and g_dot_ra = (g . bg) * T_final. Returns (L, 9) with sorted
     instance l's row at ``dst[l]``."""
     carry = BwdCarry(t_final, (g_img * background[:, None, None, :]).sum(-1) * t_final)
     d_inst, _ = composite_bwd_chained_plain(
-        rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape
+        rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape, compute_dtype
     )
     return d_inst
 
@@ -301,37 +546,52 @@ def _check_composite_args(rows, gid, starts, counts, background, image_shape):
     return b, gy, gx
 
 
-def _composite_fwd_cuda(rows, gid, starts, counts, background, image_shape):
+def _entry(lib: ctypes.CDLL, name: str, compute_dtype: str):
+    """The C entry ``name`` of a composite library, or its bf16
+    instantiation ``name_bf16``."""
+    return getattr(lib, name + ("_bf16" if compute_dtype_of(compute_dtype) == torch.bfloat16 else ""))
+
+
+def _count(wrapper, compute_dtype: str) -> None:
+    """One more launch on ``wrapper.launches``, and on
+    ``wrapper.launches_bf16`` for a bf16 instantiation."""
+    wrapper.launches += 1
+    if compute_dtype == "bfloat16":
+        wrapper.launches_bf16 += 1
+
+
+def _composite_fwd_cuda(rows, gid, starts, counts, background, image_shape, compute_dtype="float32"):
     h, w = image_shape
     b, gy, gx = _check_composite_args(rows, gid, starts, counts, background, image_shape)
-    lib = cuda_lib.load("composite_fwd")
-    lib.composite_fwd.restype = ctypes.c_int
-    lib.composite_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    fn = _entry(cuda_lib.load("composite_fwd"), "composite_fwd", compute_dtype)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
     dev = rows.device
     image = torch.empty(b, h, w, 3, dtype=torch.float32, device=dev)
     t_final = torch.empty(b, h, w, dtype=torch.float32, device=dev)
     n_contrib = torch.empty(b, h, w, dtype=torch.int32, device=dev)
     cuda_lib.check(
-        lib.composite_fwd(
+        fn(
             *(ptr(t) for t in (rows, gid, starts, counts, background)), b, gy, gx, h, w,
             ptr(image), ptr(t_final), ptr(n_contrib), cuda_lib.stream(rows),
         ),
         "composite_fwd",
     )
-    composite_tiles.launches += 1
+    _count(composite_tiles, compute_dtype)
     return image, t_final, n_contrib
 
 
-def composite_fwd(rows, gid, starts, counts, background, image_shape):
+def composite_fwd(rows, gid, starts, counts, background, image_shape, compute_dtype="float32"):
     """Kernel B for CUDA tensors, ``composite_plain`` for CPU tensors (same
     arguments and results); no autograd graph. The launches are counted on
     ``composite_tiles.launches``."""
+    compute_dtype_of(compute_dtype)
     if rows.is_cuda:
-        return _composite_fwd_cuda(rows, gid, starts, counts, background, image_shape)
-    return composite_plain(rows, gid, starts, counts, background, image_shape)
+        return _composite_fwd_cuda(rows, gid, starts, counts, background, image_shape, compute_dtype)
+    return composite_plain(rows, gid, starts, counts, background, image_shape, compute_dtype)
 
 
-def _composite_chained_cuda(rows, gid, starts, counts, state, image_shape, live):
+def _composite_chained_cuda(rows, gid, starts, counts, state, image_shape, live, compute_dtype="float32"):
     h, w = image_shape
     b = state.t.shape[0]
     gy, gx = tile_grid(image_shape)
@@ -348,23 +608,23 @@ def _composite_chained_cuda(rows, gid, starts, counts, state, image_shape, live)
     if live is not None:
         cuda_lib.check_tensor("live", live, torch.int32, (1,))
         live.zero_()  # the kernel adds each tile's live pixels
-    lib = cuda_lib.load("composite_fwd")
-    lib.composite_fwd_chained.restype = ctypes.c_int
-    lib.composite_fwd_chained.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+    fn = _entry(cuda_lib.load("composite_fwd"), "composite_fwd_chained", compute_dtype)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
     n_contrib = torch.empty(b, h, w, dtype=torch.int32, device=rows.device)
     cuda_lib.check(
-        lib.composite_fwd_chained(
+        fn(
             *(ptr(t) for t in (rows, gid, starts, counts)), b, gy, gx, h, w,
             *(ptr(t) for t in state), ptr(n_contrib), cuda_lib.stream(rows),
             None if live is None else ptr(live),
         ),
         "composite_fwd_chained",
     )
-    composite_chained.launches += 1
+    _count(composite_chained, compute_dtype)
     return state, n_contrib
 
 
-def composite_chained(rows, gid, starts, counts, state, image_shape, live=None):
+def composite_chained(rows, gid, starts, counts, state, image_shape, live=None, compute_dtype="float32"):
     """One depth group composited onto ``state`` -> (state, n_contrib of this
     group). On either device the state's tensors are updated in place and
     handed back: the chained kernel (csrc/composite_fwd.cu, CHAINED) writes
@@ -374,9 +634,19 @@ def composite_chained(rows, gid, starts, counts, state, image_shape, live=None):
     ``live``, a one-element int32 tensor on the same device, if given, is
     set to the number of pixels still live after the group (``p_raw >=
     1e-4``), without a host sync: the kernel counts them on the card."""
+    compute_dtype_of(compute_dtype)
     if rows.is_cuda:
-        return _composite_chained_cuda(rows, gid, starts, counts, state, image_shape, live)
-    new, n_contrib = composite_chained_plain(rows, gid, starts, counts, state, image_shape)
+        return _composite_chained_cuda(rows, gid, starts, counts, state, image_shape, live, compute_dtype)
+    return composite_chained_plain_into(rows, gid, starts, counts, state, image_shape, live, compute_dtype)
+
+
+def composite_chained_plain_into(rows, gid, starts, counts, state, image_shape, live=None, compute_dtype="float32"):
+    """``composite_chained`` through its plain version, on either device:
+    ``composite_chained_plain``'s new state copied into ``state``'s tensors
+    and ``live`` set, as the kernel does. The wrapper's route for CPU
+    tensors; with CUDA tensors, the kernel's stand-in where a check renders
+    through the plain versions."""
+    new, n_contrib = composite_chained_plain(rows, gid, starts, counts, state, image_shape, compute_dtype)
     for old, fresh in zip(state, new):
         old.copy_(fresh)
     if live is not None:
@@ -385,7 +655,7 @@ def composite_chained(rows, gid, starts, counts, state, image_shape, live=None):
 
 
 def _composite_bwd_cuda(
-    rows, gid, dst, starts, counts, background, t_final, n_contrib, g_img, image_shape
+    rows, gid, dst, starts, counts, background, t_final, n_contrib, g_img, image_shape, compute_dtype="float32"
 ):
     h, w = image_shape
     b, gy, gx = _check_composite_args(rows, gid, starts, counts, background, image_shape)
@@ -396,38 +666,39 @@ def _composite_bwd_cuda(
         ("g_img", g_img, torch.float32, (b, h, w, 3)),
     ):
         cuda_lib.check_tensor(name, t, dtype, shape)
-    lib = cuda_lib.load("composite_bwd")
-    lib.composite_bwd.restype = ctypes.c_int
-    lib.composite_bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn = _entry(cuda_lib.load("composite_bwd"), "composite_bwd", compute_dtype)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     # zero-filled: the kernel writes only the rows of instances in a tile's live range
     d_inst = torch.zeros(gid.shape[0], 9, dtype=torch.float32, device=rows.device)
     cuda_lib.check(
-        lib.composite_bwd(
+        fn(
             *(ptr(t) for t in (rows, gid, dst, starts, counts, background, t_final, n_contrib, g_img)),
             b, gy, gx, h, w, ptr(d_inst), cuda_lib.stream(rows),
         ),
         "composite_bwd",
     )
-    composite_bwd.launches += 1
+    _count(composite_bwd, compute_dtype)
     return d_inst
 
 
 def composite_bwd(
-    rows, gid, dst, starts, counts, background, t_final, n_contrib, g_img, image_shape
+    rows, gid, dst, starts, counts, background, t_final, n_contrib, g_img, image_shape, compute_dtype="float32"
 ):
     """Kernel C for CUDA tensors, ``composite_bwd_plain`` for CPU tensors
     (same arguments and result)."""
+    compute_dtype_of(compute_dtype)
     if rows.is_cuda:
         return _composite_bwd_cuda(
-            rows, gid, dst, starts, counts, background, t_final, n_contrib, g_img, image_shape
+            rows, gid, dst, starts, counts, background, t_final, n_contrib, g_img, image_shape, compute_dtype
         )
     return composite_bwd_plain(
-        rows, gid, dst, starts, counts, background, t_final, n_contrib, g_img, image_shape
+        rows, gid, dst, starts, counts, background, t_final, n_contrib, g_img, image_shape, compute_dtype
     )
 
 
 def _composite_bwd_chained_cuda(
-    rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape
+    rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape, compute_dtype="float32"
 ):
     h, w = image_shape
     b = n_contrib.shape[0]
@@ -444,39 +715,49 @@ def _composite_bwd_chained_cuda(
         ("carry.g_dot_ra", carry.g_dot_ra, torch.float32, (b, h, w)),
     ):
         cuda_lib.check_tensor(name, t, dtype, shape)
-    lib = cuda_lib.load("composite_bwd")
-    lib.composite_bwd_chained.restype = ctypes.c_int
-    lib.composite_bwd_chained.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
-    )
+    fn = _entry(cuda_lib.load("composite_bwd"), "composite_bwd_chained", compute_dtype)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
     # zero-filled: the kernel writes only the rows of instances in a tile's live range
     d_inst = torch.zeros(gid.shape[0], 9, dtype=torch.float32, device=rows.device)
     cuda_lib.check(
-        lib.composite_bwd_chained(
+        fn(
             *(ptr(t) for t in (rows, gid, dst, starts, counts, n_contrib, g_img)),
             b, gy, gx, h, w, ptr(carry.ta), ptr(carry.g_dot_ra), ptr(d_inst),
             cuda_lib.stream(rows),
         ),
         "composite_bwd_chained",
     )
-    composite_bwd_chained.launches += 1
+    _count(composite_bwd_chained, compute_dtype)
     return d_inst, carry
 
 
 def composite_bwd_chained(
-    rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape
+    rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape, compute_dtype="float32"
 ):
     """One depth group of the reverse walk -> (d_inst (L, 9), carry). On
     either device the carry's tensors are updated in place and handed back:
     the chained backward kernel (csrc/composite_bwd.cu, CHAINED) writes them
     for CUDA tensors; for CPU tensors ``composite_bwd_chained_plain``
     computes the new carry, which is copied into them."""
+    compute_dtype_of(compute_dtype)
     if rows.is_cuda:
         return _composite_bwd_chained_cuda(
-            rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape
+            rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape, compute_dtype
         )
+    return composite_bwd_chained_plain_into(
+        rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape, compute_dtype
+    )
+
+
+def composite_bwd_chained_plain_into(
+    rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape, compute_dtype="float32"
+):
+    """``composite_bwd_chained`` through its plain version, on either device:
+    ``composite_bwd_chained_plain``'s new carry copied into ``carry``'s
+    tensors, as the kernel does (see ``composite_chained_plain_into``)."""
     d_inst, new = composite_bwd_chained_plain(
-        rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape
+        rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape, compute_dtype
     )
     for old, fresh in zip(carry, new):
         old.copy_(fresh)
@@ -517,12 +798,12 @@ def scatter_reduce(d_inst, offset, per_gaussian):
 
 class _Composite(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rows, background, inst, image_shape):
+    def forward(ctx, rows, background, inst, image_shape, compute_dtype="float32"):
         image, t_final, n_contrib = composite_fwd(
-            rows, inst.gaussian_id, inst.starts, inst.counts, background, image_shape
+            rows, inst.gaussian_id, inst.starts, inst.counts, background, image_shape, compute_dtype
         )
         ctx.save_for_backward(rows, background, t_final, n_contrib)
-        ctx.inst, ctx.image_shape = inst, image_shape
+        ctx.inst, ctx.image_shape, ctx.compute_dtype = inst, image_shape, compute_dtype
         ctx.mark_non_differentiable(t_final, n_contrib)
         return image, t_final, n_contrib
 
@@ -533,11 +814,11 @@ class _Composite(torch.autograd.Function):
         g_img = g_img.contiguous()
         d_inst = composite_bwd(
             rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, background,
-            t_final, n_contrib, g_img, ctx.image_shape,
+            t_final, n_contrib, g_img, ctx.image_shape, ctx.compute_dtype,
         )
         d_rows = scatter_reduce(d_inst, inst.offset, inst.per_gaussian)
         d_bg = torch.einsum("bhwc,bhw->bc", g_img, t_final)
-        return d_rows, d_bg, None, None
+        return d_rows, d_bg, None, None, None
 
 
 def composite_tiles(
@@ -545,17 +826,16 @@ def composite_tiles(
     inst: TileInstances,
     background: Tensor,  # (B, 3)
     image_shape: tuple[int, int],
+    compute_dtype: str = "float32",
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Differentiable composite -> image (B, H, W, 3), T_final (B, H, W),
     n_contrib (B, H, W) int32. Gradients flow to ``rows`` and
     ``background`` through the image."""
-    return _Composite.apply(rows, background, inst, image_shape)
+    return _Composite.apply(rows, background, inst, image_shape, compute_dtype)
 
 
-composite_tiles.launches = 0
-composite_chained.launches = 0
-composite_bwd.launches = 0
-composite_bwd_chained.launches = 0
+for _wrapper in (composite_tiles, composite_chained, composite_bwd, composite_bwd_chained):
+    _wrapper.launches = _wrapper.launches_bf16 = 0
 scatter_reduce.launches = 0
 
 
@@ -597,7 +877,7 @@ class _GroupedComposite(torch.autograd.Function):
     either direction."""
 
     @staticmethod
-    def forward(ctx, rows, background, per_group, group_slots, image_shape):
+    def forward(ctx, rows, background, per_group, group_slots, image_shape, compute_dtype="float32"):
         state = initial_chain_state(1, image_shape, rows.device)
         live = torch.empty(1, dtype=torch.int32, device=rows.device)
         n_contrib = []
@@ -609,11 +889,13 @@ class _GroupedComposite(torch.autograd.Function):
                     break  # no pixel is live: the later groups change nothing
             inst = group_layout(args, k * group_slots, image_shape, counted)
             state, n_k = composite_chained(
-                rows, inst.gaussian_id, inst.starts, inst.counts, state, image_shape, live
+                rows, inst.gaussian_id, inst.starts, inst.counts, state, image_shape, live,
+                compute_dtype=compute_dtype,
             )
             n_contrib.append(n_k)
         ctx.save_for_backward(rows, background, state.t, *n_contrib)
         ctx.per_group, ctx.group_slots, ctx.image_shape = per_group, group_slots, image_shape
+        ctx.compute_dtype = compute_dtype
         return state.rgb + state.t[..., None] * background[:, None, None, :]
 
     @staticmethod
@@ -632,19 +914,21 @@ class _GroupedComposite(torch.autograd.Function):
             inst = group_layout(ctx.per_group[k], k * slots, shape)
             d_inst, carry = composite_bwd_chained(
                 rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, n_contrib[k],
-                g_img, carry, shape,
+                g_img, carry, shape, compute_dtype=ctx.compute_dtype,
             )
             n = inst.offset.shape[0]
             d_rows[k * slots : k * slots + n] = scatter_reduce(d_inst, inst.offset, inst.per_gaussian)
         d_bg = torch.einsum("bhwc,bhw->bc", g_img, t_final)
-        return d_rows, d_bg, None, None, None
+        return d_rows, d_bg, None, None, None, None
 
 
-def _render_grouped(sg: ScreenGaussians, background: Tensor, image_shape: tuple[int, int]) -> Tensor:
+def _render_grouped(
+    sg: ScreenGaussians, background: Tensor, image_shape: tuple[int, int], compute_dtype: str = "float32"
+) -> Tensor:
     """One view through ``_GroupedComposite`` -> (1, H, W, 3)."""
     order, per_group = grouped_expand_inputs(sg, image_shape, _CHAIN_GROUP_SLOTS)
     return _GroupedComposite.apply(
-        screen_rows(sg)[order], background, per_group, _CHAIN_GROUP_SLOTS, image_shape
+        screen_rows(sg)[order], background, per_group, _CHAIN_GROUP_SLOTS, image_shape, compute_dtype
     )
 
 
@@ -661,11 +945,16 @@ def render_pallas(
     gaussian_opacities: Tensor,  # (B, G)
     scale_invariant: bool = True,
     use_sh: bool = True,
+    composite_dtype: str = "float32",
 ) -> Tensor:
     """Batched tile render -> (B, H, W, 3), differentiable. Below
     ``_CHAIN_MIN_G`` gaussians per view every view goes through one composite
     launch; from there on each view is projected and composited on its own,
-    depth group by depth group."""
+    depth group by depth group. ``composite_dtype`` ("float32" or
+    "bfloat16", the reference's meaning; any other name raises ValueError)
+    is the compute type of the gate's quadratic and of the chunk products on
+    either route, forward and backward."""
+    compute_dtype_of(composite_dtype)
     if scale_invariant:
         extrinsics, near, far, gaussian_means, gaussian_covariances = (
             scale_invariant_normalization(
@@ -684,12 +973,12 @@ def render_pallas(
             [
                 _render_grouped(
                     project_gaussians(*(x[i : i + 1] for x in scene), image_shape, use_sh),
-                    background_color[i : i + 1], image_shape,
+                    background_color[i : i + 1], image_shape, composite_dtype,
                 )
                 for i in range(extrinsics.shape[0])
             ]
         )
     sg = project_gaussians(*scene, image_shape, use_sh)
     inst = build_tile_instances(sg, image_shape)
-    image, _, _ = composite_tiles(screen_rows(sg), inst, background_color, image_shape)
+    image, _, _ = composite_tiles(screen_rows(sg), inst, background_color, image_shape, composite_dtype)
     return image

@@ -20,6 +20,16 @@ from ..utils.device import resolve_device
 from .lpips_net import LPIPS
 
 
+def read_lpips_pth(path: str | Path) -> dict:
+    """A torch ``lpips`` state dict (.pth/.pt), read with ``weights_only=True``
+    (a checkpoint's pickle is never executed) and taken out of a
+    ``state_dict`` entry where it is wrapped in one."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return sd
+
+
 def load_lpips_weights(net: LPIPS, path: str | Path) -> LPIPS:
     """Load a torch ``lpips`` state_dict (.pth/.pt; its extra keys, the
     ``lins`` alias and the scaling buffers, are ignored) or an .npz of
@@ -27,9 +37,7 @@ def load_lpips_weights(net: LPIPS, path: str | Path) -> LPIPS:
     ``save_lpips_params`` writes)."""
     p = Path(path)
     if p.suffix in (".pth", ".pt", ".ckpt", ".bin"):
-        sd = torch.load(p, map_location="cpu", weights_only=True)
-        if isinstance(sd, dict) and "state_dict" in sd:
-            sd = sd["state_dict"]
+        sd = read_lpips_pth(p)
         net.load_state_dict({k: sd[k] for k in net.state_dict()}, strict=True)
         return net
     if p.suffix == ".npz":

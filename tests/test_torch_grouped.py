@@ -211,10 +211,10 @@ def test_grouped_render_goes_through_the_chained_composite(monkeypatch):
     patch_groups(monkeypatch, 128)
     calls = []
 
-    def spy(rows, gid, starts, counts, state, image_shape, live=None):
+    def spy(rows, gid, starts, counts, state, image_shape, live=None, **kw):
         # the incoming state, copied: the wrapper updates it in place
         calls.append((rows.shape[0], int(counts.sum()), type(state)(*(t.clone() for t in state))))
-        return composite_chained(rows, gid, starts, counts, state, image_shape, live)
+        return composite_chained(rows, gid, starts, counts, state, image_shape, live, **kw)
 
     monkeypatch.setattr(port_raster, "composite_chained", spy)
     render(*ta[:4], shape, ta[4], *ta[5:])
@@ -286,7 +286,7 @@ def test_unimatch_slice_matches_jax_through_grouped_route(monkeypatch):
     calls = []
     plain = port_raster.composite_chained
     monkeypatch.setattr(
-        port_raster, "composite_chained", lambda *a: calls.append(1) or plain(*a)
+        port_raster, "composite_chained", lambda *a, **kw: calls.append(1) or plain(*a, **kw)
     )
     with torch.no_grad():
         out_t = enc({k: torch.from_numpy(x) for k, x in ctx.items()})
@@ -319,7 +319,7 @@ def test_grouped_forward_stops_after_the_last_live_group(monkeypatch):
     calls = {"group_layout": [], "composite_chained": [], "count_instances": []}
     for name, c in calls.items():
         fn = getattr(port_raster, name)
-        monkeypatch.setattr(port_raster, name, lambda *a, fn=fn, c=c: c.append(a[-1]) or fn(*a))
+        monkeypatch.setattr(port_raster, name, lambda *a, fn=fn, c=c, **kw: c.append(a[-1]) or fn(*a, **kw))
     grouped = render(*ta[:4], shape, ta[4], *ta[5:])
     assert [len(c) for c in calls.values()] == [1, 1, 1]
     (live,) = calls["count_instances"]
@@ -340,8 +340,8 @@ def test_grouped_forward_composites_every_group_while_a_pixel_is_live(monkeypatc
     patch_groups(monkeypatch, 128)
     seen = []
 
-    def spy(rows, gid, starts, counts, state, image_shape, live):
-        out = composite_chained(rows, gid, starts, counts, state, image_shape, live)
+    def spy(rows, gid, starts, counts, state, image_shape, live, **kw):
+        out = composite_chained(rows, gid, starts, counts, state, image_shape, live, **kw)
         seen.append((int(live), int((state.p_raw >= 1e-4).sum())))
         return out
 

@@ -165,7 +165,7 @@ def test_grouped_gradients_match_flat_gradients(b, monkeypatch):
     patch_groups(monkeypatch, 128)
     calls = []
     plain = port_raster.composite_bwd_chained
-    monkeypatch.setattr(port_raster, "composite_bwd_chained", lambda *a: calls.append(1) or plain(*a))
+    monkeypatch.setattr(port_raster, "composite_bwd_chained", lambda *a, **kw: calls.append(1) or plain(*a, **kw))
     grouped = _grads(args, shape, wts)
     assert len(calls) == 3 * b
     for name, gg, gf in zip(("background", "means", "covariances", "sh", "opacities"), grouped, flat):
@@ -240,7 +240,7 @@ def test_grouped_backward_skips_dead_groups(monkeypatch):
     for name in ("composite_bwd_chained", "scatter_reduce"):
         fn = getattr(port_raster, name)
         bwd_calls[name] = []
-        monkeypatch.setattr(port_raster, name, lambda *a, fn=fn, c=bwd_calls[name]: c.append(1) or fn(*a))
+        monkeypatch.setattr(port_raster, name, lambda *a, fn=fn, c=bwd_calls[name], **kw: c.append(1) or fn(*a, **kw))
     _, means, cov, sh, opac = _grads(args, shape, wts)
 
     live = [k for k, m in enumerate(maxima) if m > 0]

@@ -33,9 +33,11 @@ from my_depthsplat_torch.render.pallas_raster import (
     composite_bwd,
     composite_bwd_chained,
     composite_bwd_chained_plain,
+    composite_bwd_chained_plain_into,
     composite_bwd_plain,
     composite_chained,
     composite_chained_plain,
+    composite_chained_plain_into,
     composite_fwd,
     composite_plain,
     composite_tiles,
@@ -476,7 +478,7 @@ def test_backward_kernel_on_live_ranges(card, chained, seed):
     assert (got[dst[~dead]].abs().amax(1) > 0).float().mean().item() > 0.9
 
 
-def _grazing_inputs(card, seed, n_per_tile=100):
+def _grazing_inputs(card, seed, n_per_tile=100, below=0.0):
     """Kernel arguments for the warp-strip cull (strip_may_pass in
     csrc/composite_common.cuh) at its edge: a 32x32 view of 2x2 tiles, each with
     ``n_per_tile`` instances of thin rotated conics (sigma 2-40 px along,
@@ -487,7 +489,9 @@ def _grazing_inputs(card, seed, n_per_tile=100):
     1/255 times 1 + 1e-6..1e-2 for 40 % of them (the mean then sits within
     a fraction of a pixel of the strip) and 0.01-0.5 for the rest (up to 130
     px away, where the cull's slack is relative). Every pixel's n_contrib is
-    its tile's count; ta is the forward's transmittance at the end."""
+    its tile's count; ta is the forward's transmittance at the end.
+    ``below`` > 0 aims each power a further 0-``below`` (relative) below the
+    edge, where only a gate with a coarser power (bf16) passes some."""
     from my_depthsplat_torch.render.camera import ALPHA_MAX, ALPHA_MIN
 
     rng = np.random.default_rng(seed)
@@ -515,7 +519,8 @@ def _grazing_inputs(card, seed, n_per_tile=100):
     b = ct * st * (1 / s_major**2 - 1 / s_minor**2)
     faint = rng.uniform(size=n) < 0.4
     op = np.where(faint, ALPHA_MIN * (1 + 10 ** rng.uniform(-6, -2, n)), rng.uniform(0.01, 0.5, n))
-    target = np.log(ALPHA_MIN / op) * (1 + rng.uniform(-1e-4, 1e-4, n))  # power at the aimed pixel
+    further = rng.uniform(0, below, n) if below else 0.0
+    target = np.log(ALPHA_MIN / op) * (1 + rng.uniform(-1e-4, 1e-4, n) + further)  # power at the aimed pixel
     qd = a * d[:, 0] ** 2 + 2 * b * d[:, 0] * d[:, 1] + c * d[:, 1] ** 2
     r = np.sqrt(-2 * target / qd)
     mean = np.stack([px, py], -1) - r[:, None] * d
@@ -720,3 +725,181 @@ def test_depth_sharded_render_on_two_ranks_matches_grouped(card, tmp_path, monke
         np.testing.assert_allclose(r["image"], p["image"], atol=1e-4, rtol=0)
         np.testing.assert_allclose(r["image"], want, atol=1e-2, rtol=0)
         assert "forward-only" in r["backward"]
+
+
+# ---- the bfloat16 instantiations (composite_dtype="bfloat16"), each held
+# against its bf16 plain version at the float32 rows' limits
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_kernels_match_plain_versions(card, seed):
+    """Kernel B's and kernel C's bf16 instantiations vs the bf16 plain
+    versions on the sparse scene: image and T within 1e-4, n_contrib equal
+    on >= 99.9 % of pixels; C fed B's T_final and n_contrib, rows within
+    1e-5 of the largest entry, bit-identical across two runs; D on them
+    within 1e-5 of ``index_add_``. Each launch counts on ``.launches`` and on
+    ``.launches_bf16``; the bf16 image differs from the float32 one."""
+    sg, bg, shape = _screen(card, seed)
+    inst = build_tile_instances(sg, shape)
+    rows = screen_rows(sg)
+    args = (rows, inst.gaussian_id, inst.starts, inst.counts, bg, shape)
+    wrappers = (composite_tiles, composite_bwd)
+    before = [(w.launches, w.launches_bf16) for w in wrappers]
+    img_k, t_k, n_k = composite_fwd(*args, "bfloat16")
+    img_p, t_p, n_p = composite_plain(*args, "bfloat16")
+    img_32, _, _ = composite_fwd(*args)
+    g_img = torch.randn(2, *shape, 3, generator=torch.Generator().manual_seed(seed)).to(card)
+    bargs = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, bg, t_k, n_k, g_img, shape, "bfloat16")
+    d_k, d_again, d_p = composite_bwd(*bargs), composite_bwd(*bargs), composite_bwd_plain(*bargs)
+    r_k, r_p = scatter_reduce(d_k, inst.offset, inst.per_gaussian), scatter_reduce_plain(d_k, inst.offset, inst.per_gaussian)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.launches_bf16) for w in wrappers] == [
+        (before[0][0] + 2, before[0][1] + 1), (before[1][0] + 2, before[1][1] + 2)
+    ]
+    assert (img_k - img_p).abs().max().item() <= 1e-4 and (t_k - t_p).abs().max().item() <= 1e-4
+    assert (n_k == n_p).float().mean().item() >= 0.999
+    assert (img_k - img_32).abs().max().item() > 1e-5
+    assert torch.equal(d_k, d_again)
+    assert (d_k - d_p).abs().max().item() <= 1e-5 * d_p.abs().max().item()
+    assert (r_k - r_p).abs().max().item() <= 1e-5 * r_p.abs().max().item()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_chained_kernels_match_plain_versions(card, seed):
+    """Rows 3 and 5 in bf16 over the 12 depth groups of a dense view (deep
+    stacks: many pixels stop in an early group), each launch from the
+    kernel's own incoming state or carry vs the bf16 plain version given the
+    same: rgb and T within 1e-4, the local n_contrib equal on >= 99.9 % of
+    pixels, the stopped flag equal away from the threshold; the backward
+    farthest first, rows within 1e-5 of the largest entry and the carry
+    within 1e-5 of its largest entry."""
+    sg, bg, shape = _screen(card, seed, b=1, g=1500, max_scale=0.35)
+    order, groups = build_tile_instances_grouped(sg, shape, 128)
+    rows = screen_rows(sg)[order]
+    state = initial_chain_state(1, shape, card)
+    before = composite_chained.launches_bf16, composite_bwd_chained.launches_bf16
+    n_contrib = []
+    for inst in groups:
+        args = (rows, inst.gaussian_id, inst.starts, inst.counts)
+        want, n_want = composite_chained_plain(*args, state, shape, "bfloat16")
+        got, n_got = composite_chained(*args, ChainState(*(t.clone() for t in state)), shape, None, "bfloat16")
+        torch.cuda.synchronize()
+        assert (got.rgb - want.rgb).abs().max().item() <= 1e-4
+        assert (got.t - want.t).abs().max().item() <= 1e-4
+        assert (n_got == n_want).float().mean().item() >= 0.999
+        clear = (want.p_raw - 1e-4).abs() > 1e-6
+        assert torch.equal((got.p_raw >= 1e-4)[clear], (want.p_raw >= 1e-4)[clear])
+        state = got
+        n_contrib.append(n_got)
+    assert (state.p_raw < 1e-4).float().mean().item() > 0.5
+    g_img = torch.randn(1, *shape, 3, generator=torch.Generator().manual_seed(seed)).to(card)
+    carry = BwdCarry(state.t.clone(), (g_img * bg[:1, None, None, :]).sum(-1) * state.t)
+    for k in reversed(range(len(groups))):
+        inst = groups[k]
+        args = (rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, n_contrib[k], g_img)
+        want, want_carry = composite_bwd_chained_plain(*args, carry, shape, "bfloat16")
+        got, got_carry = composite_bwd_chained(*args, BwdCarry(*(t.clone() for t in carry)), shape, "bfloat16")
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+        for a, b in zip(got_carry, want_carry):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+        carry = got_carry
+    assert (composite_chained.launches_bf16, composite_bwd_chained.launches_bf16) == (
+        before[0] + len(groups), before[1] + len(groups)
+    )
+
+
+@pytest.mark.parametrize("chained", [False, True], ids=["kernel-C", "row-5"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_backward_kernel_where_the_strip_cull_matters(card, chained, seed):
+    """The backward's strip cull bounds the power in float32, and the bf16
+    power rounds by up to 2.7 % of the quadratic's terms: on the grazing
+    conics aimed 0-3 % (of the threshold) below the float32 gate's edge,
+    with means up to 130 px away (terms in the hundreds), the bf16 gate
+    passes pairs that the float32 gate rejects. The bf16 instantiations of
+    csrc/composite_bwd.cu vs their bf16 plain versions there: rows within
+    1e-5 of the largest entry and non-zero for the same instances (a pair
+    culled in error would zero its row and shift the batch's products), the
+    carry within 1e-5 of its largest entry."""
+    from my_depthsplat_torch.render.pallas_raster import gate_alpha
+
+    rows, gid, dst, starts, counts, ncon, g_img, ta, shape, _ = _grazing_inputs(card, seed, below=3e-2)
+    d = rows[gid.long()]
+    pyx = torch.stack(torch.meshgrid(torch.arange(32), torch.arange(32), indexing="ij"), -1).reshape(-1, 2).float()
+    hits = {}
+    for cdt in (torch.bfloat16, torch.float32):
+        *_, gate = gate_alpha(pyx[:, 1:2].to(card), pyx[:, 0:1].to(card), d, cdt)
+        tile = torch.repeat_interleave(torch.arange(4, device=card), counts.long())
+        own = tile[None] == ((pyx[:, 0:1] // 16) * 2 + pyx[:, 1:2] // 16).long().to(card)
+        hits[cdt] = gate & own
+    assert int((hits[torch.bfloat16] & ~hits[torch.float32]).sum()) >= 50
+    bg = torch.tensor([[0.2, 0.5, 0.7]], device=card)
+    gdr = torch.rand(ta.shape, generator=torch.Generator().manual_seed(seed)).to(card) * ta
+
+    def run(fn):
+        if not chained:
+            return fn(rows, gid, dst, starts, counts, bg, ta, ncon, g_img, shape, "bfloat16"), None
+        return fn(rows, gid, dst, starts, counts, ncon, g_img, BwdCarry(ta.clone(), gdr.clone()), shape, "bfloat16")
+
+    kernel, plain = (composite_bwd_chained, composite_bwd_chained_plain) if chained else (composite_bwd, composite_bwd_plain)
+    (got, got_carry), (want, want_carry) = run(kernel), run(plain)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal((got != 0).any(1), (want != 0).any(1))
+    if chained:
+        for a, b in zip(got_carry, want_carry):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["flat", "grouped"])
+def test_bf16_render_gradients_through_kernels_match_plain_versions(card, grouped, monkeypatch):
+    """``render_pallas(..., composite_dtype="bfloat16")`` on 2 views of 700
+    gaussians, the flat route and the grouped route (6 groups a view),
+    through the kernels vs through the plain versions: the image within 1e-4
+    and the gradients w.r.t. background, means, covariances, SH and
+    opacities within 1e-4 of each gradient's largest entry; only bf16
+    instantiations launch."""
+    rng = np.random.default_rng(5)
+    b, g = 2, 700
+    z = rng.uniform(2.0, 8.0, (b, g))
+    means = np.stack([rng.uniform(-0.5, 0.5, (b, g)) * z, rng.uniform(-0.5, 0.5, (b, g)) * z, z], -1)
+    scales = rng.uniform(0.03, 0.3, (b, g, 3))
+    rot = np.linalg.qr(rng.normal(size=(b, g, 3, 3)))[0]
+    cov = (rot * scales[..., None, :] ** 2) @ np.swapaxes(rot, -1, -2)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(card)  # noqa: E731
+    cams = (
+        t(np.tile(np.eye(4), (b, 1, 1))), t(np.tile(np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]]), (b, 1, 1))),
+        torch.full((b,), 0.5, device=card), torch.full((b,), 100.0, device=card), (40, 56),
+    )
+    leaves = (t(rng.uniform(0, 1, (b, 3))), t(means), t(cov), t(rng.normal(size=(b, g, 3, 9)) * 0.3),
+              t(rng.uniform(0.3, 0.95, (b, g))))
+    wts = t(rng.normal(size=(b, 40, 56, 3)))
+    if grouped:
+        monkeypatch.setattr(raster_mod, "_CHAIN_MIN_G", 1)
+        monkeypatch.setattr(raster_mod, "_CHAIN_GROUP_SLOTS", 128)
+
+    def grads():
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        img = raster_mod.render_pallas(*cams, *xs, composite_dtype="bfloat16")
+        (img * wts).sum().backward()
+        return [img.detach(), *(x.grad for x in xs)]
+
+    fns = (composite_tiles, composite_bwd, composite_chained, composite_bwd_chained)
+    before = [(f.launches, f.launches_bf16) for f in fns]
+    got = grads()
+    torch.cuda.synchronize()
+    counted = [(f.launches - a, f.launches_bf16 - c) for f, (a, c) in zip(fns, before)]
+    assert all(n == n_bf16 for n, n_bf16 in counted)
+    assert [n > 0 for n, _ in counted] == ([False, False, True, True] if grouped else [True, True, False, False])
+    with mock.patch.object(inst_mod, "expand_tiles", lambda *a, counted=None: expand_plain(*a)), \
+            mock.patch.object(raster_mod, "composite_fwd", composite_plain), \
+            mock.patch.object(raster_mod, "composite_bwd", composite_bwd_plain), \
+            mock.patch.object(raster_mod, "composite_chained", composite_chained_plain_into), \
+            mock.patch.object(raster_mod, "composite_bwd_chained", composite_bwd_chained_plain_into), \
+            mock.patch.object(raster_mod, "scatter_reduce", scatter_reduce_plain):
+        want = grads()
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    for gg, gw in zip(got[1:], want[1:]):
+        assert torch.isfinite(gg).all() and gw.abs().max() > 0
+        assert (gg - gw).abs().max().item() <= 1e-4 * gw.abs().max().item()
+
