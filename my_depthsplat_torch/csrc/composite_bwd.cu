@@ -105,30 +105,57 @@
 // reduction that follows (scatter_reduce.cu).
 //
 // bfloat16 (composite_bwd_bf16, composite_bwd_chained_bf16; the reference's
-// composite_dtype="bfloat16", pallas_raster.py:443-456): the same kernel
-// instantiated with C = __nv_bfloat16, the gate as composite_fwd.cu's bf16
-// instantiation decides it. The transmittance before instance i of a chunk
-// (256 instances counted from the run's first, as the forward counts them)
-// is T_i = (ta / Q_c) q_(i-1): q the chunk's bf16 running product of
-// bf16(max(1 - alpha, 1e-6)) over the pixel's hits up to its n_contrib,
-// Q_c its last value, ta the transmittance after the chunk. The walk goes
-// back to front, so q_(i-1) is not had by division. Design:
-// - on entering a chunk (its last batch), each pixel walks the chunk's
-//   instances forward once, reading the rows through the ids from global
-//   memory (every lane of a warp at one address: a broadcast from L1), and
-//   keeps q at each of the chunk's four batch starts and Q_c; ta becomes
-//   ta / Q_c, which is also the carry for the next, nearer chunk;
-// - before the walk of a batch, each pixel runs forward over the batch's
-//   staged candidates from the batch's start value and stores q_(i-1) of
-//   each as a bf16 in dynamic shared memory (64 x 256 x 2 B = 32 KB a CTA,
-//   one column per thread); the walk reads it back at each hit.
-// So every pair up to n_contrib costs the gate three times (chunk pass,
-// batch pass, walk) instead of once, and a CTA holds 75 KB of shared
-// memory instead of 43 KB. The strip cull stays, with a slack that covers
-// the bf16 power's rounding (strip_may_pass<C>, composite_common.cuh): a
-// pair it dropped would be missing both from its own rows and from the
-// batch's q. The colour behind, the row gradients and the carries are
-// float32, as in the float32 instantiation.
+// composite_dtype="bfloat16", pallas_raster.py:354-503), redesigned for
+// Hopper: composite_bwd_bf16_kernel below, a kernel of its own. Per the
+// reference, a run is walked in windows of 256 slots of the launch's
+// instance array starting at start - start % 128, farthest first; in a
+// window T_i = (ta / Q) s_(i-1), s the doubling scan (shifts 1, 2, ..., 128,
+// each a bf16 multiply, the last kept unrounded as the jitted reference
+// widens it) of bf16(max(1 - alpha, 1e-6)) over the pixel's hits up to its
+// n_contrib (1 elsewhere), Q its value at slot 255. The scan needs no
+// forward walk and no division per hit: the reference's formula is built
+// for a back-to-front walk. Per window:
+// - staging: the window's rows (read through the ids) and destinations in
+//   shared memory, one slot a thread; the next window's rows are copied by
+//   cp.async while this one is walked (two buffers);
+// - candidates: each warp tests the slots below its pixels' largest
+//   n_contrib against its 16x2 strip (strip_may_pass with the bf16 slack),
+//   8 ballots;
+// - factors (the first of two gate evaluations): each thread (pixel) gates
+//   the candidate slots two at a time, the quadratic on packed bf16x2
+//   (gate_power2, composite_common.cuh), and writes the factors into its
+//   own column of a 256 x 256 bf16 table (a word of two slots), in the
+//   32-slot groups that hold a candidate of its warp below its n_contrib
+//   (a non-candidate word there is (1, 1); the other groups are not
+//   written), and one hit bit a slot;
+// - scan: each thread scans its column in registers: the 128 words read
+//   once, 1,665 bf16 multiplies on 833 packed bf16x2 words over 7 levels
+//   (shift 1 within and across words, then word shifts 1 to 32, from the
+//   top so that every partner is read before it is overwritten), written
+//   back once (the groups not written are taken as (1, 1)); a column
+//   without a hit is neither scanned nor read. (Scanned in place in
+//   shared memory, a word read and written per multiply, it took 1,666
+//   shared-memory accesses a pixel and window against 256.) The last level
+//   (shift 128) is the float32 product of two table entries, formed where
+//   it is read: Q at slot 255, s_(i-1) at a hit;
+// - walk (the second evaluation, for hits only): the window's batches of
+//   64 slots that hold live slots, from the top; a warp visits the slots
+//   where one of its pixels hits (the OR of their hit bits), and the rows
+//   are summed and written as in the float32 kernel (warp_sum_rows, the 8
+//   warps' partials added in warp order, no atomics), with one barrier a
+//   batch (partials in two buffers).
+// Nothing passes through the rows in global memory more than once, and the
+// gate is evaluated at most twice a pair. What bounds it: the table. Every
+// pixel needs its 256 scanned bf16 values (512 B) while its window is
+// walked, so a CTA holds 198,912 B of dynamic shared memory (the table 128
+// KB, rows 18 KB, destinations 4 KB, partials 36 KB, hit bits 8 KB,
+// candidates 256 B) and an SM one CTA (8 warps; 113 registers a thread),
+// against four of the float32 kernel (44 KB, 64 registers). At that
+// occupancy the walk's latencies are not hidden, and the bf16 kernel does
+// more per pair than the float32 one (the factor pass, the second gate of
+// a hit, the scan); PERF.md has its times beside the float32 kernel's. The
+// colour behind, the row gradients and the carries are float32, as in the
+// float32 kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -140,8 +167,6 @@ namespace {
 using namespace composite;
 
 constexpr int BATCH = 64;  // instances staged per step
-constexpr int CHUNK = 256;  // bf16: instances per chunk of the transmittance's product
-constexpr size_t Q_BYTES = BATCH * NPIX * sizeof(unsigned short);  // bf16: s_q
 
 // One transposing step over 2H values: a lane with bit 4H set keeps values
 // H..2H-1 (moved to 0..H-1) and sends 0..H-1; its partner the reverse.
@@ -176,7 +201,7 @@ __device__ __forceinline__ void warp_sum_rows(const float (&v)[ROWS], bool hit, 
     if (lane == 1) out[8] = r8;
 }
 
-template <bool CHAINED, typename C>
+template <bool CHAINED>
 __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
     const float* __restrict__ rows,      // (N, 9) per-gaussian screen rows
     const int* __restrict__ gid,         // (L,) sorted instance -> gaussian
@@ -196,9 +221,6 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
     __shared__ int s_gid[2][BATCH];
     __shared__ int64_t s_dst[4][BATCH];
     __shared__ int s_max[NWARP];
-    // bf16: q_(i-1) of each candidate of the batch, one column per thread
-    extern __shared__ unsigned short s_q[];  // the bits of a bf16 each
-    constexpr bool BF16 = !std::is_same_v<C, float>;
 
     const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
     const int tile = (b * gy + ty) * gx + tx;
@@ -218,8 +240,6 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
     float T = 1.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
     // g . (colour behind the current instance)
     float gdr = 0.0f;
-    // bf16: q at the starts of the current chunk's four batches
-    float qb0 = 1.0f, qb1 = 1.0f, qb2 = 1.0f, qb3 = 1.0f;
     if (inside) ncon = n_contrib[p];
     // a pixel without a contributor never hits: nothing else of it is read
     if (ncon > 0) {
@@ -291,33 +311,6 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
         if (q > 0) write_rows(q - 1);
 
         const int base = base_of(q);
-        if constexpr (BF16) {
-            // entering a chunk: q at its batch starts and ta / Q_c, from one
-            // forward pass over its instances up to the pixel's n_contrib
-            if ((q == 0 || (base & (CHUNK - 1)) == CHUNK - BATCH) && ncon > 0) {
-                const int c0 = base & ~(CHUNK - 1);
-                const int c1 = min(c0 + CHUNK, ncon);
-                float qq = 1.0f;
-                float qs[CHUNK / BATCH];
-#pragma unroll
-                for (int k = 0; k < CHUNK / BATCH; ++k) {
-                    qs[k] = qq;
-                    const int hi = min(c0 + (k + 1) * BATCH, c1);
-                    for (int i = c0 + k * BATCH; i < hi; ++i) {
-                        const float* r = rows + (size_t)__ldg(gid + start + i) * ROWS;
-                        float dx, dy, e, alpha;
-                        if (gate<C>(px, py, __ldg(r), __ldg(r + 1), __ldg(r + 2), __ldg(r + 3), __ldg(r + 4),
-                                    __ldg(r + 5), dx, dy, e, alpha))
-                            qq = rnd<C>(qq * rnd<C>(fmaxf(1.0f - alpha, 1e-6f)));
-                    }
-                }
-                qb0 = qs[0];
-                qb1 = qs[1];
-                qb2 = qs[2];
-                qb3 = qs[3];
-                T = T / qq;
-            }
-        }
         const float* s = s_row[q & 1];
         float* part = s_part[q & 1][warp];
         const int n = size_of(q);
@@ -330,25 +323,9 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
         // the instances of 0..m-1 that a pixel of the warp's 16x2 strip may
         // hit, one lane testing each; walked last first
         const float x0 = (float)(tx * TILE), y0 = (float)(ty * TILE + 2 * warp);
-        const unsigned lo = __ballot_sync(FULL, lane < m && strip_may_pass<C>(s + lane * ROWS, x0, y0));
-        const unsigned hi =
-            __ballot_sync(FULL, lane + 32 < m && strip_may_pass<C>(s + (lane + 32) * ROWS, x0, y0));
+        const unsigned lo = __ballot_sync(FULL, lane < m && strip_may_pass(s + lane * ROWS, x0, y0));
+        const unsigned hi = __ballot_sync(FULL, lane + 32 < m && strip_may_pass(s + (lane + 32) * ROWS, x0, y0));
         unsigned long long todo = (unsigned long long)hi << 32 | lo;
-        if constexpr (BF16) {
-            // q_(i-1) of each candidate, forward from the batch's start
-            const int k = (base & (CHUNK - 1)) / BATCH;
-            float qq = k == 0 ? qb0 : k == 1 ? qb1 : k == 2 ? qb2 : qb3;
-            for (unsigned long long rest = todo; rest; rest &= rest - 1) {
-                const int j = __ffsll((long long)rest) - 1;
-                s_q[j * NPIX + t] = __bfloat16_as_ushort(__float2bfloat16_rn(qq));
-                if (base + j < ncon) {
-                    const float* r = s + j * ROWS;
-                    float dx, dy, e, alpha;
-                    if (gate<C>(px, py, r[0], r[1], r[2], r[3], r[4], r[5], dx, dy, e, alpha))
-                        qq = rnd<C>(qq * rnd<C>(fmaxf(1.0f - alpha, 1e-6f)));
-                }
-            }
-        }
         while (todo) {
             const int j = 63 - __clzll(todo);
             todo ^= 1ull << j;
@@ -356,29 +333,34 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
             float v[ROWS];
             bool hit = false;
             if (base + j < ncon) {
+                const float dx = px - r[0];
+                const float dy = py - r[1];
                 const float ca = r[2], cb = r[3], cc = r[4], op = r[5];
-                float dx, dy, e, alpha;
-                if (gate<C>(px, py, r[0], r[1], ca, cb, cc, op, dx, dy, e, alpha)) {
-                    hit = true;
-                    const float om = fmaxf(1.0f - alpha, 1e-6f);
-                    // bf16: T is ta before the chunk
-                    const float t_i =
-                        BF16 ? T * __bfloat162float(__ushort_as_bfloat16(s_q[j * NPIX + t])) : T / om;
-                    const float wgt = alpha * t_i;
-                    const float gc = g0 * r[6] + g1 * r[7] + g2 * r[8];
-                    const float da = t_i * gc - gdr / om;
-                    const float d_power = op * e * da;
-                    v[0] = d_power * (ca * dx + cb * dy);
-                    v[1] = d_power * (cc * dy + cb * dx);
-                    v[2] = d_power * (-0.5f * dx * dx);
-                    v[3] = d_power * (-dx * dy);
-                    v[4] = d_power * (-0.5f * dy * dy);
-                    v[5] = e * da;
-                    v[6] = wgt * g0;
-                    v[7] = wgt * g1;
-                    v[8] = wgt * g2;
-                    gdr += gc * wgt;
-                    if (!BF16) T = t_i;
+                const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+                if (power <= 0.0f && may_pass(power, op)) {
+                    const float e = expf(power);
+                    const float u = op * e;
+                    const float alpha = u > ALPHA_MAX ? ALPHA_MAX : u;
+                    if (alpha >= ALPHA_MIN) {
+                        hit = true;
+                        const float om = fmaxf(1.0f - alpha, 1e-6f);
+                        const float t_i = T / om;
+                        const float wgt = alpha * t_i;
+                        const float gc = g0 * r[6] + g1 * r[7] + g2 * r[8];
+                        const float da = t_i * gc - gdr / om;
+                        const float d_power = op * e * da;
+                        v[0] = d_power * (ca * dx + cb * dy);
+                        v[1] = d_power * (cc * dy + cb * dx);
+                        v[2] = d_power * (-0.5f * dx * dx);
+                        v[3] = d_power * (-dx * dy);
+                        v[4] = d_power * (-0.5f * dy * dy);
+                        v[5] = e * da;
+                        v[6] = wgt * g0;
+                        v[7] = wgt * g1;
+                        v[8] = wgt * g2;
+                        gdr += gc * wgt;
+                        T = t_i;
+                    }
                 }
             }
             if (!hit) {
@@ -396,21 +378,259 @@ __global__ void __launch_bounds__(NPIX) composite_bwd_kernel(
     }
 }
 
-template <bool CHAINED, typename C>
+// ---- bfloat16 ----
+
+constexpr int HITW = CHUNK / 32;  // hit-bit words per pixel
+constexpr size_t BF16_SMEM = (size_t)WORDS * NPIX * 4  // the table
+                             + 2 * CHUNK * 8            // destinations, two windows
+                             + 2 * NWARP * BATCH * ROWS * 4  // partials, two batches
+                             + 2 * CHUNK * ROWS * 4     // rows, two windows
+                             + HITW * NPIX * 4          // hit bits
+                             + NWARP * HITW * 4;        // candidates
+
+template <bool CHAINED>
+__global__ void __launch_bounds__(NPIX, 1) composite_bwd_bf16_kernel(
+    const float* __restrict__ rows, const int* __restrict__ gid, const int64_t* __restrict__ dst,
+    const int* __restrict__ starts, const int* __restrict__ counts, const float* __restrict__ bg,
+    const float* __restrict__ t_final, const int* __restrict__ n_contrib, const float* __restrict__ g_img,
+    int gy, int gx, int h, int w, float* __restrict__ ta_carry, float* __restrict__ gdr_carry,
+    float* __restrict__ d_inst) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned* s_f = reinterpret_cast<unsigned*>(smem);                    // [WORDS][NPIX]: factors, then the scan
+    int64_t* s_dst = reinterpret_cast<int64_t*>(s_f + WORDS * NPIX);      // [2][CHUNK]
+    float* s_part = reinterpret_cast<float*>(s_dst + 2 * CHUNK);          // [2][NWARP][BATCH * ROWS]
+    float* s_row = s_part + 2 * NWARP * BATCH * ROWS;                     // [2][CHUNK * ROWS]
+    unsigned* s_hit = reinterpret_cast<unsigned*>(s_row + 2 * CHUNK * ROWS);  // [HITW][NPIX]
+    unsigned* s_cand = s_hit + HITW * NPIX;                               // [NWARP][HITW]
+    __shared__ int s_max[NWARP];
+
+    const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+    const int tile = (b * gy + ty) * gx + tx;
+    const int t = threadIdx.x;
+    const int lane = t & 31, warp = t >> 5;
+    const int pxi = tx * TILE + t % TILE;
+    const int pyi = ty * TILE + t / TILE;
+    const bool inside = pxi < w && pyi < h;
+    const float px = (float)pxi;
+    const float py = (float)pyi;
+    const int start = starts[tile];
+    const int count = counts[tile];
+    if (count == 0) return;
+
+    const size_t p = ((size_t)b * h + pyi) * w + pxi;
+    int ncon = 0;
+    float T = 1.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f, gdr = 0.0f;
+    if (inside) ncon = n_contrib[p];
+    if (ncon > 0) {
+        g0 = g_img[3 * p + 0];
+        g1 = g_img[3 * p + 1];
+        g2 = g_img[3 * p + 2];
+        if (CHAINED) {
+            T = ta_carry[p];
+            gdr = gdr_carry[p];
+        } else {
+            T = t_final[p];
+            gdr = (g0 * bg[3 * b + 0] + g1 * bg[3 * b + 1] + g2 * bg[3 * b + 2]) * T;
+        }
+    }
+    const int wmax = __reduce_max_sync(FULL, ncon);
+    if (lane == 0) s_max[warp] = wmax;
+    __syncthreads();
+    int live = 0;
+#pragma unroll
+    for (int k = 0; k < NWARP; ++k) live = max(live, s_max[k]);
+    live = min(live, count);
+    if (live == 0) return;
+
+    const int lead = start % ALIGN;
+    const int n_chunks = (lead + live + CHUNK - 1) / CHUNK;
+    unsigned* col = s_f + t;
+    unsigned* hitcol = s_hit + t;
+    unsigned* cand = s_cand + warp * HITW;
+    const float x0 = (float)(tx * TILE), y0 = (float)(ty * TILE + 2 * warp);
+    // window c's slots of the live range: [lo, hi) (run positions first + slot)
+    auto first_of = [&](int c) { return c * CHUNK - lead; };
+    auto lo_of = [&](int c) { return max(0, lead - c * CHUNK); };
+    auto hi_of = [&](int c) { return min(CHUNK, live - first_of(c)); };
+    // window c's rows (through the ids) by cp.async, its destinations by a
+    // plain store, into buffer c & 1; the id is loaded before (idv)
+    auto stage_rows = [&](int c, int idv, int64_t dv) {
+        if (c < 0 || t < lo_of(c) || t >= hi_of(c)) return;
+        float* dstrow = s_row + (c & 1) * CHUNK * ROWS + t * ROWS;
+        const float* src = rows + (size_t)idv * ROWS;
+#pragma unroll
+        for (int k = 0; k < ROWS; ++k) copy_async(dstrow + k, src + k);
+        s_dst[(c & 1) * CHUNK + t] = dv;
+    };
+    {
+        const int c = n_chunks - 1;
+        int idv = 0;
+        int64_t dv = 0;
+        if (t >= lo_of(c) && t < hi_of(c)) {
+            idv = gid[start + first_of(c) + t];
+            dv = dst[start + first_of(c) + t];
+        }
+        stage_rows(c, idv, dv);
+    }
+    for (int c = n_chunks - 1; c >= 0; --c) {
+        const int first = first_of(c), lo = lo_of(c), hi = hi_of(c);
+        // window c's rows have landed; every reader of the buffers refilled
+        // below (window c + 1's rows and destinations) is done
+        wait_copies();
+        __syncthreads();
+        // the next window's id and destination, used after the factors
+        int idn = 0;
+        int64_t dn = 0;
+        if (c > 0 && t >= lo_of(c - 1) && t < hi_of(c - 1)) {
+            idn = gid[start + first_of(c - 1) + t];
+            dn = dst[start + first_of(c - 1) + t];
+        }
+        const float* srow = s_row + (c & 1) * CHUNK * ROWS;
+        const int64_t* sdst = s_dst + (c & 1) * CHUNK;
+        // the warp's candidates: slots below its pixels' largest n_contrib
+        // that a pixel of its strip may hit
+        const int top = min(hi, wmax - first);
+#pragma unroll
+        for (int k = 0; k < HITW; ++k) {
+            const int j = k * 32 + lane;
+            const unsigned bal =
+                __ballot_sync(FULL, j >= lo && j < top && strip_may_pass<true>(srow + j * ROWS, x0, y0));
+            if (lane == 0) cand[k] = bal;
+        }
+        __syncwarp();
+        // the factors bf16(max(1 - alpha, 1e-6)) of the pixel's hits below
+        // its n_contrib, two slots at a time, in the words of the 32-slot
+        // groups that hold a candidate of the warp; (1, 1) where neither slot
+        // of a word is a candidate
+        const int mine = ncon - first;
+        bool any = false;
+        unsigned groups = 0;
+        for (int k = 0; k < HITW; ++k) {
+            const unsigned cw = cand[k];  // the same in every lane
+            unsigned bits = 0;
+            if (cw == 0 || mine <= k * 32) {
+                hitcol[k * NPIX] = 0;
+                continue;
+            }
+            groups |= 1u << k;
+#pragma unroll 2
+            for (int mm = 0; mm < 16; ++mm) {
+                const unsigned pc = cw >> (2 * mm) & 3u;
+                const int j = k * 32 + 2 * mm;
+                unsigned word = BF16_ONE2;
+                if (pc != 0 && j < mine) {
+                    const float* r0 = srow + j * ROWS;
+                    const float* r1 = r0 + ROWS;
+                    float p0, p1, e, alpha, f0 = 1.0f, f1 = 1.0f;
+                    gate_power2(px - r0[0], px - r1[0], py - r0[1], py - r1[1], bf16_pack2(r0[2], r1[2]),
+                                bf16_pack2(r0[3], r1[3]), bf16_pack2(r0[4], r1[4]), p0, p1);
+                    if ((pc & 1u) && gate_tail(p0, r0[5], e, alpha)) {
+                        f0 = fmaxf(1.0f - alpha, 1e-6f);
+                        bits |= 1u << (2 * mm);
+                    }
+                    if ((pc & 2u) && j + 1 < mine && gate_tail(p1, r1[5], e, alpha)) {
+                        f1 = fmaxf(1.0f - alpha, 1e-6f);
+                        bits |= 2u << (2 * mm);
+                    }
+                    word = bf16_pack2(f0, f1);
+                }
+                col[(k * 16 + mm) * NPIX] = word;
+            }
+            hitcol[k * NPIX] = bits;
+            any |= bits != 0;
+        }
+        // a column without a hit is all ones, its own scan: it is neither
+        // scanned nor read
+        if (any) scan_column(col, groups);
+        const float ta_before = any ? T / scan_full(col, CHUNK - 1) : T;
+        // the next window's rows land while this one is walked
+        stage_rows(c - 1, idn, dn);
+        // the walk, back to front, a batch of 64 slots at a time, over the
+        // batches that hold live slots; partials in two buffers, so that
+        // one barrier a batch orders the walk, the sums and the next zeroing
+        for (int q = (hi - 1) / BATCH; q >= lo / BATCH; --q) {
+            float* part = s_part + ((q & 1) * NWARP + warp) * BATCH * ROWS;
+            for (int i = lane; i < BATCH * ROWS / 4; i += 32)
+                reinterpret_cast<float4*>(part)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            __syncwarp();
+            const unsigned mlo = hitcol[(2 * q) * NPIX], mhi = hitcol[(2 * q + 1) * NPIX];
+            const unsigned long long mask = (unsigned long long)mhi << 32 | mlo;
+            // the slots where a pixel of the warp hits, last first
+            unsigned long long todo =
+                (unsigned long long)__reduce_or_sync(FULL, mhi) << 32 | __reduce_or_sync(FULL, mlo);
+            while (todo) {
+                const int jj = 63 - __clzll(todo);
+                todo ^= 1ull << jj;
+                const int j = q * BATCH + jj;
+                float v[ROWS];
+                const bool hit = mask >> jj & 1ull;
+                if (hit) {
+                    const float* r = srow + j * ROWS;
+                    const float ca_ = r[2], cb_ = r[3], cc_ = r[4], op = r[5];
+                    const float dx = px - r[0], dy = py - r[1];
+                    float power, unused, e, alpha;
+                    gate_power2(dx, dx, dy, dy, bf16_pack2(ca_, ca_), bf16_pack2(cb_, cb_), bf16_pack2(cc_, cc_),
+                                power, unused);
+                    gate_tail(power, op, e, alpha);  // passes: the same expressions passed above
+                    const float om = fmaxf(1.0f - alpha, 1e-6f);
+                    const float t_i = ta_before * (j == 0 ? 1.0f : scan_full(col, j - 1));
+                    const float wgt = alpha * t_i;
+                    const float gc = g0 * r[6] + g1 * r[7] + g2 * r[8];
+                    const float da = t_i * gc - gdr / om;
+                    const float d_power = op * e * da;
+                    v[0] = d_power * (ca_ * dx + cb_ * dy);
+                    v[1] = d_power * (cc_ * dy + cb_ * dx);
+                    v[2] = d_power * (-0.5f * dx * dx);
+                    v[3] = d_power * (-dx * dy);
+                    v[4] = d_power * (-0.5f * dy * dy);
+                    v[5] = e * da;
+                    v[6] = wgt * g0;
+                    v[7] = wgt * g1;
+                    v[8] = wgt * g2;
+                    gdr += gc * wgt;
+                } else {
+#pragma unroll
+                    for (int k = 0; k < ROWS; ++k) v[k] = 0.0f;
+                }
+                warp_sum_rows(v, hit, lane, part + jj * ROWS);
+            }
+            __syncthreads();
+            // the batch's rows: the 8 warps' partials added in warp order
+            const float* parts = s_part + (q & 1) * NWARP * BATCH * ROWS;
+            const int b0 = max(lo, q * BATCH), b1 = min(hi, (q + 1) * BATCH);
+            for (int i = t; i < (b1 - b0) * ROWS; i += NPIX) {
+                const int jj = b0 - q * BATCH + i / ROWS, k = i % ROWS;
+                float sum = 0.0f;
+#pragma unroll
+                for (int u = 0; u < NWARP; ++u) sum += parts[(u * BATCH + jj) * ROWS + k];
+                d_inst[sdst[q * BATCH + jj] * ROWS + k] = sum;
+            }
+        }
+        T = ta_before;
+    }
+    if (CHAINED && ncon > 0) {
+        ta_carry[p] = T;
+        gdr_carry[p] = gdr;
+    }
+}
+
+template <bool CHAINED, bool BF16>
 int launch(
     const float* rows, const int* gid, const int64_t* dst, const int* starts, const int* counts,
     const float* bg, const float* t_final, const int* n_contrib, const float* g_img, int b, int gy,
     int gx, int h, int w, float* ta, float* g_dot_ra, float* d_inst, void* stream) {
-    size_t smem = 0;
-    if constexpr (!std::is_same_v<C, float>) {
-        smem = Q_BYTES;  // above the 48 KB of static and dynamic shared memory a launch gets unasked
-        const cudaError_t err = cudaFuncSetAttribute(
-            composite_bwd_kernel<CHAINED, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
     const dim3 grid(gx, gy, b);
-    composite_bwd_kernel<CHAINED, C><<<grid, NPIX, smem, (cudaStream_t)stream>>>(
-        rows, gid, dst, starts, counts, bg, t_final, n_contrib, g_img, gy, gx, h, w, ta, g_dot_ra, d_inst);
+    if constexpr (BF16) {
+        // above the 48 KB of shared memory a launch gets unasked
+        const cudaError_t err = cudaFuncSetAttribute(
+            composite_bwd_bf16_kernel<CHAINED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM);
+        if (err != cudaSuccess) return (int)err;
+        composite_bwd_bf16_kernel<CHAINED><<<grid, NPIX, BF16_SMEM, (cudaStream_t)stream>>>(
+            rows, gid, dst, starts, counts, bg, t_final, n_contrib, g_img, gy, gx, h, w, ta, g_dot_ra, d_inst);
+    } else {
+        composite_bwd_kernel<CHAINED><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
+            rows, gid, dst, starts, counts, bg, t_final, n_contrib, g_img, gy, gx, h, w, ta, g_dot_ra, d_inst);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -421,18 +641,18 @@ extern "C" int composite_bwd(
     const int* counts, const float* bg, const float* t_final, const int* n_contrib,
     const float* g_img, int b, int gy, int gx, int h, int w, float* d_inst,
     void* stream) {
-    return launch<false, float>(rows, gid, dst, starts, counts, bg, t_final, n_contrib, g_img, b, gy, gx, h, w,
+    return launch<false, false>(rows, gid, dst, starts, counts, bg, t_final, n_contrib, g_img, b, gy, gx, h, w,
                                 nullptr, nullptr, d_inst, stream);
 }
 
-// The bf16 instantiation, same arguments.
+// The bf16 kernel, same arguments.
 extern "C" int composite_bwd_bf16(
     const float* rows, const int* gid, const int64_t* dst, const int* starts,
     const int* counts, const float* bg, const float* t_final, const int* n_contrib,
     const float* g_img, int b, int gy, int gx, int h, int w, float* d_inst,
     void* stream) {
-    return launch<false, __nv_bfloat16>(rows, gid, dst, starts, counts, bg, t_final, n_contrib, g_img, b, gy, gx,
-                                        h, w, nullptr, nullptr, d_inst, stream);
+    return launch<false, true>(rows, gid, dst, starts, counts, bg, t_final, n_contrib, g_img, b, gy, gx, h, w,
+                               nullptr, nullptr, d_inst, stream);
 }
 
 // One depth group of the reverse walk: resumed from, and written back into,
@@ -441,15 +661,36 @@ extern "C" int composite_bwd_chained(
     const float* rows, const int* gid, const int64_t* dst, const int* starts,
     const int* counts, const int* n_contrib, const float* g_img, int b, int gy,
     int gx, int h, int w, float* ta, float* g_dot_ra, float* d_inst, void* stream) {
-    return launch<true, float>(rows, gid, dst, starts, counts, nullptr, nullptr, n_contrib, g_img, b, gy, gx, h, w,
+    return launch<true, false>(rows, gid, dst, starts, counts, nullptr, nullptr, n_contrib, g_img, b, gy, gx, h, w,
                                ta, g_dot_ra, d_inst, stream);
 }
 
-// The bf16 instantiation, same arguments.
+// The bf16 kernel, same arguments.
 extern "C" int composite_bwd_chained_bf16(
     const float* rows, const int* gid, const int64_t* dst, const int* starts,
     const int* counts, const int* n_contrib, const float* g_img, int b, int gy,
     int gx, int h, int w, float* ta, float* g_dot_ra, float* d_inst, void* stream) {
-    return launch<true, __nv_bfloat16>(rows, gid, dst, starts, counts, nullptr, nullptr, n_contrib, g_img, b, gy,
-                                       gx, h, w, ta, g_dot_ra, d_inst, stream);
+    return launch<true, true>(rows, gid, dst, starts, counts, nullptr, nullptr, n_contrib, g_img, b, gy, gx, h, w,
+                              ta, g_dot_ra, d_inst, stream);
+}
+
+// The CTAs of a backward kernel that one SM holds at once (the CUDA
+// occupancy calculator on its registers and shared memory), or minus the
+// cudaError_t: bf16 selects the bf16 kernel, chained the CHAINED one.
+extern "C" int composite_bwd_blocks_per_sm(int bf16, int chained) {
+    int n = 0;
+    cudaError_t err;
+    if (bf16) {
+        err = chained ? cudaFuncSetAttribute(composite_bwd_bf16_kernel<true>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM)
+                      : cudaFuncSetAttribute(composite_bwd_bf16_kernel<false>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM);
+        if (err == cudaSuccess)
+            err = chained ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, composite_bwd_bf16_kernel<true>, NPIX, BF16_SMEM)
+                          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, composite_bwd_bf16_kernel<false>, NPIX, BF16_SMEM);
+    } else {
+        err = chained ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, composite_bwd_kernel<true>, NPIX, 0)
+                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, composite_bwd_kernel<false>, NPIX, 0);
+    }
+    return err == cudaSuccess ? n : -(int)err;
 }

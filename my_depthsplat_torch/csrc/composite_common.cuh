@@ -1,20 +1,21 @@
 // What the forward and the backward composite share (composite_fwd.cu,
-// composite_bwd.cu): the tile, the gates' constants, the gate itself
-// (gate, in a float32 and a bfloat16 instantiation) and the cull helpers
-// that decide a pair without expf where the gate cannot pass (may_pass in
-// both; strip_may_pass, the per-warp cull, and the cp.async staging
-// primitives in the backward only: the forward measured no gain from
-// either). Both sources include this one header, so the
-// forward's and the backward's gates stay one piece of code: every pair is
-// decided by the same expressions in both, which is what lets the backward
-// count exactly the hits the forward counted.
+// composite_bwd.cu): the tile, the gates' constants, the float32 gate
+// (gate), the bfloat16 gate's pieces (the packed bf16x2 arithmetic, the
+// power of two slots at once, gate_tail), the bf16 windows' doubling scan
+// (scan_column, scan_full) and the cull helpers that decide a
+// pair without expf where the gate cannot pass (may_pass in both;
+// strip_may_pass, the per-warp cull, and the cp.async staging primitives
+// in the backward only: the forward measured no gain from either). Both
+// sources include this one header, so the forward's and the backward's
+// gates stay one piece of code: every pair is decided by the same
+// expressions in both, which is what lets the backward count exactly the
+// hits the forward counted.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
 
 namespace composite {
 
@@ -43,49 +44,129 @@ __device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;
 // cannot.
 __device__ __forceinline__ bool may_pass(float power, float op) { return power >= POWER_MIN || op > 1.0f; }
 
-// x rounded to the nearest value of the compute type C (float or
-// __nv_bfloat16; ties to even), held in a float. A float product of two
-// bf16 values is exact and a float sum of two rounds only where the smaller
-// one lies below the larger's last bf16 bit, so computing in float and
-// rounding once gives C's own operation.
-template <typename C>
-__device__ __forceinline__ float rnd(float x) {
-    if constexpr (std::is_same_v<C, float>) return x;
-    else return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// The gate's power -0.5 (a dx^2 + c dy^2) - b dx dy (reference
-// pallas_raster.py:140-158). float: one expression, as it always was. bf16:
-// the float deltas and the conic rounded to bf16, then every product and
-// sum rounded in the reference's order; the power is used as a float.
-template <typename C>
-__device__ __forceinline__ float gate_power(float dx, float dy, float a, float b, float c) {
-    if constexpr (std::is_same_v<C, float>) {
-        return -0.5f * (a * dx * dx + c * dy * dy) - b * dx * dy;
-    } else {
-        const float x = rnd<C>(dx), y = rnd<C>(dy), ra = rnd<C>(a), rb = rnd<C>(b), rc = rnd<C>(c);
-        const float s = rnd<C>(rnd<C>(rnd<C>(ra * x) * x) + rnd<C>(rnd<C>(rc * y) * y));
-        return rnd<C>(rnd<C>(-0.5f * s) - rnd<C>(rnd<C>(rb * x) * y));
-    }
-}
-
-// The alpha gate of pixel (px, py) against an instance (x, y, conic a, b,
-// c, opacity op), shared by the forward and the backward so that both
-// decide every pair alike: the power (gate_power), skipped unless power <=
-// 0 (and without expf where may_pass says it cannot pass), then e =
-// expf(power) and alpha = min(0.99, op e), passed if alpha >= 1/255. Sets
-// the float deltas dx, dy always, e and alpha when the power passes.
-template <typename C>
-__device__ __forceinline__ bool gate(float px, float py, float x, float y, float a, float b, float c, float op,
-                                     float& dx, float& dy, float& e, float& alpha) {
-    dx = px - x;
-    dy = py - y;
-    const float power = gate_power<C>(dx, dy, a, b, c);
+// The alpha gate once the power is known: skipped unless power <= 0 (and
+// without expf where may_pass says it cannot pass), then e = expf(power)
+// and alpha = min(0.99, op e), passed if alpha >= 1/255.
+__device__ __forceinline__ bool gate_tail(float power, float op, float& e, float& alpha) {
     if (!(power <= 0.0f && may_pass(power, op))) return false;
     e = expf(power);
     const float v = op * e;
     alpha = v > ALPHA_MAX ? ALPHA_MAX : v;
     return alpha >= ALPHA_MIN;
+}
+
+// The float32 alpha gate of pixel (px, py) against an instance (x, y, conic
+// a, b, c, opacity op) (reference pallas_raster.py:140-158), shared by the
+// forward and the backward so that both decide every pair alike. Sets the
+// deltas dx, dy always, e and alpha when the power passes.
+__device__ __forceinline__ bool gate(float px, float py, float x, float y, float a, float b, float c, float op,
+                                     float& dx, float& dy, float& e, float& alpha) {
+    dx = px - x;
+    dy = py - y;
+    const float power = -0.5f * (a * dx * dx + c * dy * dy) - b * dx * dy;
+    return gate_tail(power, op, e, alpha);
+}
+
+// ---- bfloat16 (the reference's composite_dtype="bfloat16"): two bf16
+// values packed in 32 bits, the first slot in the low half. Each operation
+// is one correctly rounded bf16x2 instruction (round to nearest, ties to
+// even): a product as fma with -0 added, a sum as fma by 1, so nothing can
+// be contracted with a neighbour.
+constexpr unsigned BF16_ONE2 = 0x3F803F80u;  // (1, 1)
+
+__device__ __forceinline__ unsigned bf16_mul2(unsigned a, unsigned b) {
+    unsigned d;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(0x80008000u));
+    return d;
+}
+
+__device__ __forceinline__ unsigned bf16_add2(unsigned a, unsigned b) {
+    unsigned d;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(BF16_ONE2), "r"(b));
+    return d;
+}
+
+// (lo, hi) rounded to bf16 and packed
+__device__ __forceinline__ unsigned bf16_pack2(float lo, float hi) {
+    unsigned d;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+    return d;
+}
+
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xFFFF0000u); }
+__device__ __forceinline__ unsigned short bf16_bits(float x) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// The bf16 gate's powers of two slots against one pixel (reference
+// _chunk_alpha :140-158 as XLA computes it jitted): the float deltas rounded
+// to bf16, the conics (A, B, C: two slots' bf16 a, b, c, packed), then
+// s = a x x + c y y, m = -0.5 s and t = b x y, rounded after every
+// operation in the reference's order; the power is the float32 difference
+// m - t (its bf16 rounding is dropped where the reference widens it).
+__device__ __forceinline__ void gate_power2(float dx0, float dx1, float dy0, float dy1, unsigned A, unsigned B,
+                                            unsigned C, float& p0, float& p1) {
+    const unsigned X = bf16_pack2(dx0, dx1), Y = bf16_pack2(dy0, dy1);
+    const unsigned s = bf16_add2(bf16_mul2(bf16_mul2(A, X), X), bf16_mul2(bf16_mul2(C, Y), Y));
+    const unsigned m = bf16_mul2(s, 0xBF00BF00u);  // (-0.5, -0.5)
+    const unsigned t = bf16_mul2(bf16_mul2(B, X), Y);
+    p0 = bf16_lo(m) - bf16_lo(t);
+    p1 = bf16_hi(m) - bf16_hi(t);
+}
+
+// ---- the bf16 windows and their doubling scan (both bf16 kernels). A
+// window is 256 slots of a launch's instance array; a run's first window
+// starts at start - start % 128 (the reference's CHUNK and _ALIGN). Each
+// thread (pixel) keeps a column of the window's 256 bf16 values in shared
+// memory, two slots a word, words NPIX apart: its factors, then their scan.
+constexpr int CHUNK = 256;
+constexpr int ALIGN = 128;
+constexpr int WORDS = CHUNK / 2;
+
+// Slot j of a pixel's column.
+__device__ __forceinline__ float slot_value(const unsigned* col, int j) {
+    const unsigned w = col[(j >> 1) * NPIX];
+    return (j & 1) ? bf16_hi(w) : bf16_lo(w);
+}
+
+// The unrounded scan at slot j: the 7-level scan times the one 128 slots
+// before it (1 below slot 128), a float32 product of two bf16 values, exact:
+// the last level, kept unrounded where the jitted reference widens it.
+__device__ __forceinline__ float scan_full(const unsigned* col, int j) {
+    const float a = slot_value(col, j);
+    return j >= ALIGN ? a * slot_value(col, j - ALIGN) : a;
+}
+
+// A level of shift 2 D slots (D words): every word times the word D below
+// it, from the top so that each partner is read before it is overwritten.
+template <int D>
+__device__ __forceinline__ void scan_words(unsigned (&r)[WORDS]) {
+#pragma unroll
+    for (int m = WORDS - 1; m >= D; --m) r[m] = bf16_mul2(r[m], r[m - D]);
+}
+
+// The reference's doubling scan (_lane_cumprod) of a pixel's column, shifts
+// 1 to 64 (the last, 128, is scan_full's product), in registers: the 128
+// words are read once, scanned (1,665 bf16 multiplies on 833 words) and
+// written back once. Bit k of ``groups`` says that words 16 k to 16 k + 15
+// were written; the others hold (1, 1) and are not read.
+__device__ __forceinline__ void scan_column(unsigned* col, unsigned groups) {
+    unsigned r[WORDS];
+#pragma unroll
+    for (int m = 0; m < WORDS; ++m) r[m] = (groups >> (m / 16) & 1u) ? col[m * NPIX] : BF16_ONE2;
+    // shift 1: slot i times slot i - 1, for a word's low half the high half
+    // of the word below
+#pragma unroll
+    for (int m = WORDS - 1; m >= 0; --m) r[m] = bf16_mul2(r[m], __byte_perm(m > 0 ? r[m - 1] : BF16_ONE2, r[m], 0x5432));
+    scan_words<1>(r);
+    scan_words<2>(r);
+    scan_words<4>(r);
+    scan_words<8>(r);
+    scan_words<16>(r);
+    scan_words<32>(r);
+#pragma unroll
+    for (int m = 0; m < WORDS; ++m) col[m * NPIX] = r[m];
 }
 
 // The largest power -0.5 (a u^2 + c d^2) - b u d for d in [lo, hi]: along an
@@ -103,12 +184,12 @@ __device__ __forceinline__ float edge_max(float u, float lo, float hi, float a, 
 // slack, 1e-3 plus 1e-5 of the terms' largest magnitude over the strip, is
 // 20 times the float rounding of this bound and of the gate's own power. A
 // conic that is no ellipse, or op < 0 (a NaN threshold), decides nothing.
-// With a bf16 gate (C = __nv_bfloat16) the gate's power rounds each of its
-// nine operations to 8 significant bits: its error is within 7 * 2^-8 (2.7
-// %) of the terms' magnitude (five roundings on a product of three
-// factors, one on their sum, one on the difference), so the slack's
-// relative part is 2^-4 (6.25 %), more than twice that.
-template <typename C = float>
+// With a bf16 gate (BF16) the gate's power rounds eight of its nine
+// operations to 8 significant bits: its error is within 6 * 2^-8 (2.3 %) of
+// the terms' magnitude (five roundings on a product of three factors, one
+// on their sum; the difference is float32), so the slack's relative part
+// is 2^-4 (6.25 %), more than twice that.
+template <bool BF16 = false>
 __device__ __forceinline__ bool strip_may_pass(const float* r, float x0, float y0) {
     const float a = r[2], b = r[3], c = r[4], op = r[5];
     if (!(a > 0.0f && c > 0.0f && a * c > b * b)) return true;
@@ -119,7 +200,7 @@ __device__ __forceinline__ bool strip_may_pass(const float* r, float x0, float y
         top = fmaxf(fmaxf(edge_max(lx, ly, hy, a, b, c), edge_max(hx, ly, hy, a, b, c)),
                     fmaxf(edge_max(ly, lx, hx, c, b, a), edge_max(hy, lx, hx, c, b, a)));
     const float X = fmaxf(fabsf(lx), fabsf(hx)), Y = fmaxf(fabsf(ly), fabsf(hy));
-    constexpr float rel = std::is_same_v<C, float> ? 1e-5f : 0.0625f;
+    constexpr float rel = BF16 ? 0.0625f : 1e-5f;
     const float slack = 1e-3f + rel * (a * X * X + c * Y * Y + fabsf(b) * X * Y);
     return !(top < logf(ALPHA_MIN / op) - slack);
 }

@@ -28,16 +28,26 @@ for module. With CUDA tensors every wrapper launches its kernel or raises;
 ``<wrapper>.launches`` counts kernel runs.
 
 ``composite_dtype="bfloat16"`` (reference :921, ``_chunk_alpha`` :129-159,
-:246-257, :443-456) runs the gate's quadratic and each chunk's products of
-(1 - alpha) in bfloat16 on both routes, forward and backward: the pixel
-deltas are float32 rounded to bf16, the quadratic rounds after every
-operation, and exp, alpha and the gates are float32. A chunk is 256
-instances counted from the first instance of a launch's run; inside it the
-running product q rounds to bf16 after every multiply, and a float32
-product P carries it across chunks (forward: included while P q_i >= 1e-4,
-weight alpha P q_(i-1); backward: T_i = (ta / Q_c) q_(i-1) from the
-chunk's total Q_c). The carried state, the carries and the gradient
-assembly stay float32. Each kernel has a bf16 instantiation
+:197-202, :246-257, :354-386, :443-456) runs the gate's quadratic and each
+chunk's products of (1 - alpha) in bfloat16 on both routes, forward and
+backward, with the reference's association. The pixel deltas are float32
+rounded to bf16 and the quadratic rounds after every operation but the
+last, whose float32 difference is the power (XLA keeps it unrounded, since
+it feeds a widening); exp, alpha and the gates are float32. A chunk is a
+window of 256 instance slots of the launch's instance array starting at
+``start - start % 128`` (``start`` the run's first slot): slots outside the
+run hold alpha 0. Inside it the product of the factors is the reference's
+inclusive doubling scan (``chunk_products``): shifts 1, 2, ..., 128, each
+level a bf16 multiply, the last level's kept unrounded where the reference
+widens it. Forward: P, the float32 product carried from the run's earlier
+chunks, times the unrounded scan is the test (an instance is included
+while it is >= 1e-4), P times the rounded scan shifted by one slot the
+weight's transmittance; each chunk sets T to the least included product of
+its slots, or of those and the T before it where a slot is not included,
+and P is multiplied by the product of all 256 slots at the chunk's end. Backward: T_i = (ta / Q) s_(i-1), s the unrounded scan of
+bf16(max(1 - alpha, 1e-6)) over the pixel's hits up to its n_contrib and Q
+its value at the chunk's last slot. The carried state, the carries and the
+gradient assembly stay float32. Each kernel has a bf16 kernel beside it
 (``<wrapper>.launches_bf16`` counts its runs apart; ``.launches`` counts
 both) and each plain version a bf16 branch (``_composite_chained_plain_bf16``,
 ``_composite_bwd_chained_plain_bf16``) that computes every chunk of a block
@@ -74,10 +84,10 @@ from .instances import (
 from .projection import ScreenGaussians, project_gaussians
 
 _NPIX = TILE_X * TILE_Y
-# bfloat16 composite: instances per chunk of a run, counted from its first
-# instance (reference CHUNK; its windows' 128-aligned start is a DMA
-# alignment and is not carried over)
+# bfloat16 composite: slots per chunk (reference CHUNK) and the alignment of
+# a run's first window (reference _ALIGN)
 _CHUNK = 256
+_ALIGN = 128
 # bfloat16 plain versions: at most this many chunks (whole tiles) at a time
 _PLAIN_CHUNKS = 96
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -97,8 +107,10 @@ def gate_alpha(px: Tensor, py: Tensor, d: Tensor, cdt: torch.dtype = torch.float
     (float32 deltas), e = exp(power), alpha = min(0.99, op * e) and the gate
     (power <= 0 and alpha >= 1/255), each (..., P, n). With ``cdt`` bfloat16
     the deltas and the conic are rounded to bf16 and the quadratic rounds
-    after every operation, in the reference's order; the power is then
-    widened to float32."""
+    after every operation in the reference's order but the last: the power
+    is the float32 difference of the two bf16 terms, as the jitted
+    reference computes it (the widening of a bf16 subtraction takes its
+    float32 result)."""
     x, y = d[..., None, :, 0], d[..., None, :, 1]
     ca, cb, cc, op = (d[..., None, :, k] for k in (2, 3, 4, 5))
     dx, dy = px - x, py - y
@@ -106,23 +118,32 @@ def gate_alpha(px: Tensor, py: Tensor, d: Tensor, cdt: torch.dtype = torch.float
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
     else:
         bx, by, ba, bb, bc = (v.to(cdt) for v in (dx, dy, ca, cb, cc))
-        power = (-0.5 * (ba * bx * bx + bc * by * by) - bb * bx * by).float()
+        power = (-0.5 * (ba * bx * bx + bc * by * by)).float() - (bb * bx * by).float()
     e = torch.exp(power)
     alpha = torch.minimum(op * e, torch.full_like(power, ALPHA_MAX))
     return dx, dy, e, alpha, (power <= 0.0) & (alpha >= ALPHA_MIN)
 
 
-def _bf16_running_product(f: Tensor) -> Tensor:
-    """Inclusive running product of bfloat16 factors along the last axis,
-    rounded to bf16 after every multiply (``torch.cumprod`` multiplies in
-    float and rounds once), -> float32. A float32 product of two bf16 values
-    is exact, so one rounding per step is the kernels' own."""
-    steps = f.movedim(-1, 0).contiguous()
-    out = torch.empty_like(steps)
-    q = out[0] = steps[0]
-    for j in range(1, steps.shape[0]):
-        q = out[j] = q * steps[j]
-    return out.movedim(0, -1).float()
+def _shift_slots(x: Tensor, shift: int) -> Tensor:
+    """``x`` shifted ``shift`` slots along the last axis, 1 in the vacated
+    slots (reference ``_shift_lanes`` with fill 1)."""
+    return torch.cat([torch.ones_like(x[..., :shift]), x[..., :-shift]], -1)
+
+
+def chunk_products(f: Tensor) -> tuple[Tensor, Tensor]:
+    """The reference's inclusive product of the bfloat16 factors ``f`` along
+    the last axis (``_lane_cumprod``, reference :107): a doubling scan, at
+    shift s every slot multiplied by the slot s before it, each level a bf16
+    multiply (torch rounds a bf16 product once: the float32 product of two
+    bf16 values is exact). Returns the scan with every level rounded and
+    the scan whose last level is the exact float32 product, each as
+    float32."""
+    acc, shift = f, 1
+    while 2 * shift < f.shape[-1]:
+        acc = acc * _shift_slots(acc, shift)
+        shift *= 2
+    full = acc.float() * _shift_slots(acc, shift).float()
+    return full.to(torch.bfloat16).float(), full
 
 
 def _tile_blocks(n_chunks: list[int], budget: int) -> list[list[int]]:
@@ -141,32 +162,41 @@ def _tile_blocks(n_chunks: list[int], budget: int) -> list[list[int]]:
     return blocks
 
 
+def _windows(starts: Tensor, lengths: Tensor) -> tuple[Tensor, Tensor]:
+    """Each run's lead (``start % 128``: its first window starts that many
+    slots before it) and its number of 256-slot windows, 0 for an empty
+    run (reference :197-206, :384-386)."""
+    lead = starts.long() % _ALIGN
+    n = torch.where(lengths > 0, (lead + lengths + _CHUNK - 1) // _CHUNK, 0)
+    return lead, n
+
+
 class _Chunks(NamedTuple):
-    """The 256-instance chunks of a block of tiles' runs, tile by tile and
-    in run order, with the gate of each of their tile's pixels."""
+    """The 256-slot windows of a block of tiles' runs, tile by tile and in
+    run order, with the gate of each of their tile's pixels."""
 
     loc: Tensor  # (K,) the chunk's tile, as an index into the block
-    idx: Tensor  # (K,) the chunk's position in its run
-    lane: Tensor  # (K, 256) 0-based position in the run of each lane
-    valid: Tensor  # (K, 256) the lane holds an instance
-    inst: Tensor  # (K, 256) sorted instance of each lane (0 where not valid)
-    d: Tensor  # (K, 256, 9) each lane's row
-    gate: tuple  # gate_alpha's (dx, dy, e, alpha, gate), each (K, 256 pixels, 256 lanes)
+    idx: Tensor  # (K,) the chunk's position among its run's windows
+    lane: Tensor  # (K, 256) 0-based position in the run of each slot (< 0 in the lead)
+    valid: Tensor  # (K, 256) the slot holds an instance of the run
+    inst: Tensor  # (K, 256) sorted instance of each slot (0 where not valid)
+    d: Tensor  # (K, 256, 9) each slot's row
+    gate: tuple  # gate_alpha's (dx, dy, e, alpha, gate), each (K, 256 pixels, 256 slots)
 
 
 def _chunks(rows, gid, starts, lengths, tiles, image_shape, cdt) -> _Chunks:
-    """The chunks of the runs ``starts[t], lengths[t]`` of the tiles
+    """The windows of the runs ``starts[t], lengths[t]`` of the tiles
     ``tiles`` (a list of flat tile indices) and their bf16 gates."""
     dev = rows.device
     gy, gx = tile_grid(image_shape)
     tiles_t = torch.tensor(tiles, device=dev)
-    n_chunks = (lengths[tiles_t] + _CHUNK - 1) // _CHUNK
+    lead, n_chunks = _windows(starts[tiles_t], lengths[tiles_t])
     loc = torch.repeat_interleave(torch.arange(len(tiles), device=dev), n_chunks)
     tile = tiles_t[loc]
     first_chunk = torch.cumsum(n_chunks, 0) - n_chunks
     idx = torch.arange(loc.shape[0], device=dev) - torch.repeat_interleave(first_chunk, n_chunks)
-    lane = idx[:, None] * _CHUNK + torch.arange(_CHUNK, device=dev)
-    valid = lane < lengths[tile][:, None]
+    lane = idx[:, None] * _CHUNK + torch.arange(_CHUNK, device=dev) - lead[loc][:, None]
+    valid = (lane >= 0) & (lane < lengths[tile][:, None])
     inst = torch.where(valid, starts[tile][:, None].long() + lane, 0)
     d = rows[gid[inst].long()]
     p = torch.arange(_NPIX, device=dev)
@@ -255,13 +285,17 @@ def composite_chained_plain(
 
 
 def _composite_chained_plain_bf16(rows, gid, starts, counts, state, image_shape):
-    """``composite_chained_plain`` with the bf16 gate and chunk products
-    (reference :246-257): per chunk, q the bf16 running product of
-    bf16(1 - a); P, the float32 product carried from the run's earlier
-    chunks (seeded with the carried p_raw), is multiplied by each chunk's
-    total at its end. An instance is included while P q_i >= 1e-4 (q_i
-    falls with i, so the stop is sticky) with weight a P q_(i-1); the frozen
-    T is the last included P q_i and p_raw the product over the whole run."""
+    """``composite_chained_plain`` with the bf16 gate and the reference's
+    chunk products (:197-279): per 256-slot window, ``chunk_products`` of
+    bf16(1 - a) (a = 0 outside the run and where the gate fails) gives s,
+    rounded at every level, and s_full, exact at the last; P, the float32
+    product carried from the run's earlier windows (seeded with the carried
+    p_raw), becomes P s_full at the last slot at the window's end. A slot is
+    included while P s_full >= 1e-4 (each slot decides alone, as the
+    reference's lanes do), a hit there weighs a P s_(i-1); each window sets
+    the frozen T to the least P s_full of its included slots, or of those
+    and the T before it where a slot is not included, and p_raw is the
+    product over every window of the run."""
     h, w = image_shape
     b = state.t.shape[0]
     gy, gx = tile_grid(image_shape)
@@ -269,26 +303,33 @@ def _composite_chained_plain_bf16(rows, gid, starts, counts, state, image_shape)
     t_t = _tile_major(state.t, image_shape)
     p_t = _tile_major(state.p_raw, image_shape)
     n_t = torch.zeros_like(p_t, dtype=torch.int32)
-    n_chunks = ((counts + _CHUNK - 1) // _CHUNK).tolist()
+    n_chunks = _windows(starts, counts)[1].tolist()
     for tiles in _tile_blocks(n_chunks, _PLAIN_CHUNKS):
         c = _chunks(rows, gid, starts, counts, tiles, image_shape, torch.bfloat16)
         _, _, _, alpha, gate = c.gate
         a = torch.where(gate, alpha, torch.zeros_like(alpha))
-        q = _bf16_running_product((1.0 - a).to(torch.bfloat16))  # (K, P, 256)
-        q_prev = torch.cat([torch.ones_like(q[..., :1]), q[..., :-1]], -1)
-        carried = torch.empty_like(q[..., 0])
+        s, s_full = chunk_products((1.0 - a).to(torch.bfloat16))  # (K, P, 256)
+        carried = torch.empty_like(s[..., 0])
         cur = p_t[tiles]
-        for k in range(int(c.idx.max()) + 1):  # a tile's chunks in run order
+        for k in range(int(c.idx.max()) + 1):  # a tile's windows in run order
             sel = (c.idx == k).nonzero()[:, 0]
             carried[sel] = cur[c.loc[sel]]
-            cur[c.loc[sel]] = carried[sel] * q[sel, :, -1]
-        p_full = carried[..., None] * q
+            cur[c.loc[sel]] = carried[sel] * s_full[sel, :, -1]
+        p_full = carried[..., None] * s_full
         include = p_full >= TRANSMITTANCE_EPS
-        weight = torch.where(include, a * (carried[..., None] * q_prev), torch.zeros_like(a))
+        weight = torch.where(include, a * (carried[..., None] * _shift_slots(s, 1)), torch.zeros_like(a))
         tile_idx = torch.tensor(tiles, device=rows.device)[c.loc]
         rgb_t.index_add_(0, tile_idx, torch.bmm(weight, c.d[..., 6:9]))
-        frozen = torch.where(include, p_full, torch.full_like(p_full, float("inf"))).amin(-1)
-        t_t.scatter_reduce_(0, tile_idx[:, None].expand_as(frozen), frozen, "amin")
+        # a window's T: the least of its slots', a slot not included giving
+        # the T before the window (reference :274-276)
+        least = torch.where(include, p_full, torch.full_like(p_full, float("inf"))).amin(-1)
+        keeps = ~include.all(-1)
+        t_cur = t_t[tiles]
+        for k in range(int(c.idx.max()) + 1):
+            sel = (c.idx == k).nonzero()[:, 0]
+            old = t_cur[c.loc[sel]]
+            t_cur[c.loc[sel]] = torch.where(keeps[sel], torch.minimum(old, least[sel]), least[sel])
+        t_t[tiles] = t_cur
         last = torch.where(weight > 0.0, c.lane[:, None, :] + 1, 0).amax(-1).int()
         n_t.scatter_reduce_(0, tile_idx[:, None].expand_as(last), last, "amax")
         p_t[tiles] = cur
@@ -423,13 +464,14 @@ def composite_bwd_chained_plain(
 
 
 def _composite_bwd_chained_plain_bf16(rows, gid, dst, starts, counts, n_contrib, g_img, carry, image_shape):
-    """``composite_bwd_chained_plain`` with the bf16 gate and chunk products
-    (reference :443-456), the chunks of each tile's live range walked
-    farthest first: q the chunk's bf16 running product of
-    bf16(max(1 - a, 1e-6)), with factor 1 past the pixel's n_contrib, Q_c
-    its last value; ta before the chunk = ta / Q_c and T_i = (ta / Q_c)
-    q_(i-1). The colour behind, the row gradients and the carries are
-    float32 from float32 deltas and rows, as in the float32 version."""
+    """``composite_bwd_chained_plain`` with the bf16 gate and the reference's
+    chunk products (:354-503): the 256-slot windows of each tile's live
+    range walked farthest first; s the scan (``chunk_products``, the last
+    level exact) of bf16(max(1 - a, 1e-6)), a = 0 past the pixel's
+    n_contrib and outside the run, Q its value at the window's last slot;
+    ta before the window = ta / Q and T_i = (ta / Q) s_(i-1). The colour
+    behind, the row gradients and the carries are float32 from float32
+    deltas and rows, as in the float32 version."""
     gy, gx = tile_grid(image_shape)
     b = n_contrib.shape[0]
     ta_t = _tile_major(carry.ta, image_shape)
@@ -438,7 +480,7 @@ def _composite_bwd_chained_plain_bf16(rows, gid, dst, starts, counts, n_contrib,
     g_t = _tile_major(g_img, image_shape)
     d_sorted = rows.new_zeros(gid.shape[0], 9)
     live = torch.minimum(nc_t.amax(dim=1), counts)
-    n_chunks = ((live + _CHUNK - 1) // _CHUNK).tolist()
+    n_chunks = _windows(starts, live)[1].tolist()
     for tiles in _tile_blocks(n_chunks, _PLAIN_CHUNKS):
         c = _chunks(rows, gid, starts, live, tiles, image_shape, torch.bfloat16)
         dx, dy, e, alpha, gate = c.gate
@@ -447,16 +489,15 @@ def _composite_bwd_chained_plain_bf16(rows, gid, dst, starts, counts, n_contrib,
         zero = torch.zeros_like(alpha)
         a = torch.where(gate, alpha, zero)
         om = torch.clamp(1.0 - a, min=1e-6)
-        q = _bf16_running_product(om.to(torch.bfloat16))
-        q_prev = torch.cat([torch.ones_like(q[..., :1]), q[..., :-1]], -1)
-        ta_before = torch.empty_like(q[..., 0])
+        _, s_full = chunk_products(om.to(torch.bfloat16))
+        ta_before = torch.empty_like(s_full[..., 0])
         ta_cur = ta_t[tiles]
-        order = range(int(c.idx.max()), -1, -1)  # a tile's chunks, farthest first
+        order = range(int(c.idx.max()), -1, -1)  # a tile's windows, farthest first
         for k in order:
             sel = (c.idx == k).nonzero()[:, 0]
-            ta_before[sel] = ta_cur[c.loc[sel]] / q[sel, :, -1]
+            ta_before[sel] = ta_cur[c.loc[sel]] / s_full[sel, :, -1]
             ta_cur[c.loc[sel]] = ta_before[sel]
-        t_i = ta_before[..., None] * q_prev
+        t_i = ta_before[..., None] * _shift_slots(s_full, 1)
         wgt = a * t_i
         g = g_t[tile_idx]  # (K, 256, 3)
         gc = torch.bmm(g, c.d[..., 6:9].transpose(1, 2))  # (K, 256 pixels, 256 lanes) g_p . c_i
