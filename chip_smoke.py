@@ -4545,6 +4545,23 @@ def option_phases(torch, dev, card, served, large_scene, reset_counters, read_co
     return figures, launches
 
 
+def ptxas_spills(report: str) -> dict:
+    """ptxas's report of a composite source (``cuda_lib.build_report``) ->
+    (source, chained, bf16) -> its kernel's spill stores and loads (bytes)."""
+    import re
+
+    out, key = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '[^']*(composite_(?:fwd|bwd))(_bf16)?_kernelILb([01])E", line)
+        if entry:
+            key = (entry.group(1), entry.group(3) == "1", entry.group(2) is not None)
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and key is not None:
+            out[key] = {"spill_stores": int(spill.group(1)), "spill_loads": int(spill.group(2))}
+    return out
+
+
 BF16_PLAIN_GROUPS = 2  # phase 35: the re10k view's live groups held against the bf16 plain versions
 BF16_REPS = 10  # phase 35: launches per timing
 
@@ -4586,6 +4603,10 @@ def bf16_phase(torch, dev, card, parts, reset_counters, read_counters):
        group after which no pixel is live; backward: the live groups), with
        their bounds (the bf16 ones with the doubling scan's multiplies,
        ``scan_windows``, and beside them without).
+    4. What each composite kernel holds on the card, the four bf16 ones
+       among them: threads a CTA, registers, ptxas's spill bytes, local
+       memory, shared memory a CTA and CTAs an SM; the bf16 forward kernels
+       must spill nothing (their window lives in registers).
     Returns the kernels line's four bf16 entries."""
     from my_depthsplat_torch.render import instances as inst_mod
     from my_depthsplat_torch.render import pallas_raster as raster_mod
@@ -4880,18 +4901,38 @@ def bf16_phase(torch, dev, card, parts, reset_counters, read_counters):
     del rows, groups, n16, n32, s16, s32, g_img
     gc.collect()
     torch.cuda.empty_cache()
-    # the CTAs an SM holds of each composite kernel (the occupancy calculator)
+    # what each composite kernel holds on the card: cudaFuncGetAttributes and
+    # the occupancy calculator, and ptxas's spills from the build's report
     from my_depthsplat_torch.ops import cuda_lib
 
-    blocks_per_sm = {}
+    resources = {}
     for src in ("composite_fwd", "composite_bwd"):
-        fn = getattr(cuda_lib.load(src), f"{src}_blocks_per_sm")
-        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
+        fn = getattr(cuda_lib.load(src), f"{src}_resources")
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        spills = ptxas_spills(cuda_lib.build_report(src))
         for bf16 in (0, 1):
             for ch in (0, 1):
-                blocks_per_sm[src + "_chained" * ch + "_bf16" * bf16] = fn(bf16, ch)
-    print(f"bf16 composite: CTAs of 256 threads an SM holds {blocks_per_sm} on {card}")
-    check(all(n > 0 for n in blocks_per_sm.values()), f"bf16 composite: a kernel fits no CTA on an SM: {blocks_per_sm}")
+                name = src + "_chained" * ch + "_bf16" * bf16
+                out = (ctypes.c_int * 6)()
+                err = fn(bf16, ch, out)
+                check(err == 0, f"bf16 composite: {name}_resources returned cudaError_t {err}")
+                resources[name] = {
+                    **dict(zip(("threads", "registers", "local_bytes", "static_smem", "dynamic_smem", "ctas_per_sm"),
+                               list(out))),
+                    **spills[(src, bool(ch), bool(bf16))],
+                }
+    for name, x in resources.items():
+        print(
+            f"bf16 composite: {name}: {x['threads']} threads a CTA, {x['registers']} registers, "
+            f"{x['spill_stores']} B spill stores / {x['spill_loads']} B spill loads (ptxas), {x['local_bytes']} B local, "
+            f"{x['static_smem'] + x['dynamic_smem']} B shared memory a CTA, {x['ctas_per_sm']} CTAs "
+            f"({x['ctas_per_sm'] * x['threads'] // 32} warps) an SM on {card}"
+        )
+    check(all(x["ctas_per_sm"] > 0 for x in resources.values()), f"bf16 composite: a kernel fits no CTA on an SM: {resources}")
+    for name in ("composite_fwd_bf16", "composite_fwd_chained_bf16"):
+        x = resources[name]
+        check(x["spill_stores"] == x["spill_loads"] == x["local_bytes"] == 0,
+              f"bf16 composite: {name} spills to local memory: {x}")
     phase_s = time.perf_counter() - t_start
     print(f"phase 35 (bf16 composite): {phase_s:.1f} s wall on {card}")
     check(phase_s <= 120.0, f"phase 35 took {phase_s:.1f} s, more than its 120 s")
@@ -4905,7 +4946,7 @@ def bf16_phase(torch, dev, card, parts, reset_counters, read_counters):
             "float32_ms": fig32["ms"], **extra,
         }
 
-    common = {"path_s": path_s, "phase_s": phase_s, "vs_float32": vs_float32, "blocks_per_sm": blocks_per_sm}
+    common = {"path_s": path_s, "phase_s": phase_s, "vs_float32": vs_float32, "resources": resources}
     return [
         entry("composite_fwd_bf16", "composite_fwd.cu", 162, "composite_fwd_bf16", flat["bfloat16"]["composite_fwd"],
               flat["float32"]["composite_fwd"], flat["bfloat16"]["composite_fwd"]["plain_ms"], common),

@@ -674,23 +674,21 @@ extern "C" int composite_bwd_chained_bf16(
                               ta, g_dot_ra, d_inst, stream);
 }
 
-// The CTAs of a backward kernel that one SM holds at once (the CUDA
-// occupancy calculator on its registers and shared memory), or minus the
-// cudaError_t: bf16 selects the bf16 kernel, chained the CHAINED one.
-extern "C" int composite_bwd_blocks_per_sm(int bf16, int chained) {
-    int n = 0;
-    cudaError_t err;
+// What a backward kernel holds on the card (kernel_resources,
+// composite_common.cuh): out[0..5] = threads a CTA, registers a thread,
+// local memory a thread, static and dynamic shared memory a CTA, CTAs an SM.
+// bf16 selects the bf16 kernel, chained the CHAINED one. Returns the
+// cudaError_t.
+extern "C" int composite_bwd_resources(int bf16, int chained, int* out) {
     if (bf16) {
-        err = chained ? cudaFuncSetAttribute(composite_bwd_bf16_kernel<true>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM)
-                      : cudaFuncSetAttribute(composite_bwd_bf16_kernel<false>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM);
-        if (err == cudaSuccess)
-            err = chained ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, composite_bwd_bf16_kernel<true>, NPIX, BF16_SMEM)
-                          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, composite_bwd_bf16_kernel<false>, NPIX, BF16_SMEM);
-    } else {
-        err = chained ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, composite_bwd_kernel<true>, NPIX, 0)
-                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, composite_bwd_kernel<false>, NPIX, 0);
+        const cudaError_t err = chained ? cudaFuncSetAttribute(composite_bwd_bf16_kernel<true>,
+                                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM)
+                                        : cudaFuncSetAttribute(composite_bwd_bf16_kernel<false>,
+                                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM);
+        if (err != cudaSuccess) return (int)err;
+        return chained ? kernel_resources(composite_bwd_bf16_kernel<true>, NPIX, (int)BF16_SMEM, out)
+                       : kernel_resources(composite_bwd_bf16_kernel<false>, NPIX, (int)BF16_SMEM, out);
     }
-    return err == cudaSuccess ? n : -(int)err;
+    return chained ? kernel_resources(composite_bwd_kernel<true>, NPIX, 0, out)
+                   : kernel_resources(composite_bwd_kernel<false>, NPIX, 0, out);
 }

@@ -2,10 +2,13 @@
 // composite_bwd.cu): the tile, the gates' constants, the float32 gate
 // (gate), the bfloat16 gate's pieces (the packed bf16x2 arithmetic, the
 // power of two slots at once, gate_tail), the bf16 windows' doubling scan
-// (scan_column, scan_full) and the cull helpers that decide a
-// pair without expf where the gate cannot pass (may_pass in both;
-// strip_may_pass, the per-warp cull, and the cp.async staging primitives
-// in the backward only: the forward measured no gain from either). Both
+// (scan_column and scan_full in the backward, scan_window in the forward),
+// the cull helpers that decide a pair without expf where the gate cannot
+// pass (may_pass in both; strip_may_pass, the per-warp cull, in the
+// backward, and its test with the per-instance part staged once a window
+// in the bf16 forward, composite_fwd.cu; the float32 forward measured no
+// gain from a cull), the cp.async staging primitives (the backward only:
+// the float32 forward measured no gain from them) and kernel_resources. Both
 // sources include this one header, so the forward's and the backward's
 // gates stay one piece of code: every pair is decided by the same
 // expressions in both, which is what lets the backward count exactly the
@@ -169,6 +172,45 @@ __device__ __forceinline__ void scan_column(unsigned* col, unsigned groups) {
     for (int m = 0; m < WORDS; ++m) col[m * NPIX] = r[m];
 }
 
+// One level of scan_window: shift 2 D slots (D words), every word times the
+// word D below it, from the top; the groups below k0 are not touched.
+template <int D>
+__device__ __forceinline__ void scan_level(unsigned (&r)[WORDS], int k0) {
+#pragma unroll
+    for (int g = WORDS / 16 - 1; g >= 0; --g) {
+        if (g >= k0) {
+#pragma unroll
+            for (int mm = 15; mm >= 0; --mm) {
+                const int m = 16 * g + mm;
+                if (m >= D) r[m] = bf16_mul2(r[m], r[m - D]);
+            }
+        }
+    }
+}
+
+// scan_column's doubling scan (shifts 1 to 64) of a window that lives in
+// registers from its factors to its hit pass, in place. The words of the 32-slot
+// groups (16 words each) below k0 hold (1, 1), which every level keeps: they
+// are skipped, the same products as scan_column's.
+__device__ __forceinline__ void scan_window(unsigned (&r)[WORDS], int k0) {
+#pragma unroll
+    for (int g = WORDS / 16 - 1; g >= 0; --g) {
+        if (g >= k0) {
+#pragma unroll
+            for (int mm = 15; mm >= 0; --mm) {
+                const int m = 16 * g + mm;
+                r[m] = bf16_mul2(r[m], __byte_perm(m > 0 ? r[m - 1] : BF16_ONE2, r[m], 0x5432));
+            }
+        }
+    }
+    scan_level<1>(r, k0);
+    scan_level<2>(r, k0);
+    scan_level<4>(r, k0);
+    scan_level<8>(r, k0);
+    scan_level<16>(r, k0);
+    scan_level<32>(r, k0);
+}
+
 // The largest power -0.5 (a u^2 + c d^2) - b u d for d in [lo, hi]: along an
 // edge of a box where the other offset is fixed at u.
 __device__ __forceinline__ float edge_max(float u, float lo, float hi, float a, float b, float c) {
@@ -203,6 +245,26 @@ __device__ __forceinline__ bool strip_may_pass(const float* r, float x0, float y
     constexpr float rel = BF16 ? 0.0625f : 1e-5f;
     const float slack = 1e-3f + rel * (a * X * X + c * Y * Y + fabsf(b) * X * Y);
     return !(top < logf(ALPHA_MIN / op) - slack);
+}
+
+// What a kernel launched with ``threads`` a CTA and ``dynamic_smem`` bytes of
+// dynamic shared memory holds on the card (cudaFuncGetAttributes and the
+// occupancy calculator): out[0..5] = threads a CTA, registers a thread,
+// local memory a thread (bytes), static and dynamic shared memory a CTA
+// (bytes), CTAs an SM. Returns the cudaError_t.
+template <typename Kernel>
+int kernel_resources(Kernel kernel, int threads, int dynamic_smem, int* out) {
+    cudaFuncAttributes a;
+    cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+    int n = 0;
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, dynamic_smem);
+    out[0] = threads;
+    out[1] = a.numRegs;
+    out[2] = (int)a.localSizeBytes;
+    out[3] = (int)a.sharedSizeBytes;
+    out[4] = dynamic_smem;
+    out[5] = n;
+    return (int)err;
 }
 
 }  // namespace composite

@@ -87,42 +87,77 @@
 // bfloat16 (composite_fwd_bf16, composite_fwd_chained_bf16; the reference's
 // composite_dtype="bfloat16", pallas_raster.py:197-279): a kernel of its
 // own, composite_fwd_bf16_kernel below, that follows the reference's
-// association. Right first; its speed is measured in PERF.md.
-// - Windows: a run is walked in windows of 256 slots of the launch's
+// association, redesigned for Hopper.
+// - Semantics: a run is walked in windows of 256 slots of the launch's
 //   instance array starting at start - start % 128 (the reference's
 //   128-aligned DMA windows; on the grouped route start is local to the
-//   group's launch); slots outside the run hold alpha 0.
-// - Per window, one CTA: the 256 slots' rows are staged in shared memory
-//   (with their conics rounded to bf16); each warp takes as candidates the
-//   run's slots that a pixel of its 16x2 strip may hit (strip_may_pass with
-//   the bf16 slack, composite_common.cuh); each thread (pixel) gates the
-//   candidates two at a time, the quadratic on packed bf16x2 (gate_power2),
-//   and writes bf16(1 - alpha) (1 where no hit) into its own column of a
-//   256 x 256 bf16 table (128 KB of shared memory), in the 32-slot groups
-//   that hold a candidate, with one hit bit a slot. A pixel without a hit
-//   in the window includes every slot at P, so its T becomes P and the rest
-//   is skipped. Otherwise it scans its column, the
-//   reference's doubling scan (shifts 1, 2, ..., 64: 1,665 bf16 multiplies
-//   on 833 packed bf16x2 words per pixel and window), in registers: the
-//   column is read once and written back once (a column without a hit is
-//   skipped); the last level (shift 128) is formed as the float32 product
-//   of two table entries where it is read, as the jitted reference keeps it
-//   unrounded.
-// - Then the pixel walks the window's 256 slots in order: s_full the
-//   unrounded scan, P the float32 product carried from the earlier
-//   windows; a slot is included while P s_full >= 1e-4, each slot on its
-//   own (the scan's roundings are not monotone), a hit there (gated again:
-//   two evaluations a hit, one a non-hit) weighs alpha P s_(i-1) with
-//   s_(i-1) the rounded scan; T becomes the least included P s_full of
-//   the window, or of those and the T before it where a slot is not
-//   included (reference :274-276); P <- P s_full(255) at the window's end.
-//   A pixel whose P is below 1e-4 has stopped for good; the CTA leaves once
-//   every pixel has.
+//   group's launch); slots outside the run hold alpha 0. Per window and
+//   pixel: the factors bf16(1 - alpha) (1 where the gate fails), the
+//   reference's doubling scan of them (shifts 1, 2, ..., 64, each level a
+//   bf16 multiply: s; the last level, shift 128, kept unrounded as the
+//   jitted reference widens it: s_full), P the float32 product carried from
+//   the earlier windows. A slot is included while P s_full >= 1e-4, each
+//   slot on its own (the scan's roundings are not monotone); a hit there
+//   weighs alpha P s_(i-1); T becomes the least included P s_full of the
+//   window, or of those and the T before it where a slot is not included
+//   (reference :274-276); P <- P s_full(255) at the window's end.
+// - What bounds it on the H100: operations. Per pixel and window with a
+//   hit: the gate of every slot of the warp's candidate groups (a bf16x2
+//   quadratic and two expf a word of two slots), the scan's 1,665 bf16
+//   multiplies on 833 packed words, a compare a slot for T and a dozen
+//   operations a slot of the hit groups; the bytes are the float32 kernel's
+//   (36 B of row and 4 B of id an instance, 20 B a pixel written). The
+//   earlier design kept each pixel's window in a 256 x 256 bf16
+//   table in shared memory (128 KB, one CTA of 8 warps an SM), sent each
+//   column through shared memory three times and walked all 256 slots of a
+//   window with a hit, gating each hit twice.
+// - The window lives in a thread's registers (128 words of two bf16 slots)
+//   from its factors through its scan to its hit pass: no per-pixel table,
+//   no column in shared memory. The registers (about 200 a thread, no
+//   spills) bound the occupancy instead, so a CTA holds half a tile (8 rows,
+//   128 threads) and two CTAs share an SM: one stages its window's rows
+//   while the other computes.
+// - A register array is indexed only by constants (an index known at run
+//   time puts the array in local memory). The factor and hit passes loop
+//   over 32-slot groups with the group known at run time, so a group's 16
+//   (17) words move between the window and a small array g by selects on
+//   the group index, and the work on g is unrolled over its words and
+//   slots with constant indices. Both passes are free of branches inside a
+//   group (predicated stores and selects), so that the scheduler overlaps
+//   the words' long dependency chains (shared loads, the bf16 quadratic,
+//   expf); a branch a word held the warp to one chain at a time.
+// - Per window: the 256 slots' rows are staged in shared memory (their
+//   conics also rounded to bf16, and the strip test's per-instance part:
+//   logf(ALPHA_MIN / op), 1 / a, 1 / c); each warp takes as candidates the
+//   run's slots that a pixel of its 16x2 strip may hit (strip_may_pass's
+//   test with the bf16 slack), in 8 ballots.
+// - Factor pass: in each group with a candidate of the warp, each thread
+//   gates all 16 words, two slots at a time with the quadratic on packed
+//   bf16x2 (gate_power2) and gate_all (gate_tail without its branch; a
+//   slot that is no candidate stays at 1), records one hit bit a slot and
+//   keeps each hit's float alpha in a per-pixel list in shared memory (the
+//   first ALPHA_CAP hits of the window; a hit past them is gated again in
+//   the hit pass, by the same expressions). A pixel without a hit in the
+//   window includes every slot at P: T becomes P, and it skips the rest.
+// - Scan: scan_window (composite_common.cuh) in registers; the groups below
+//   the warp's first group with a hit hold (1, 1) at every level and are
+//   skipped.
+// - T (window_t): fl(P x) is monotone in x for P > 0, so a slot is included
+//   iff s_full >= x, the least float with fl(P x) >= 1e-4 (included_from),
+//   and the least included P s_full is fl(P times the least included
+//   s_full): a compare and a min a slot, no product. Words m and m + 64 go
+//   together, the lower being the upper's partner in the last level, and
+//   the upper word is then replaced by its s_full rounded to bf16, the
+//   value the slot after it reads.
+// - Hit pass: the groups in which a pixel of the warp has a hit, in slot
+//   order; a thread weighs its own included hits, alpha (from the list)
+//   times P times the rounded scan at the slot before.
 // - Chained: as the float32 kernel, but p_raw is P (the reference's
 //   carried raw product), not T.
-// - Shared memory: 128 KB table + 8 KB hit bits + 12 KB rows + 1.5 KB
-//   bf16 conics + 256 B candidates (153,344 B), so one CTA (8 warps) an
-//   SM, against six to eight of the float32 kernel.
+// - Shared memory: 12 KB rows + 1.5 KB bf16 conics + 8 KB hit and
+//   included-hit bits + 80.5 KB alphas (ALPHA_CAP + 1 rows) + 128 B
+//   candidates (104,576 B) a CTA of 128 threads: two CTAs an SM, the
+//   registers' limit too.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -237,28 +272,154 @@ __global__ void __launch_bounds__(NPIX) composite_fwd_kernel(
 
 // ---- bfloat16 ----
 
-// the table, hit bits, rows, bf16 conics, candidates
-constexpr size_t BF16_SMEM =
-    (size_t)WORDS * NPIX * 4 + 8 * NPIX * 4 + CHUNK * RSTRIDE * 4 + 3 * CHUNK * 2 + NWARP * (CHUNK / 32) * 4;
+constexpr int BF16_ROWS = 8;                     // pixel rows of a tile a CTA holds
+constexpr int BF16_THREADS = TILE * BF16_ROWS;   // one thread a pixel
+constexpr int BF16_SPLIT = TILE / BF16_ROWS;     // CTAs a tile
+constexpr int BF16_WARPS = BF16_THREADS / 32;
+constexpr int GROUPS = CHUNK / 32;               // 32-slot groups a window
+constexpr int ALPHA_CAP = 160;                   // hits' alphas kept a pixel and window
+
+// rows, bf16 conics, candidates, hit bits, included hit bits, alphas
+constexpr size_t BF16_SMEM = CHUNK * RSTRIDE * 4 + 3 * CHUNK * 2 + BF16_WARPS * GROUPS * 4 +
+                             2 * GROUPS * BF16_THREADS * 4 + (ALPHA_CAP + 1) * BF16_THREADS * 4;
+
+// The alpha gate once the bf16 power is known (gate_tail's expressions)
+// without its branch: expf is taken for every pair, so that the slots of a
+// group are gated as independent streams of instructions; alpha is
+// meaningful where the gate passes. (may_pass only spares gate_tail an
+// expf: where it fails, alpha < 1/255 fails the gate all the same.)
+__device__ __forceinline__ bool gate_all(float power, float op, float& alpha) {
+    const float v = op * expf(power);
+    alpha = v > ALPHA_MAX ? ALPHA_MAX : v;
+    return power <= 0.0f && alpha >= ALPHA_MIN;
+}
+
+// g[i] for i in [0, 16] known at run time, by a tree of selects on the
+// bits of i (an array indexed at run time would live in local memory).
+__device__ __forceinline__ unsigned pick17(const unsigned (&g)[17], int i) {
+    unsigned v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = i & 1 ? g[2 * j + 1] : g[2 * j];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = i & 2 ? v[2 * j + 1] : v[2 * j];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) v[j] = i & 4 ? v[2 * j + 1] : v[2 * j];
+    const unsigned low16 = i & 8 ? v[1] : v[0];
+    return i & 16 ? g[16] : low16;
+}
+
+// The bf16 strip cull (strip_may_pass<true>, composite_common.cuh) with its
+// per-instance part computed once a window, by the thread that stages the
+// row, instead of once a warp: r[9] = logf(ALPHA_MIN / op), or -inf where
+// the conic is no ellipse (every strip then passes, as strip_may_pass
+// decides), r[10] = 1 / c, r[11] = 1 / a (the edges' optima are then a
+// product, -b u (1 / c), where strip_may_pass divides: the same point to an
+// ulp, and the slack is many times that).
+__device__ __forceinline__ void strip_prepare(float* r) {
+    const float a = r[2], b = r[3], c = r[4], op = r[5];
+    r[9] = a > 0.0f && c > 0.0f && a * c > b * b ? logf(ALPHA_MIN / op) : -__int_as_float(0x7f800000);
+    r[10] = 1.0f / c;
+    r[11] = 1.0f / a;
+}
+
+__device__ __forceinline__ float edge_max_staged(float u, float lo, float hi, float a, float b, float c, float inv_c) {
+    const float d = fminf(fmaxf(-b * u * inv_c, lo), hi);
+    return -0.5f * (a * u * u + c * d * d) - b * u * d;
+}
+
+__device__ __forceinline__ bool strip_may_pass_staged(const float* r, float x0, float y0) {
+    const float a = r[2], b = r[3], c = r[4];
+    const float lx = x0 - r[0], hx = lx + (TILE - 1);
+    const float ly = y0 - r[1], hy = ly + 1.0f;
+    float top = 0.0f;
+    if (lx > 0.0f || hx < 0.0f || ly > 0.0f || hy < 0.0f)
+        top = fmaxf(fmaxf(edge_max_staged(lx, ly, hy, a, b, c, r[10]), edge_max_staged(hx, ly, hy, a, b, c, r[10])),
+                    fmaxf(edge_max_staged(ly, lx, hx, c, b, a, r[11]), edge_max_staged(hy, lx, hx, c, b, a, r[11])));
+    const float X = fmaxf(fabsf(lx), fabsf(hx)), Y = fmaxf(fabsf(ly), fabsf(hy));
+    const float slack = 1e-3f + 0.0625f * (a * X * X + c * Y * Y + fabsf(b) * X * Y);
+    return !(top < r[9] - slack);
+}
+
+// The least float x with fl(P x) >= 1e-4, for 1e-4 <= P <= 1: fl(P x) is
+// monotone in x, so a slot is included (P s_full >= 1e-4) iff s_full >= x.
+// The rounded quotient is within an ulp or two of it: a few steps up or
+// down find it (bounded, so that a NaN P cannot loop).
+__device__ __forceinline__ float included_from(float P) {
+    float x = TRANSMITTANCE_EPS / P;
+    for (int i = 0; i < 4 && !(P * x >= TRANSMITTANCE_EPS); ++i) x = __int_as_float(__float_as_int(x) + 1);
+    for (int i = 0; i < 4 && P * __int_as_float(__float_as_int(x) - 1) >= TRANSMITTANCE_EPS; ++i)
+        x = __int_as_float(__float_as_int(x) - 1);
+    return x;
+}
+
+// A scanned window's T and its included hits: per slot whether it is
+// included (s_full at least included_from(P)), the least included s_full,
+// and the included slots among the hits ``hit`` (group k at hit[k *
+// BF16_THREADS]) written to ``inc``. T is the least included P s_full, which
+// is fl(P times the least included s_full) (monotone again), or that and
+// the T before where a slot is not included (+inf where none is). Word m
+// and word m + 64 are taken together (the lower word is the upper one's
+// partner in the last level, so each is unpacked once), and the upper word
+// is then replaced by its s_full rounded to bf16, what the hit pass reads.
+__device__ __forceinline__ float window_t(unsigned (&r)[WORDS], float P, float T, const unsigned* hit,
+                                          unsigned* inc) {
+    const float x = included_from(P);
+    float least = __int_as_float(0x7f800000);
+    bool every = true;
+#pragma unroll
+    for (int k = 0; k < GROUPS / 2; ++k) {
+        unsigned low_mask = 0, high_mask = 0;
+#pragma unroll
+        for (int mm = 0; mm < 16; ++mm) {
+            const int m = k * 16 + mm, u = m + WORDS / 2;
+            const float f0 = bf16_lo(r[m]), f1 = bf16_hi(r[m]);  // s_full of slots 2m, 2m + 1
+            const float g0 = bf16_lo(r[u]) * f0, g1 = bf16_hi(r[u]) * f1;  // and of slots 2u, 2u + 1: exact
+            if (f0 >= x) {
+                least = fminf(least, f0);
+                low_mask |= 1u << (2 * mm);
+            }
+            if (f1 >= x) {
+                least = fminf(least, f1);
+                low_mask |= 2u << (2 * mm);
+            }
+            if (g0 >= x) {
+                least = fminf(least, g0);
+                high_mask |= 1u << (2 * mm);
+            }
+            if (g1 >= x) {
+                least = fminf(least, g1);
+                high_mask |= 2u << (2 * mm);
+            }
+            r[u] = bf16_mul2(r[u], r[m]);
+        }
+        inc[k * BF16_THREADS] = hit[k * BF16_THREADS] & low_mask;
+        inc[(k + GROUPS / 2) * BF16_THREADS] = hit[(k + GROUPS / 2) * BF16_THREADS] & high_mask;
+        every = every && (low_mask & high_mask) == FULL;
+    }
+    const float least_p = P * least;
+    return every ? least_p : fminf(T, least_p);
+}
 
 template <bool CHAINED>
-__global__ void __launch_bounds__(NPIX, 1) composite_fwd_bf16_kernel(
+__global__ void __launch_bounds__(BF16_THREADS, 256 / BF16_THREADS) composite_fwd_bf16_kernel(
     const float* __restrict__ rows, const int* __restrict__ gid, const int* __restrict__ starts,
     const int* __restrict__ counts, const float* __restrict__ bg, int gy, int gx, int h, int w,
     float* __restrict__ image, float* __restrict__ t_final, float* __restrict__ p_raw,
     int* __restrict__ n_contrib, int* __restrict__ live) {
     extern __shared__ __align__(16) unsigned char smem[];
-    unsigned* s_f = reinterpret_cast<unsigned*>(smem);  // [WORDS][NPIX]: factors, then the scan
-    unsigned* s_hit = s_f + WORDS * NPIX;                // [CHUNK / 32][NPIX]: hit bits
-    float* s_row = reinterpret_cast<float*>(s_hit + (CHUNK / 32) * NPIX);  // [CHUNK][RSTRIDE]
+    float* s_row = reinterpret_cast<float*>(smem);                                       // [CHUNK][RSTRIDE]
     unsigned short* s_con = reinterpret_cast<unsigned short*>(s_row + CHUNK * RSTRIDE);  // [3][CHUNK] bf16 a, b, c
-    unsigned* s_cand = reinterpret_cast<unsigned*>(s_con + 3 * CHUNK);  // [NWARP][CHUNK / 32]
+    unsigned* s_cand = reinterpret_cast<unsigned*>(s_con + 3 * CHUNK);                   // [BF16_WARPS][GROUPS]
+    unsigned* s_hit = s_cand + BF16_WARPS * GROUPS;                                      // [GROUPS][BF16_THREADS]
+    unsigned* s_inc = s_hit + GROUPS * BF16_THREADS;                                     // [GROUPS][BF16_THREADS]
+    float* s_alpha = reinterpret_cast<float*>(s_inc + GROUPS * BF16_THREADS);  // [ALPHA_CAP + 1][BF16_THREADS]
 
-    const int tx = blockIdx.x, ty = blockIdx.y, b = blockIdx.z;
+    const int tx = blockIdx.x, ty = blockIdx.y / BF16_SPLIT, b = blockIdx.z;
+    const int row0 = (blockIdx.y % BF16_SPLIT) * BF16_ROWS;  // the CTA's first pixel row in its tile
     const int tile = (b * gy + ty) * gx + tx;
     const int t = threadIdx.x;
     const int pxi = tx * TILE + t % TILE;
-    const int pyi = ty * TILE + t / TILE;
+    const int pyi = ty * TILE + row0 + t / TILE;
     const bool inside = pxi < w && pyi < h;
     const float px = (float)pxi;
     const float py = (float)pyi;
@@ -284,116 +445,168 @@ __global__ void __launch_bounds__(NPIX, 1) composite_fwd_bf16_kernel(
 
     const int lead = start % ALIGN;
     const int n_chunks = count > 0 ? (lead + count + CHUNK - 1) / CHUNK : 0;
-    unsigned* col = s_f + t;
-    unsigned* hitcol = s_hit + t;
     const int lane = t & 31, warp = t >> 5;
-    unsigned* cand = s_cand + warp * (CHUNK / 32);
-    const float x0 = (float)(tx * TILE), y0 = (float)(ty * TILE + 2 * warp);
+    unsigned* cand = s_cand + warp * GROUPS;
+    const float x0 = (float)(tx * TILE), y0 = (float)(ty * TILE + row0 + 2 * warp);  // the warp's 16x2 strip
+    const unsigned* ca = reinterpret_cast<const unsigned*>(s_con);
+    const unsigned* cb = ca + CHUNK / 2;
+    const unsigned* cc = cb + CHUNK / 2;
+    unsigned r[WORDS];  // the pixel's window: its factors, then their scan
     for (int c = 0; c < n_chunks; ++c) {
         // barrier: the previous window is walked before it is overwritten
-        if (__syncthreads_count(done) == NPIX) break;
+        if (__syncthreads_count(done) == BF16_THREADS) break;
         const int first = c * CHUNK - lead;  // run position of slot 0
         const int lo = max(0, -first), hi = min(CHUNK, count - first);  // the run's slots
-        if (t >= lo && t < hi) {
-            const float* src = rows + (size_t)gid[start + first + t] * ROWS;
+        for (int j = t; j < CHUNK; j += BF16_THREADS) {
+            if (j >= lo && j < hi) {
+                const float* src = rows + (size_t)gid[start + first + j] * ROWS;
 #pragma unroll
-            for (int k = 0; k < ROWS; ++k) s_row[t * RSTRIDE + k] = src[k];
+                for (int k = 0; k < ROWS; ++k) s_row[j * RSTRIDE + k] = src[k];
 #pragma unroll
-            for (int k = 0; k < 3; ++k) s_con[k * CHUNK + t] = bf16_bits(src[2 + k]);
+                for (int k = 0; k < 3; ++k) s_con[k * CHUNK + j] = bf16_bits(src[2 + k]);
+                strip_prepare(s_row + j * RSTRIDE);
+            } else {
+                // no instance: the hit pass adds 0 times its colour
+#pragma unroll
+                for (int k = 6; k < ROWS; ++k) s_row[j * RSTRIDE + k] = 0.0f;
+            }
         }
         __syncthreads();
+        // a warp whose pixels have all stopped takes no part (the same in every lane)
+        if (!__any_sync(FULL, !done)) continue;
         // the warp's candidates: the run's slots that a pixel of its 16x2
-        // strip may hit (a warp whose pixels have all stopped takes none)
-        const bool warp_live = __any_sync(FULL, !done);
-#pragma unroll
-        for (int k = 0; k < CHUNK / 32; ++k) {
+        // strip may hit
+#pragma unroll 1
+        for (int k = 0; k < GROUPS; ++k) {
             const int j = k * 32 + lane;
-            const unsigned bal = __ballot_sync(
-                FULL, warp_live && j >= lo && j < hi && strip_may_pass<true>(s_row + j * RSTRIDE, x0, y0));
+            const unsigned bal =
+                __ballot_sync(FULL, j >= lo && j < hi && strip_may_pass_staged(s_row + j * RSTRIDE, x0, y0));
             if (lane == 0) cand[k] = bal;
         }
         __syncwarp();
-        if (done) continue;
-        const unsigned* ca = reinterpret_cast<const unsigned*>(s_con);
-        const unsigned* cb = ca + CHUNK / 2;
-        const unsigned* cc = cb + CHUNK / 2;
-        // the factors bf16(1 - alpha), two slots at a time, in the words of
-        // the 32-slot groups that hold a candidate of the warp; (1, 1) where
-        // neither slot of a word is a candidate (the other groups are not
-        // written: the scan takes them as (1, 1))
-        bool any = false;
-        unsigned groups = 0;
-        for (int k = 0; k < CHUNK / 32; ++k) {
+
+        // factor pass: bf16(1 - alpha) of the candidate words, two slots at a
+        // time; a word with a hit goes into its register, the others stay (1, 1)
+#pragma unroll
+        for (int m = 0; m < WORDS; ++m) r[m] = BF16_ONE2;
+        unsigned groups = 0;  // bit k: the pixel has a hit in group k
+        int n_hits = 0;
+        for (int k = 0; k < GROUPS; ++k) {
             const unsigned cw = cand[k];  // the same in every lane
             unsigned bits = 0;
-            if (cw != 0) {
-                groups |= 1u << k;
-                for (int mm = 0; mm < 16; ++mm) {
-                    const unsigned pc = cw >> (2 * mm) & 3u;
-                    const int j = k * 32 + 2 * mm;
-                    unsigned word = BF16_ONE2;
-                    if (pc != 0) {
-                        const float* r0 = s_row + j * RSTRIDE;
-                        const float* r1 = r0 + RSTRIDE;
-                        const int m = j >> 1;
-                        float p0, p1, e, alpha, f0 = 1.0f, f1 = 1.0f;
-                        gate_power2(px - r0[0], px - r1[0], py - r0[1], py - r1[1], ca[m], cb[m], cc[m], p0, p1);
-                        if ((pc & 1u) && gate_tail(p0, r0[5], e, alpha)) {
-                            f0 = 1.0f - alpha;
-                            bits |= 1u << (2 * mm);
-                        }
-                        if ((pc & 2u) && gate_tail(p1, r1[5], e, alpha)) {
-                            f1 = 1.0f - alpha;
-                            bits |= 2u << (2 * mm);
-                        }
-                        word = bf16_pack2(f0, f1);
+            if (cw != 0 && !done) {
+                // the group's 16 words, every word gated (two slots at a time);
+                // a slot that is no candidate of the warp stays at 1
+                unsigned g[16];
+#pragma unroll
+                for (int i = 0; i < 16; ++i) {
+                    const int m = k * 16 + i;
+                    const float* r0 = s_row + 2 * m * RSTRIDE;
+                    const float* r1 = r0 + RSTRIDE;
+                    const float2 xy0 = *reinterpret_cast<const float2*>(r0);
+                    const float2 xy1 = *reinterpret_cast<const float2*>(r1);
+                    float p0, p1, a0, a1;
+                    gate_power2(px - xy0.x, px - xy1.x, py - xy0.y, py - xy1.y, ca[m], cb[m], cc[m], p0, p1);
+                    const bool h0 = gate_all(p0, r0[5], a0) & ((cw >> (2 * i) & 1u) != 0);
+                    const bool h1 = gate_all(p1, r1[5], a1) & ((cw >> (2 * i + 1) & 1u) != 0);
+                    g[i] = bf16_pack2(h0 ? 1.0f - a0 : 1.0f, h1 ? 1.0f - a1 : 1.0f);
+                    // the hits' alphas in slot order; row ALPHA_CAP takes those past the list
+                    if (h0) s_alpha[min(n_hits, ALPHA_CAP) * BF16_THREADS + t] = a0;
+                    n_hits += h0;
+                    if (h1) s_alpha[min(n_hits, ALPHA_CAP) * BF16_THREADS + t] = a1;
+                    n_hits += h1;
+                    bits |= (h0 ? 1u : 0u) << (2 * i) | (h1 ? 2u : 0u) << (2 * i);
+                }
+                // into the group's registers (k is known at run time only)
+#pragma unroll
+                for (int kk = 0; kk < GROUPS; ++kk) {
+#pragma unroll
+                    for (int i = 0; i < 16; ++i) r[kk * 16 + i] = k == kk ? g[i] : r[kk * 16 + i];
+                }
+            }
+            s_hit[k * BF16_THREADS + t] = bits;
+            groups |= (bits != 0 ? 1u : 0u) << k;
+        }
+        // the warp's first group with a hit: the groups below hold (1, 1) in
+        // every lane (a pixel that has stopped has no hit)
+        const unsigned warp_groups = __reduce_or_sync(FULL, groups);
+        const int k0 = warp_groups != 0 ? __ffs(warp_groups) - 1 : GROUPS;
+        float P_next = P;
+        if (groups == 0) {
+            // no hit in the window: every slot included at P
+            if (!done) T = P;
+        } else {
+            scan_window(r, k0);
+            P_next = P * (bf16_hi(r[WORDS - 1]) * bf16_hi(r[WORDS / 2 - 1]));  // P s_full(255)
+            T = window_t(r, P, T, s_hit + t, s_inc + t);
+        }
+        // hit pass: the groups in which a pixel of the warp has a hit, in
+        // slot order; each thread weighs its own included hits, from the
+        // rounded scan at the slot before and the alpha kept above
+        int n_seen = 0;
+        for (int k = k0; k < GROUPS; ++k) {
+            const unsigned bits = s_hit[k * BF16_THREADS + t];
+            const unsigned warp_bits = __reduce_or_sync(FULL, bits);  // the same in every lane
+            if (warp_bits == 0) continue;
+            const unsigned inc = s_inc[k * BF16_THREADS + t];
+            // g[i]: word 16 k - 1 + i ((1, 1) below word 0), picked by selects
+            unsigned g[17];
+#pragma unroll
+            for (int i = 0; i < 17; ++i) {
+                unsigned v = i == 0 ? BF16_ONE2 : r[i - 1];
+#pragma unroll
+                for (int kk = 1; kk < GROUPS; ++kk) v = k == kk ? r[kk * 16 - 1 + i] : v;
+                g[i] = v;
+            }
+            if (bits == 0) continue;
+            const int seen = n_seen;  // the pixel's hits before the group
+            // every slot of the group, without a branch: a slot that is no
+            // included hit of the pixel adds nothing
+#pragma unroll
+            for (int q = 0; q < 32; ++q) {
+                const bool own = bits >> q & 1u;
+                const int kept = n_seen;
+                n_seen += own;
+                const int j = k * 32 + q;
+                const float before = q & 1 ? bf16_lo(g[q / 2 + 1]) : bf16_hi(g[q / 2]);
+                const float* rj = s_row + j * RSTRIDE;
+                const float wgt = s_alpha[min(kept, ALPHA_CAP) * BF16_THREADS + t] * (P * before);
+                const bool add = own && (inc >> q & 1u) && kept < ALPHA_CAP && wgt > 0.0f;
+                const float wa = add ? wgt : 0.0f;
+                c0 += wa * rj[6];
+                c1 += wa * rj[7];
+                c2 += wa * rj[8];
+                last = add ? first + j + 1 : last;
+            }
+            if (n_seen > ALPHA_CAP) {
+                // the included hits past the list: gated again (the factor
+                // pass's expressions), in slot order
+                int kept = seen;
+                for (int q = 0; q < 32; ++q) {
+                    if (!(bits >> q & 1u)) continue;
+                    if (kept++ < ALPHA_CAP || !(inc >> q & 1u)) continue;
+                    const int j = k * 32 + q;
+                    const float* rj = s_row + j * RSTRIDE;
+                    const float before = q & 1 ? bf16_lo(pick17(g, q / 2 + 1)) : bf16_hi(pick17(g, q / 2));
+                    const unsigned pa = 0x00010001u * (unsigned)s_con[j];  // (a, a): slot j alone
+                    const unsigned pb = 0x00010001u * (unsigned)s_con[CHUNK + j];
+                    const unsigned pcc = 0x00010001u * (unsigned)s_con[2 * CHUNK + j];
+                    float power, unused, alpha;
+                    const float dx = px - rj[0], dy = py - rj[1];
+                    gate_power2(dx, dx, dy, dy, pa, pb, pcc, power, unused);
+                    gate_all(power, rj[5], alpha);  // passes: the same expressions passed above
+                    const float wgt = alpha * (P * before);
+                    if (wgt > 0.0f) {
+                        c0 += wgt * rj[6];
+                        c1 += wgt * rj[7];
+                        c2 += wgt * rj[8];
+                        last = max(last, first + j + 1);
                     }
-                    col[(k * 16 + mm) * NPIX] = word;
                 }
             }
-            hitcol[k * NPIX] = bits;
-            any |= bits != 0;
         }
-        // a pixel without a hit in the window includes every slot at P: T
-        // becomes P and P stays (its column, all ones, is neither scanned
-        // nor read)
-        if (!any) {
-            T = P;
-            continue;
-        }
-        scan_column(col, groups);
-        // the walk over the window's slots, in order
-        float least = __int_as_float(0x7f800000), prev = 1.0f;  // prev: the scan at the slot before (unrounded)
-        bool keeps = false;                    // a slot is not included: the T before the window takes part
-        for (int j = 0; j < CHUNK; ++j) {
-            const float full = scan_full(col, j);
-            const float pf = P * full;
-            const bool incl = pf >= TRANSMITTANCE_EPS;
-            if (incl) least = fminf(least, pf);
-            else keeps = true;
-            if (incl && (hitcol[(j >> 5) * NPIX] >> (j & 31) & 1u)) {
-                const float* r = s_row + j * RSTRIDE;
-                const unsigned pair = 0x00010001u * (unsigned)s_con[j];  // (a, a) for slot j alone
-                const unsigned pb = 0x00010001u * (unsigned)s_con[CHUNK + j];
-                const unsigned pc = 0x00010001u * (unsigned)s_con[2 * CHUNK + j];
-                float power, unused, e, alpha;
-                const float dx = px - r[0], dy = py - r[1];
-                gate_power2(dx, dx, dy, dy, pair, pb, pc, power, unused);
-                gate_tail(power, r[5], e, alpha);  // passes: the same expressions passed above
-                const float rounded = j == 0 ? 1.0f : __bfloat162float(__float2bfloat16_rn(prev));
-                const float wgt = alpha * (P * rounded);
-                if (wgt > 0.0f) {
-                    c0 += wgt * r[6];
-                    c1 += wgt * r[7];
-                    c2 += wgt * r[8];
-                    last = first + j + 1;
-                }
-            }
-            prev = full;
-        }
-        T = keeps ? fminf(T, least) : least;
-        P = P * prev;  // the window's end: the unrounded scan at slot 255
-        done = P < TRANSMITTANCE_EPS;
+        P = P_next;
+        done = done || P < TRANSMITTANCE_EPS;
     }
     if (CHAINED && live != nullptr) {
         const int n_live = __syncthreads_count(!done);
@@ -434,7 +647,8 @@ int launch_flat(
     if constexpr (BF16) {
         const cudaError_t err = allow_bf16_smem<false>();
         if (err != cudaSuccess) return (int)err;
-        composite_fwd_bf16_kernel<false><<<grid, NPIX, BF16_SMEM, (cudaStream_t)stream>>>(
+        composite_fwd_bf16_kernel<false><<<dim3(gx, gy * BF16_SPLIT, b), BF16_THREADS, BF16_SMEM,
+                                           (cudaStream_t)stream>>>(
             rows, gid, starts, counts, bg, gy, gx, h, w, image, t_final, nullptr, n_contrib, nullptr);
     } else {
         composite_fwd_kernel<false><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
@@ -452,7 +666,8 @@ int launch_chained(
     if constexpr (BF16) {
         const cudaError_t err = allow_bf16_smem<true>();
         if (err != cudaSuccess) return (int)err;
-        composite_fwd_bf16_kernel<true><<<grid, NPIX, BF16_SMEM, (cudaStream_t)stream>>>(
+        composite_fwd_bf16_kernel<true><<<dim3(gx, gy * BF16_SPLIT, b), BF16_THREADS, BF16_SMEM,
+                                          (cudaStream_t)stream>>>(
             rows, gid, starts, counts, nullptr, gy, gx, h, w, rgb, t_frozen, p_raw, n_contrib, live);
     } else {
         composite_fwd_kernel<true><<<grid, NPIX, 0, (cudaStream_t)stream>>>(
@@ -500,20 +715,18 @@ extern "C" int composite_fwd_chained_bf16(
                                 stream, live);
 }
 
-// The CTAs of a forward kernel that one SM holds at once (the CUDA
-// occupancy calculator on its registers and shared memory), or minus the
-// cudaError_t: bf16 selects the bf16 kernel, chained the CHAINED one.
-extern "C" int composite_fwd_blocks_per_sm(int bf16, int chained) {
-    int n = 0;
-    cudaError_t err;
+// What a forward kernel holds on the card (kernel_resources,
+// composite_common.cuh): out[0..5] = threads a CTA, registers a thread,
+// local memory a thread, static and dynamic shared memory a CTA, CTAs an SM.
+// bf16 selects the bf16 kernel, chained the CHAINED one. Returns the
+// cudaError_t.
+extern "C" int composite_fwd_resources(int bf16, int chained, int* out) {
     if (bf16) {
-        err = chained ? allow_bf16_smem<true>() : allow_bf16_smem<false>();
-        if (err == cudaSuccess)
-            err = chained ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, composite_fwd_bf16_kernel<true>, NPIX, BF16_SMEM)
-                          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, composite_fwd_bf16_kernel<false>, NPIX, BF16_SMEM);
-    } else {
-        err = chained ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, composite_fwd_kernel<true>, NPIX, 0)
-                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, composite_fwd_kernel<false>, NPIX, 0);
+        const cudaError_t err = chained ? allow_bf16_smem<true>() : allow_bf16_smem<false>();
+        if (err != cudaSuccess) return (int)err;
+        return chained ? kernel_resources(composite_fwd_bf16_kernel<true>, BF16_THREADS, (int)BF16_SMEM, out)
+                       : kernel_resources(composite_fwd_bf16_kernel<false>, BF16_THREADS, (int)BF16_SMEM, out);
     }
-    return err == cudaSuccess ? n : -(int)err;
+    return chained ? kernel_resources(composite_fwd_kernel<true>, NPIX, 0, out)
+                   : kernel_resources(composite_fwd_kernel<false>, NPIX, 0, out);
 }

@@ -45,8 +45,10 @@ def project_gaussians(
     h, w = image_shape
     tan_fov_x = tan_fov_x[:, None]
     tan_fov_y = tan_fov_y[:, None]
-    focal_x = w / (2.0 * tan_fov_x)
-    focal_y = h / (2.0 * tan_fov_y)
+    # a true division, as the reference's: torch computes a Python number
+    # over a tensor as the number times the tensor's reciprocal, an ulp away
+    focal_x = torch.full_like(tan_fov_x, w) / (2.0 * tan_fov_x)
+    focal_y = torch.full_like(tan_fov_y, h) / (2.0 * tan_fov_y)
 
     w2c = torch.linalg.inv(extrinsics)
     rot = w2c[:, None, :3, :3]  # (B, 1, 3, 3) broadcast over G

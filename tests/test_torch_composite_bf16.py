@@ -1,16 +1,17 @@
 """The port's bfloat16 composite (``render_pallas(..., composite_dtype=
-"bfloat16")``) against the JAX package's, and its plain versions against a
-per-pixel walk written here from the reference's semantics.
+"bfloat16")``): its plain versions against a per-pixel walk written here
+from the reference's semantics, its gate against the JAX package's, the
+identity the bf16 forward kernel's T rests on, and the late-stop render
+(runs across windows) against the JAX package's. The other whole renders
+against the JAX package's are in ``test_torch_composite_bf16_jax.py``.
 
-The reference's bf16 composite, jitted (as these tests run it), works in
-windows of 256 slots of the launch's instance array that start at
-``start - start % 128``, multiplies by doubling scans (``_lane_cumprod``)
-and keeps two roundings out where XLA widens a bf16 result at once: the
-gate's last subtraction and the scan's last level. The port follows all of
-it, so on the JAX package's own screen rows its plain composite gives the
-JAX kernel's T and n_contrib bit for bit. Whole renders differ only where
-the float32 projections differ by a few ulps and a bf16 rounding of some
-pair lands on the other side (ROADMAP.md, section 3).
+The reference's bf16 composite, jitted, works in windows of 256 slots of the
+launch's instance array that start at ``start - start % 128``, multiplies by
+doubling scans (``_lane_cumprod``) and keeps two roundings out where XLA
+widens a bf16 result at once: the gate's last subtraction and the scan's
+last level. The port follows all of it, so on the JAX package's own screen
+rows its plain composite gives the JAX kernel's T and n_contrib bit for bit
+(``test_torch_composite_bf16_exact.py``).
 
 The walk here is vectorised over a tile's pixels only, with its own bf16
 rounding (bit arithmetic on float32) and its own doubling scan, so it
@@ -29,7 +30,6 @@ import torch
 from my_depthsplat_tpu.render import pallas_raster as jax_raster
 from my_depthsplat_torch.render import pallas_raster as port_raster
 from my_depthsplat_torch.geometry import get_fov
-from my_depthsplat_torch.render import render
 from my_depthsplat_torch.render.instances import build_tile_instances, build_tile_instances_grouped
 from my_depthsplat_torch.render.projection import project_gaussians
 from my_depthsplat_torch.render.pallas_raster import (
@@ -48,8 +48,8 @@ from my_depthsplat_torch.render.pallas_raster import (
     screen_rows,
 )
 
-from test_torch_grouped import patch_groups
 from test_torch_render import random_scene
+from test_torch_scenes import late_stop_scene, long_runs_scene  # noqa: F401  (imported from here too)
 from test_torch_render_grad import _fold_symmetric
 from test_torch_train_cli import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -186,52 +186,6 @@ def walk_backward(run, start, px, py, ncon, g, ta, gdr):
             ]
             gdr = gdr + np.where(hit, gc * w, 0).astype(np.float32)
     return out, ta, gdr
-
-
-def long_runs_scene(seed=0, g=1500):
-    """One 32 x 32 view (4 tiles) under ``g`` broad, faint gaussians (opacity
-    0.02-0.06): every tile's run is longer than 512 instances, and its
-    pixels stop past the first chunk or not at all."""
-    rng = np.random.default_rng(seed)
-    z = rng.uniform(2.0, 8.0, g)
-    means = np.stack([rng.uniform(-0.3, 0.3, g) * z, rng.uniform(-0.3, 0.3, g) * z, z], -1)[None]
-    scales = (rng.uniform(0.1, 0.3, (1, g, 1)) * z[None, :, None] * np.ones(3)) * rng.uniform(0.5, 1.0, (1, g, 3))
-    rot = np.linalg.qr(rng.normal(size=(1, g, 3, 3)))[0]
-    cov = (rot * scales[..., None, :] ** 2) @ np.swapaxes(rot, -1, -2)
-    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
-    return (
-        f32(np.eye(4)[None]), f32([[[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]]), f32([1.0]), f32([100.0]),
-        f32([[0.1, 0.2, 0.3]]), f32(means), f32(cov), f32(rng.normal(size=(1, g, 3, 9)) * 0.3),
-        f32(rng.uniform(0.02, 0.06, (1, g))),
-    ), (32, 32)
-
-
-def late_stop_scene(seed=0, per_tile=340):
-    """One 32 x 32 view: ``per_tile`` faint one-pixel splats per tile in
-    front (opacity 0.005-0.02, centred on pixels, each reaching about one
-    pixel), three opaque splats over the whole view at depth 6-6.2, and as
-    many faint splats again behind them. Every tile's run is longer than 512
-    instances; each pixel sees a few faint hits, then stops on the opaque
-    layer near position ``per_tile`` (past the first chunk), and stays
-    stopped through the faint splats behind it, in the next chunks."""
-    rng = np.random.default_rng(seed)
-    h = w = 32
-    n = 2 * per_tile * 4
-    z = np.concatenate([rng.uniform(2.0, 4.0, n // 2), rng.uniform(7.0, 9.0, n // 2)])
-    u, v = rng.integers(0, w, n), rng.integers(0, h, n)
-    dust = np.stack([(u - w / 2 - 0.5) / w * z, (v - h / 2 - 0.5) / h * z, z], -1)
-    wall = np.array([[0.0, 0.0, 6.0], [0.1, -0.1, 6.1], [-0.1, 0.1, 6.2]])
-    g = n + 3
-    scales = np.concatenate([np.full((n, 3), 1e-3) * z[:, None], np.full((3, 3), 20.0)])[None]
-    rot = np.linalg.qr(rng.normal(size=(1, g, 3, 3)))[0]
-    cov = (rot * scales[..., None, :] ** 2) @ np.swapaxes(rot, -1, -2)
-    opac = np.concatenate([rng.uniform(0.005, 0.02, n), np.full(3, 0.999)])[None]
-    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
-    return (
-        f32(np.eye(4)[None]), f32([[[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]]), f32([1.0]), f32([100.0]),
-        f32([[0.1, 0.2, 0.3]]), f32(np.concatenate([dust, wall])[None]), f32(cov),
-        f32(rng.normal(size=(1, g, 3, 9)) * 0.3), f32(opac),
-    ), (h, w)
 
 
 def port_screen(args, shape):
@@ -466,21 +420,67 @@ def test_plain_chained_backward_carry_equals_the_walk():
     assert (tm(new.ta) > ta0).any()
 
 
-def test_flat_route_matches_jax():
-    """The flat route on ``random_scene`` (2 views of 300 gaussians): image
-    within 1e-5 of the JAX package's bf16 render, gradients within 1e-3 of
-    each one's largest entry, and the float32 difference."""
-    check_against_jax(*SCENES["sparse"]())
+def included_from(P):
+    """The least float32 x with fl(P x) >= 1e-4, per entry of ``P`` (1e-4 <=
+    P <= 1): the rounded quotient, stepped up or down by an ulp while that
+    holds (csrc/composite_fwd.cu's included_from, which bounds the steps at
+    4; here they are counted)."""
+    x = (EPS / P).astype(np.float32)
+    steps = np.zeros(P.shape, int)
+    for _ in range(4):
+        low = ~((P * x).astype(np.float32) >= EPS)
+        x = np.where(low, np.nextafter(x, np.float32(np.inf)), x)
+        steps += low
+    for _ in range(4):
+        below = np.nextafter(x, np.float32(0))
+        high = (P * below).astype(np.float32) >= EPS
+        x = np.where(high, below, x)
+        steps += high
+    return x, steps
 
 
-def test_grouped_route_matches_jax(monkeypatch):
-    """The grouped route (both packages patched to groups of 128; 200
-    gaussians make 2 groups): gradients within 1e-3, the image within 5e-4.
-    Here the projections' float32 ulps move one pair's bf16 factor across a
-    rounding (1.8e-4 on the image); on the JAX package's rows the two
-    composites agree bit for bit (``test_torch_composite_bf16_exact.py``)."""
-    patch_groups(monkeypatch, 128)
-    check_against_jax(*random_scene(b=1, g=200, seed=7, h=40, w=56), image_max=5e-4)
+@pytest.mark.parametrize("scene", ["sparse", "late-stop", "long-runs"])
+def test_least_included_product_is_the_product_of_the_least(scene):
+    """The identities the bf16 forward kernel (csrc/composite_fwd.cu,
+    window_t) sets a window's T by, where the plain version takes the least
+    of P s_full over the included slots: fl(P x) is monotone in x for P > 0,
+    so a slot is included (P s_full >= 1e-4) iff s_full >= x*, the least
+    float with fl(P x*) >= 1e-4 (found within one ulp of 1e-4 / P), and the
+    least included P s_full is fl(P times the least included s_full).
+    Checked on every (pixel, window) of the walk's scenes with P carried as
+    the walk carries it; windows where every slot is included and, in the
+    scenes where pixels stop, windows where some slot is not, both occur."""
+    args, shape = SCENES[scene]()
+    sg = port_screen(args, shape)
+    inst = build_tile_instances(sg, shape)
+    rows = screen_rows(sg).numpy()
+    n_tiles = len(inst.counts) // args[0].shape[0]
+    cases = {True: 0, False: 0}
+    for tile, (start, count) in enumerate(zip(inst.starts.tolist(), inst.counts.tolist())):
+        run = rows[inst.gaussian_id[start : start + count].numpy()]
+        px, py = tile_pixels(tile % n_tiles, shape[1] // 16)
+        P = np.ones(256, np.float32)
+        for _, slots in windows(run, start):
+            f = np.ones((256, 256), np.float32)
+            for j, r in enumerate(slots):
+                if r is not None:
+                    _, _, _, alpha, gate = walk_gate(px, py, r)
+                    f[:, j] = bf16(np.float32(1) - np.where(gate, alpha, 0).astype(np.float32))
+            _, full = walk_scan(f)
+            live = P >= EPS
+            pf = P[:, None] * full
+            included = pf >= EPS
+            x, steps = included_from(np.where(live, P, np.float32(1)))
+            assert steps.max() <= 2
+            np.testing.assert_array_equal(included[live], (full >= x[:, None])[live])
+            least = np.where(included, pf, np.float32(np.inf)).min(1)
+            least_full = np.where(included, full, np.float32(np.inf)).min(1)
+            np.testing.assert_array_equal(least[live], (P * least_full)[live])
+            every = included.all(1)
+            cases[True] += int((every & live).sum())
+            cases[False] += int((~every & live).sum())
+            P = P * full[:, -1]
+    assert cases[True] > 0 and (scene == "sparse" or cases[False] > 0), cases
 
 
 def test_chunk_boundaries_match_jax():
@@ -496,28 +496,6 @@ def test_chunk_boundaries_match_jax():
     last = port_raster._tile_major(n_contrib, shape).amax(1)
     assert inst.counts.min() > 512 and n_contrib.min() > 256 and (inst.counts - last > 256).all()
     check_against_jax(args, shape)
-
-
-def test_grouped_bf16_equals_flat_bf16(monkeypatch):
-    """120 gaussians in one depth group of 128: the group's starts are the
-    flat route's, so the two routes' bf16 renders agree to the float32
-    rounding of the colour sums (1e-6), and both differ from the float32
-    render. Each route against the JAX package's same route: within 1e-5.
-    (Where a run crosses groups the routes take their windows from
-    different starts, each as the JAX package's same route does.)"""
-    args, shape = random_scene(b=1, g=120, seed=8)
-    ta = [torch.from_numpy(x) for x in args]
-    ja = tuple(map(jnp.asarray, args))
-    jax_bf16 = lambda: np.asarray(jax.jit(  # noqa: E731
-        lambda *a: jax_raster.render_pallas(*ja[:4], shape, *a, composite_dtype="bfloat16"))(*ja[4:]))
-    flat = render(*ta[:4], shape, ta[4], *ta[5:])  # float32 reference for the difference below
-    flat_bf = render_pallas(*ta[:4], shape, ta[4], *ta[5:], composite_dtype="bfloat16")
-    assert np.abs(flat_bf.numpy() - jax_bf16()).max() <= 1e-5
-    patch_groups(monkeypatch, 128)
-    grouped_bf = render_pallas(*ta[:4], shape, ta[4], *ta[5:], composite_dtype="bfloat16")
-    assert np.abs(grouped_bf.numpy() - jax_bf16()).max() <= 1e-5
-    assert (grouped_bf - flat_bf).abs().max().item() <= 1e-6
-    assert (flat_bf - flat).abs().max().item() > 1e-5
 
 
 @pytest.mark.parametrize("name", ["float16", "bf16", "float64"])

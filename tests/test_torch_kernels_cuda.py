@@ -48,7 +48,7 @@ from my_depthsplat_torch.render.pallas_raster import (
 )
 from my_depthsplat_torch.render.projection import project_gaussians
 
-from test_torch_scenes import expansion_fields, occluded_scene
+from test_torch_scenes import expansion_fields, late_stop_scene, long_runs_scene, occluded_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -868,6 +868,158 @@ def test_bf16_forward_kernel_where_the_strip_cull_matters(card, seed):
     assert int((n_p > 0).sum()) > 100
     assert torch.equal(t_k, t_p) and torch.equal(n_k, n_p)
     assert (img_k - img_p).abs().max().item() <= 1e-5
+
+
+def _scene_screen(card, args, shape):
+    """Screen gaussians of a numpy scene of tests/test_torch_scenes.py on the
+    card, as ``render_pallas`` projects them."""
+    from my_depthsplat_torch.geometry import get_fov
+
+    extr, intr, _, _, _, means, cov, sh, opac = (torch.from_numpy(x).to(card) for x in args)
+    fov = get_fov(intr)
+    return project_gaussians(extr, means, cov, sh, opac, torch.tan(0.5 * fov[:, 0]), torch.tan(0.5 * fov[:, 1]),
+                             shape, True)
+
+
+def _bf16_forward_matches_plain(rows, gid, starts, counts, bg, shape):
+    """Kernel B's bf16 kernel vs its bf16 plain version: T and n_contrib
+    equal, the image within 1e-5. Returns the plain version's T and
+    n_contrib."""
+    args = (rows, gid, starts, counts, bg, shape, "bfloat16")
+    (img_k, t_k, n_k), (img_p, t_p, n_p) = composite_fwd(*args), composite_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(t_k, t_p) and torch.equal(n_k, n_p)
+    assert (img_k - img_p).abs().max().item() <= 1e-5
+    return t_p, n_p
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_forward_kernel_where_pixels_stop_inside_a_window(card, seed):
+    """The late-stop view (tests/test_torch_scenes.py): every pixel stops on
+    an opaque layer past its run's first 256-slot window, most of them away
+    from a window's ends, so the window in which a pixel stops takes the bf16
+    kernel's per-slot inclusion path (its other windows include every slot).
+    Kernel B's bf16 kernel vs its bf16 plain version: T and n_contrib equal,
+    the image within 1e-5."""
+    args, shape = late_stop_scene(seed)
+    sg = _scene_screen(card, args, shape)
+    inst = build_tile_instances(sg, shape)
+    bg = torch.tensor([[0.2, 0.5, 0.7]], device=card)
+    t_p, n_p = _bf16_forward_matches_plain(screen_rows(sg), inst.gaussian_id, inst.starts, inst.counts, bg, shape)
+    ys, xs = torch.meshgrid(torch.arange(shape[0], device=card), torch.arange(shape[1], device=card), indexing="ij")
+    lead = inst.starts.long()[(ys // 16) * (shape[1] // 16) + xs // 16] % 128
+    slot = (lead + n_p[0].long() - 1) % 256  # the stop's slot in its window
+    assert (n_p > 256).all()
+    assert ((slot >= 16) & (slot < 240)).float().mean().item() > 0.5
+
+
+def _first_group_inputs(card, seed):
+    """Kernel arguments for one 32x32 view (2x2 tiles) whose runs of 512
+    instances open with 224 that no pixel reaches (far off the view), so that
+    the first 32-slot group with a candidate is a window's last one (slots
+    224-255, wide splats over the tile), except in tile 1, where slots 64-79
+    hold thin splats just above the tile that reach only its first two pixel
+    rows: there the first warp's first group with a hit is group 2, every
+    other warp's group 7. Slots 256-511 (the second window) hold wide splats
+    of opacity 0.05-0.4."""
+    rng = np.random.default_rng(seed)
+    n_tiles, n = 4, 512
+    rows = np.zeros((n_tiles, n, 9), np.float64)
+    rows[..., 6:9] = rng.uniform(0, 1, (n_tiles, n, 3))
+    x0 = (np.arange(n_tiles) % 2 * 16.0)[:, None]
+    y0 = (np.arange(n_tiles) // 2 * 16.0)[:, None]
+    rows[:, :224, 0:2] = 1000.0 + rng.uniform(0, 50, (n_tiles, 224, 2))
+    rows[:, :224, 2:5] = [0.5, 0.0, 0.5]
+    rows[:, :224, 5] = 0.9
+    sig = rng.uniform(5.0, 10.0, (n_tiles, n))
+    rows[:, 224:, 0] = x0 + rng.uniform(0, 16, (n_tiles, n - 224))
+    rows[:, 224:, 1] = y0 + rng.uniform(0, 16, (n_tiles, n - 224))
+    rows[:, 224:, 2] = rows[:, 224:, 4] = 1.0 / sig[:, 224:] ** 2
+    rows[:, 224:, 3] = 0.0
+    rows[:, 224:256, 5] = rng.uniform(0.1, 0.5, (n_tiles, 32))
+    rows[:, 256:, 5] = rng.uniform(0.05, 0.4, (n_tiles, n - 256))
+    # tile 1, slots 64-79: thin in y (sigma 0.8 px), 1.5 px above the tile
+    rows[1, 64:80, 0] = x0[1] + rng.uniform(0, 16, 16)
+    rows[1, 64:80, 1] = y0[1] - 1.5
+    rows[1, 64:80, 2:5] = [1.0 / 100.0, 0.0, 1.0 / 0.64]
+    rows[1, 64:80, 5] = 0.9
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(card)  # noqa: E731
+    starts = t(np.arange(n_tiles, dtype=np.int32) * n)
+    counts = t(np.full(n_tiles, n, np.int32))
+    return t(rows.reshape(-1, 9).astype(np.float32)), t(np.arange(n_tiles * n, dtype=np.int32)), starts, counts, (32, 32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_forward_kernel_where_the_first_group_with_a_hit_is_the_last(card, seed):
+    """``_first_group_inputs``: the bf16 gate passes no pair in slots 0-223
+    but tile 1's slots 64-79 at its first two pixel rows, and some pair in
+    slots 224-255 of every tile, so the scan skips every group of the first
+    window but the last (and, in one warp, the first two). Kernel B's bf16
+    kernel vs its bf16 plain version: T and n_contrib equal, the image
+    within 1e-5."""
+    from my_depthsplat_torch.render.pallas_raster import gate_alpha
+
+    rows, gid, starts, counts, shape = _first_group_inputs(card, seed)
+    pyx = torch.stack(torch.meshgrid(torch.arange(32), torch.arange(32), indexing="ij"), -1).reshape(-1, 2).float().to(card)
+    tile_of = ((pyx[:, 0] // 16) * 2 + pyx[:, 1] // 16).long()
+    d = rows.reshape(4, 512, 9)[tile_of]  # (1024 pixels, 512, 9): each pixel's own run
+    *_, gate = gate_alpha(pyx[:, None, 1:2], pyx[:, None, 0:1], d, torch.bfloat16)
+    early = gate[:, 0, :224]
+    top = (tile_of == 1) & (pyx[:, 0] % 16 < 2)
+    assert not (early.any(1) & ~top).any() and early.any(1)[top & (pyx[:, 0] % 16 == 0)].all()
+    assert not early[:, :64].any() and not early[:, 80:].any()
+    assert gate[:, 0, 224:256].any(1).all()
+    _bf16_forward_matches_plain(rows, gid, starts, counts, torch.tensor([[0.2, 0.5, 0.7]], device=card), shape)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_forward_kernel_on_long_dense_runs(card, seed):
+    """The long-runs view (tests/test_torch_scenes.py: broad faint gaussians,
+    runs past 512 instances, tens of hits a pixel in every window): kernel
+    B's bf16 kernel vs its bf16 plain version, T and n_contrib equal, the
+    image within 1e-5."""
+    args, shape = long_runs_scene(seed)
+    sg = _scene_screen(card, args, shape)
+    inst = build_tile_instances(sg, shape)
+    assert inst.counts.min().item() > 512
+    _, n_p = _bf16_forward_matches_plain(
+        screen_rows(sg), inst.gaussian_id, inst.starts, inst.counts, torch.tensor([[0.1, 0.2, 0.3]], device=card), shape
+    )
+    assert (n_p > 256).float().mean().item() > 0.5
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_chained_kernel_resumes_live_stopped_and_stopping_pixels(card, seed):
+    """The dense view of the chained test in depth groups of 128, threaded
+    through the bf16 plain version; the first group whose launch meets
+    pixels live on entry that stay live, pixels live on entry that stop in
+    it, and pixels that stopped before it (their state neither read nor
+    rewritten) is launched through the bf16 chained kernel from the same
+    state: T, n_contrib and p_raw where live equal the plain version's, the
+    stopped flags equal, rgb within 1e-5, and the kernel's count of live
+    pixels equals theirs."""
+    sg, _, shape = _screen(card, seed, b=1, g=1500, max_scale=0.35)
+    order, groups = build_tile_instances_grouped(sg, shape, 128)
+    rows = screen_rows(sg)[order]
+    state = initial_chain_state(1, shape, card)
+    for inst in groups:
+        args = (rows, inst.gaussian_id, inst.starts, inst.counts)
+        want, n_want = composite_chained_plain(*args, state, shape, "bfloat16")
+        live_in, live_out = state.p_raw >= 1e-4, want.p_raw >= 1e-4
+        kinds = [int(x.sum()) for x in (live_in & live_out, live_in & ~live_out, ~live_in)]
+        if min(kinds) > 0:
+            break
+        state = want
+    else:
+        raise AssertionError("no group meets live, stopping and stopped pixels")
+    live = torch.zeros(1, dtype=torch.int32, device=card)
+    got, n_got = composite_chained(*args, ChainState(*(x.clone() for x in state)), shape, live, "bfloat16")
+    torch.cuda.synchronize()
+    assert torch.equal(got.t, want.t) and torch.equal(n_got, n_want)
+    assert torch.equal(got.p_raw >= 1e-4, live_out) and torch.equal(got.p_raw[live_out], want.p_raw[live_out])
+    assert torch.equal(got.rgb[~live_in], state.rgb[~live_in])
+    assert (got.rgb - want.rgb).abs().max().item() <= 1e-5
+    assert int(live.item()) == int(live_out.sum())
 
 
 @pytest.mark.parametrize("grouped", [False, True], ids=["flat", "grouped"])

@@ -36,6 +36,52 @@ def occluded_scene(seed=0, g_far=150, h=32, w=48):
     ), (h, w)
 
 
+def long_runs_scene(seed=0, g=1500):
+    """One 32 x 32 view (4 tiles) under ``g`` broad, faint gaussians (opacity
+    0.02-0.06): every tile's run is longer than 512 instances, and its
+    pixels stop past the first chunk or not at all."""
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(2.0, 8.0, g)
+    means = np.stack([rng.uniform(-0.3, 0.3, g) * z, rng.uniform(-0.3, 0.3, g) * z, z], -1)[None]
+    scales = (rng.uniform(0.1, 0.3, (1, g, 1)) * z[None, :, None] * np.ones(3)) * rng.uniform(0.5, 1.0, (1, g, 3))
+    rot = np.linalg.qr(rng.normal(size=(1, g, 3, 3)))[0]
+    cov = (rot * scales[..., None, :] ** 2) @ np.swapaxes(rot, -1, -2)
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    return (
+        f32(np.eye(4)[None]), f32([[[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]]), f32([1.0]), f32([100.0]),
+        f32([[0.1, 0.2, 0.3]]), f32(means), f32(cov), f32(rng.normal(size=(1, g, 3, 9)) * 0.3),
+        f32(rng.uniform(0.02, 0.06, (1, g))),
+    ), (32, 32)
+
+
+def late_stop_scene(seed=0, per_tile=340):
+    """One 32 x 32 view: ``per_tile`` faint one-pixel splats per tile in
+    front (opacity 0.005-0.02, centred on pixels, each reaching about one
+    pixel), three opaque splats over the whole view at depth 6-6.2, and as
+    many faint splats again behind them. Every tile's run is longer than 512
+    instances; each pixel sees a few faint hits, then stops on the opaque
+    layer near position ``per_tile`` (past the first chunk), and stays
+    stopped through the faint splats behind it, in the next chunks."""
+    rng = np.random.default_rng(seed)
+    h = w = 32
+    n = 2 * per_tile * 4
+    z = np.concatenate([rng.uniform(2.0, 4.0, n // 2), rng.uniform(7.0, 9.0, n // 2)])
+    u, v = rng.integers(0, w, n), rng.integers(0, h, n)
+    dust = np.stack([(u - w / 2 - 0.5) / w * z, (v - h / 2 - 0.5) / h * z, z], -1)
+    wall = np.array([[0.0, 0.0, 6.0], [0.1, -0.1, 6.1], [-0.1, 0.1, 6.2]])
+    g = n + 3
+    scales = np.concatenate([np.full((n, 3), 1e-3) * z[:, None], np.full((3, 3), 20.0)])[None]
+    rot = np.linalg.qr(rng.normal(size=(1, g, 3, 3)))[0]
+    cov = (rot * scales[..., None, :] ** 2) @ np.swapaxes(rot, -1, -2)
+    opac = np.concatenate([rng.uniform(0.005, 0.02, n), np.full(3, 0.999)])[None]
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    return (
+        f32(np.eye(4)[None]), f32([[[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]]), f32([1.0]), f32([100.0]),
+        f32([[0.1, 0.2, 0.3]]), f32(np.concatenate([dust, wall])[None]), f32(cov),
+        f32(rng.normal(size=(1, g, 3, 9)) * 0.3), f32(opac),
+    ), (h, w)
+
+
 def expansion_fields(seed, n, grid_hw=(20, 30), kind="mixed"):
     """Seeded cull fields (xy, conic, opacity, rect, valid; CPU tensors) of
     ``n`` gaussians, taken as one view in depth-rank order, for kernel A on a
