@@ -48,6 +48,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch import Tensor
 
+from .. import trace
 from ..gaussians import GaussianAdapterCfg, adapt_gaussians, d_in
 from ..geometry import sample_image_grid
 from ..utils.device import resolve_device
@@ -237,44 +238,45 @@ class EncoderDepthSplat(nn.Module):
         if cfg.train_depth_only:
             return {"gaussians": None, "depths": depths}
 
-        features = results["features_mono_intermediate"][-1]  # (BV, C, H, W) or (BV, C, H/8, W/8)
-        if cfg.depth_branch == "unimatch":
-            if self.feature_proj is not None:
-                features = self.feature_proj(features)
-            features = resize_bilinear(features, (h, w), align_corners=True)
+        with trace.span("encoder.gaussians"):
+            features = results["features_mono_intermediate"][-1]  # (BV, C, H, W) or (BV, C, H/8, W/8)
+            if cfg.depth_branch == "unimatch":
+                if self.feature_proj is not None:
+                    features = self.feature_proj(features)
+                features = resize_bilinear(features, (h, w), align_corners=True)
 
-        img = images.reshape(b * v, h, w, 3).permute(0, 3, 1, 2)
-        x = self.gaussian_regressor(
-            torch.cat([img, depth.reshape(b * v, 1, h, w), features], dim=1)
-        )
-        g = self.gaussian_head(torch.cat([x, img, features], dim=1))
-        n_params = g.shape[1]
-        raw = g.permute(0, 2, 3, 1).reshape(b, v, h * w, n_params)
+            img = images.reshape(b * v, h, w, 3).permute(0, 3, 1, 2)
+            x = self.gaussian_regressor(
+                torch.cat([img, depth.reshape(b * v, 1, h, w), features], dim=1)
+            )
+            g = self.gaussian_head(torch.cat([x, img, features], dim=1))
+            n_params = g.shape[1]
+            raw = g.permute(0, 2, 3, 1).reshape(b, v, h * w, n_params)
 
-        def rep(x: Tensor) -> Tensor:
-            return torch.cat([x] * num) if num > 1 else x
+            def rep(x: Tensor) -> Tensor:
+                return torch.cat([x] * num) if num > 1 else x
 
-        raw = rep(raw)
-        b_eff = b * num
-        opacities = torch.sigmoid(raw[..., 0]).reshape(b_eff, v, h * w, 1, 1)
-        raw = raw[..., 1:].reshape(b_eff, v, h * w, cfg.num_surfaces, -1)
+            raw = rep(raw)
+            b_eff = b * num
+            opacities = torch.sigmoid(raw[..., 0]).reshape(b_eff, v, h * w, 1, 1)
+            raw = raw[..., 1:].reshape(b_eff, v, h * w, cfg.num_surfaces, -1)
 
-        xy, _ = sample_image_grid((h, w), device=images.device)
-        xy = xy.reshape(h * w, 1, 2)
-        offset = torch.sigmoid(raw[..., :2])
-        pixel_size = torch.tensor([1.0 / w, 1.0 / h], device=images.device)  # float32 geometry
-        xy_ray = xy[None, None] + (offset - 0.5) * pixel_size
+            xy, _ = sample_image_grid((h, w), device=images.device)
+            xy = xy.reshape(h * w, 1, 2)
+            offset = torch.sigmoid(raw[..., :2])
+            pixel_size = torch.tensor([1.0 / w, 1.0 / h], device=images.device)  # float32 geometry
+            xy_ray = xy[None, None] + (offset - 0.5) * pixel_size
 
-        gaussians = adapt_gaussians(
-            cfg.gaussian_adapter,
-            rep(context["extrinsics"])[:, :, None, None, None],
-            rep(context["intrinsics"])[:, :, None, None, None],
-            xy_ray[..., None, :],
-            depths.reshape(b_eff, v, h * w, 1, 1),
-            opacities,
-            raw[..., None, 2:],
-            input_images=rep(images) if cfg.init_sh_input_img else None,
-        )
+            gaussians = adapt_gaussians(
+                cfg.gaussian_adapter,
+                rep(context["extrinsics"])[:, :, None, None, None],
+                rep(context["intrinsics"])[:, :, None, None, None],
+                xy_ray[..., None, :],
+                depths.reshape(b_eff, v, h * w, 1, 1),
+                opacities,
+                raw[..., None, 2:],
+                input_images=rep(images) if cfg.init_sh_input_img else None,
+            )
         out = {"gaussians": gaussians.flattened(), "per_view": gaussians}
         if cfg.return_depth:
             out["depths"] = depths

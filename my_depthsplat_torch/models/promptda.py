@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch import Tensor
 
+from .. import trace
 from ..ops.interpolate import resize_bilinear
 from .dpt import PromptDPTHead
 from .vit import INTERMEDIATE_LAYER_IDX, VIT_CONFIGS, DinoViT, normalize_imagenet
@@ -61,13 +62,17 @@ class PromptDA(nn.Module):
         x = normalize_imagenet(x)
         gh, gw = (h + pad_h) // self.patch_size, (w + pad_w) // self.patch_size
 
-        vit_layers = self.pretrained(x, INTERMEDIATE_LAYER_IDX[self.vit_type])
-        stage_maps = [
-            tokens.transpose(1, 2).reshape(n, -1, gh, gw) for tokens, _cls in vit_layers
-        ]
-        depth = self.depth_head(stage_maps, prompt_n)  # (N, 1, gh*ps, gw*ps)
-        depth = depth * (mx - mn) + mn
-        depth = depth[:, 0, :h, :w].reshape(b, v, h, w)
+        with trace.span("promptda.vit"):
+            vit_layers = self.pretrained(x, INTERMEDIATE_LAYER_IDX[self.vit_type])
+            stage_maps = [
+                tokens.transpose(1, 2).reshape(n, -1, gh, gw) for tokens, _cls in vit_layers
+            ]
+        with trace.span("promptda.dpt"):
+            depth = self.depth_head(stage_maps, prompt_n)  # (N, 1, gh*ps, gw*ps)
+            depth = depth * (mx - mn) + mn
+            depth = depth[:, 0, :h, :w].reshape(b, v, h, w)
 
-        feats = [resize_bilinear(f, (h, w), align_corners=True) for f in stage_maps]
+        # the ViT's maps at full resolution
+        with trace.span("promptda.resize"):
+            feats = [resize_bilinear(f, (h, w), align_corners=True) for f in stage_maps]
         return {"features_mono_intermediate": feats, "depth_preds": [depth]}

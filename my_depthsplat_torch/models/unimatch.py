@@ -41,6 +41,7 @@ import torch
 import torch.nn as nn
 from torch import Tensor
 
+from .. import trace
 from ..ops import plane_sweep_correlation, plane_sweep_correlation_window, resize_bilinear
 from ..parallel.mesh import gather_split, resolve_axis, split_input
 from .backbone import CNNEncoder
@@ -179,40 +180,44 @@ class MultiViewUniMatch(nn.Module):
         intrinsics_px = intrinsics * intrinsics.new_tensor([w, h, 1.0])[:, None]
 
         # CNN pyramid, resolution high -> low; the cost volumes go low -> high
-        cnn_all = self.backbone(flat)
-        features_cnn = cnn_all[::-1][: self.num_scales]
+        with trace.span("unimatch.backbone"):
+            cnn_all = self.backbone(flat)
+            features_cnn = cnn_all[::-1][: self.num_scales]
 
         # multi-view transformer on the lowest-resolution features
-        feat0 = features_cnn[0].reshape(b, v, *features_cnn[0].shape[1:]).permute(0, 1, 3, 4, 2)
-        feat0 = self.transformer(
-            add_position_in_windows(feat0, attn_splits), attn_splits=attn_splits, nn_idx=nn_idx
-        )
-        features_mv = feat0.reshape(bv, *feat0.shape[2:]).permute(0, 3, 1, 2)
-        mv_scales = self.mv_pyramid(features_mv) if self.num_scales > 1 else [features_mv]
+        with trace.span("unimatch.transformer"):
+            feat0 = features_cnn[0].reshape(b, v, *features_cnn[0].shape[1:]).permute(0, 1, 3, 4, 2)
+            feat0 = self.transformer(
+                add_position_in_windows(feat0, attn_splits), attn_splits=attn_splits, nn_idx=nn_idx
+            )
+            features_mv = feat0.reshape(bv, *feat0.shape[2:]).permute(0, 3, 1, 2)
+            mv_scales = self.mv_pyramid(features_mv) if self.num_scales > 1 else [features_mv]
 
         # DINOv2 monocular features, resized to 1/8
-        rh, rw = h // 14 * 14, w // 14 * 14
-        vit_layers = self.pretrained(
-            resize_bilinear(flat, (rh, rw), align_corners=True), INTERMEDIATE_LAYER_IDX[self.vit_type]
-        )
-        mono_intermediate = [
-            resize_bilinear(
-                tokens.transpose(1, 2).reshape(bv, -1, rh // 14, rw // 14),
-                (h // 8, w // 8), align_corners=True,
+        with trace.span("unimatch.vit"):
+            rh, rw = h // 14 * 14, w // 14 * 14
+            vit_layers = self.pretrained(
+                resize_bilinear(flat, (rh, rw), align_corners=True), INTERMEDIATE_LAYER_IDX[self.vit_type]
             )
-            for tokens, _cls in vit_layers
-        ]
-        mono = mono_intermediate[-1]
-        if self.lowest_feature_resolution == 4:
-            mono = resize_bilinear(mono, (mono.shape[2] * 2, mono.shape[3] * 2), align_corners=True)
-        mono_scales = self.mono_pyramid(mono) if self.num_scales > 1 else [mono]
+            mono_intermediate = [
+                resize_bilinear(
+                    tokens.transpose(1, 2).reshape(bv, -1, rh // 14, rw // 14),
+                    (h // 8, w // 8), align_corners=True,
+                )
+                for tokens, _cls in vit_layers
+            ]
+            mono = mono_intermediate[-1]
+            if self.lowest_feature_resolution == 4:
+                mono = resize_bilinear(mono, (mono.shape[2] * 2, mono.shape[3] * 2), align_corners=True)
+            mono_scales = self.mono_pyramid(mono) if self.num_scales > 1 else [mono]
 
-        src_idx = other_view_indices(b, v, images.device) if nn_idx is None else nn_idx[..., 1:]
-        m = src_idx.shape[-1]
-        # reference camera -> source camera (mv_unimatch.py:405-407)
-        rel_pose = torch.linalg.inv(gather_source_views(extrinsics, src_idx)) @ extrinsics[:, :, None]
-        inv_near = max_depth.reshape(bv, 1, 1, 1)
-        inv_far = min_depth.reshape(bv, 1, 1, 1)
+        with trace.span("unimatch.sweep"):
+            src_idx = other_view_indices(b, v, images.device) if nn_idx is None else nn_idx[..., 1:]
+            m = src_idx.shape[-1]
+            # reference camera -> source camera (mv_unimatch.py:405-407)
+            rel_pose = torch.linalg.inv(gather_source_views(extrinsics, src_idx)) @ extrinsics[:, :, None]
+            inv_near = max_depth.reshape(bv, 1, 1, 1)
+            inv_far = min_depth.reshape(bv, 1, 1, 1)
 
         def per_pair(x: Tensor) -> Tensor:
             """(B*V, ...) -> (B*V*M, ...): every view's tensor once per source."""
@@ -222,74 +227,77 @@ class MultiViewUniMatch(nn.Module):
         match_probs, inv_preds = [], []
         results: dict[str, Any] = {}
         for i in range(self.num_scales):
-            df = self.upsample_factor * 2 ** (self.num_scales - 1 - i)
-            num_d = self.num_depth_candidates // 4**i
-            intr_s = intrinsics_px.clone()
-            intr_s[..., :2, :] = intr_s[..., :2, :] / df
-            feats = mv_scales[i]
-            c, hs, ws = feats.shape[1:]
-            lin = torch.linspace(0.0, 1.0, num_d, device=images.device).reshape(1, num_d, 1, 1)
-            if i == 0:
-                cand = (inv_far + lin * (inv_near - inv_far)).expand(bv, num_d, hs, ws)
-            else:
-                # the coarse estimate seeds the candidates, without a gradient
-                depth = resize_bilinear(depth, (hs, ws), align_corners=True).detach()
-                interval = (inv_near - inv_far) / (self.num_depth_candidates - 1) / 2**i
-                lo = torch.maximum(depth - interval * (num_d // 2), inv_far)
-                hi = torch.minimum(depth + interval * (num_d // 2 - 1), inv_near)
-                cand = lo + lin * (hi - lo)
+            with trace.span("unimatch.sweep"):
+                df = self.upsample_factor * 2 ** (self.num_scales - 1 - i)
+                num_d = self.num_depth_candidates // 4**i
+                intr_s = intrinsics_px.clone()
+                intr_s[..., :2, :] = intr_s[..., :2, :] / df
+                feats = mv_scales[i]
+                c, hs, ws = feats.shape[1:]
+                lin = torch.linspace(0.0, 1.0, num_d, device=images.device).reshape(1, num_d, 1, 1)
+                if i == 0:
+                    cand = (inv_far + lin * (inv_near - inv_far)).expand(bv, num_d, hs, ws)
+                else:
+                    # the coarse estimate seeds the candidates, without a gradient
+                    depth = resize_bilinear(depth, (hs, ws), align_corners=True).detach()
+                    interval = (inv_near - inv_far) / (self.num_depth_candidates - 1) / 2**i
+                    lo = torch.maximum(depth - interval * (num_d // 2), inv_far)
+                    hi = torch.minimum(depth + interval * (num_d // 2 - 1), inv_near)
+                    cand = lo + lin * (hi - lo)
 
-            # plane-sweep cost volume; the reference view's intrinsics serve
-            # both sides (mv_unimatch.py:477-490). On a depth axis each rank
-            # sweeps its contiguous D/P candidates.
-            sweep_feats, sweep_cand, axis = feats, cand, None
-            if self.spmd_depth_axis is not None:
-                axis = resolve_axis(self.spmd_depth_axis)
-                if num_d % axis.size:
-                    raise ValueError(f"{num_d} depth candidates do not split over {axis.size} ranks")
-                dl = num_d // axis.size
-                sweep_feats = split_input(feats, axis)
-                sweep_cand = cand[:, axis.index * dl : (axis.index + 1) * dl]
-            src_feats = gather_source_views(sweep_feats.reshape(b, v, c, hs, ws), src_idx)
-            pairs = (
-                src_feats.reshape(bv * m, c, hs, ws), per_pair(sweep_feats),
-                per_pair(intr_s.reshape(bv, 3, 3)), rel_pose.reshape(bv * m, 4, 4),
-            )
-            groups = self.sweep_window_groups_scale0 if i == 0 else 1
-            if axis is None and self.sweep_mode == "window" and groups > 0 and num_d % groups == 0:
-                # scale 0's uniform candidates in contiguous groups, each a
-                # band narrow enough for the window; refinement scales are
-                # one band
-                dg = num_d // groups
-                corr = []
-                for g in range(groups):
-                    cost_g, ovf = plane_sweep_correlation_window(
-                        *pairs, 1.0 / per_pair(sweep_cand[:, g * dg : (g + 1) * dg]),
-                        window=self.sweep_window, gather_dtype=self.gather_dtype,
-                    )
-                    corr.append(cost_g)
-                    results["sweep_window_overflow"] = results.get("sweep_window_overflow", 0) + ovf
-                corr = torch.cat(corr, dim=1)
-            else:
-                corr = plane_sweep_correlation(
-                    *pairs, 1.0 / per_pair(sweep_cand), gather_dtype=self.gather_dtype
+                # plane-sweep cost volume; the reference view's intrinsics serve
+                # both sides (mv_unimatch.py:477-490). On a depth axis each rank
+                # sweeps its contiguous D/P candidates.
+                sweep_feats, sweep_cand, axis = feats, cand, None
+                if self.spmd_depth_axis is not None:
+                    axis = resolve_axis(self.spmd_depth_axis)
+                    if num_d % axis.size:
+                        raise ValueError(f"{num_d} depth candidates do not split over {axis.size} ranks")
+                    dl = num_d // axis.size
+                    sweep_feats = split_input(feats, axis)
+                    sweep_cand = cand[:, axis.index * dl : (axis.index + 1) * dl]
+                src_feats = gather_source_views(sweep_feats.reshape(b, v, c, hs, ws), src_idx)
+                pairs = (
+                    src_feats.reshape(bv * m, c, hs, ws), per_pair(sweep_feats),
+                    per_pair(intr_s.reshape(bv, 3, 3)), rel_pose.reshape(bv * m, 4, 4),
                 )
-            if axis is not None:
-                corr = gather_split(corr, axis, dim=1)
-            cost = (corr.reshape(bv, m, num_d, hs, ws) / c**0.5).mean(dim=1)
+                groups = self.sweep_window_groups_scale0 if i == 0 else 1
+                if axis is None and self.sweep_mode == "window" and groups > 0 and num_d % groups == 0:
+                    # scale 0's uniform candidates in contiguous groups, each a
+                    # band narrow enough for the window; refinement scales are
+                    # one band
+                    dg = num_d // groups
+                    corr = []
+                    for g in range(groups):
+                        cost_g, ovf = plane_sweep_correlation_window(
+                            *pairs, 1.0 / per_pair(sweep_cand[:, g * dg : (g + 1) * dg]),
+                            window=self.sweep_window, gather_dtype=self.gather_dtype,
+                        )
+                        corr.append(cost_g)
+                        results["sweep_window_overflow"] = results.get("sweep_window_overflow", 0) + ovf
+                    corr = torch.cat(corr, dim=1)
+                else:
+                    corr = plane_sweep_correlation(
+                        *pairs, 1.0 / per_pair(sweep_cand), gather_dtype=self.gather_dtype
+                    )
+                if axis is not None:
+                    corr = gather_split(corr, axis, dim=1)
+                cost = (corr.reshape(bv, m, num_d, hs, ws) / c**0.5).mean(dim=1)
 
-            concat = torch.cat([cost, features_cnn[i], feats, mono_scales[i]], dim=1)
-            x = self.regressor[i](concat, v) + self.regressor_residual[i](concat)
-            prob = torch.softmax(self.depth_head[i](x), dim=1)  # over the candidates
-            match_probs.append(prob)
-            depth = (prob * cand).sum(dim=1, keepdim=True)
-            if training and i < self.num_scales - 1:
-                inv_preds.append(resize_bilinear(depth, (h, w), align_corners=True))
+            with trace.span("unimatch.regressor"):
+                concat = torch.cat([cost, features_cnn[i], feats, mono_scales[i]], dim=1)
+                x = self.regressor[i](concat, v) + self.regressor_residual[i](concat)
+                prob = torch.softmax(self.depth_head[i](x), dim=1)  # over the candidates
+                match_probs.append(prob)
+                depth = (prob * cand).sum(dim=1, keepdim=True)
+                if training and i < self.num_scales - 1:
+                    inv_preds.append(resize_bilinear(depth, (h, w), align_corners=True))
 
-        residual = self.upsampler(mono_intermediate, cnn_all, mv_scales[::-1], depth)
-        depth_full = resize_bilinear(depth, (h, w), align_corners=True) + residual
-        depth_full = torch.maximum(torch.minimum(depth_full, inv_near), inv_far)
-        inv_preds.append(depth_full)
+        with trace.span("unimatch.upsampler"):
+            residual = self.upsampler(mono_intermediate, cnn_all, mv_scales[::-1], depth)
+            depth_full = resize_bilinear(depth, (h, w), align_corners=True) + residual
+            depth_full = torch.maximum(torch.minimum(depth_full, inv_near), inv_far)
+            inv_preds.append(depth_full)
         results.update(
             depth_preds=[(1.0 / d[:, 0]).reshape(b, v, h, w) for d in inv_preds],
             match_probs=match_probs,

@@ -249,17 +249,24 @@ def expand_tiles(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_ti
     """Kernel A for CUDA tensors, ``expand_plain`` for CPU tensors (same
     arguments and results). Kernel A's two device passes are counted where
     they launch: ``expand_tiles.launches`` its count passes (every run of
-    the kernel starts with one; ``count_instances`` may run one whose write
-    pass never follows), ``expand_tiles.write_launches`` its write passes.
-    ``counted``: the count pass already run on these inputs
+    the kernel starts with one, and each is one host read of its total;
+    ``count_instances`` may run one whose write pass never follows),
+    ``expand_tiles.write_launches`` its write passes.
+    ``expand_tiles.instances`` adds up the instances emitted, on either
+    device: the sizes of the outputs, known on the host without a read of
+    its own. ``counted``: the count pass already run on these inputs
     (``count_instances``), for CUDA tensors."""
     if xy.is_cuda:
         if xy.shape[0] == 0:
             empty = lambda dtype: torch.empty(0, dtype=dtype, device=xy.device)  # noqa: E731
             return empty(_key_dtype(slot, n_tiles)), empty(torch.int32), empty(torch.int64), empty(torch.int32)
-        return _expand_cuda(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles, counted)
-    return expand_plain(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles)
+        out = _expand_cuda(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles, counted)
+    else:
+        out = expand_plain(xy, conic, opacity, rect, valid, slot, g_per_view, grid_x, n_tiles)
+    expand_tiles.instances += out[1].shape[0]
+    return out
 
 
 expand_tiles.launches = 0
 expand_tiles.write_launches = 0
+expand_tiles.instances = 0

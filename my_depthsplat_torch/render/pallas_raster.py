@@ -62,6 +62,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
+from .. import trace
 from ..geometry import get_fov
 from ..ops import cuda_lib
 from ..ops.cuda_lib import ptr
@@ -850,15 +851,16 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_img, _g_t, _g_n):
-        rows, background, t_final, n_contrib = ctx.saved_tensors
-        inst = ctx.inst
-        g_img = g_img.contiguous()
-        d_inst = composite_bwd(
-            rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, background,
-            t_final, n_contrib, g_img, ctx.image_shape, ctx.compute_dtype,
-        )
-        d_rows = scatter_reduce(d_inst, inst.offset, inst.per_gaussian)
-        d_bg = torch.einsum("bhwc,bhw->bc", g_img, t_final)
+        with trace.span("render.composite_bwd"):
+            rows, background, t_final, n_contrib = ctx.saved_tensors
+            inst = ctx.inst
+            g_img = g_img.contiguous()
+            d_inst = composite_bwd(
+                rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, background,
+                t_final, n_contrib, g_img, ctx.image_shape, ctx.compute_dtype,
+            )
+            d_rows = scatter_reduce(d_inst, inst.offset, inst.per_gaussian)
+            d_bg = torch.einsum("bhwc,bhw->bc", g_img, t_final)
         return d_rows, d_bg, None, None, None
 
 
@@ -923,43 +925,48 @@ class _GroupedComposite(torch.autograd.Function):
         live = torch.empty(1, dtype=torch.int32, device=rows.device)
         n_contrib = []
         for k, args in enumerate(per_group):
-            counted = None
-            if k > 0:  # the count pass of group k brings the live count of group k - 1
-                counted, n_live = count_instances(*args, live)
-                if n_live == 0:
-                    break  # no pixel is live: the later groups change nothing
-            inst = group_layout(args, k * group_slots, image_shape, counted)
-            state, n_k = composite_chained(
-                rows, inst.gaussian_id, inst.starts, inst.counts, state, image_shape, live,
-                compute_dtype=compute_dtype,
-            )
+            with trace.span("render.bin"):
+                counted = None
+                if k > 0:  # the count pass of group k brings the live count of group k - 1
+                    counted, n_live = count_instances(*args, live)
+                    if n_live == 0:
+                        break  # no pixel is live: the later groups change nothing
+                inst = group_layout(args, k * group_slots, image_shape, counted)
+            with trace.span("render.composite"):
+                state, n_k = composite_chained(
+                    rows, inst.gaussian_id, inst.starts, inst.counts, state, image_shape, live,
+                    compute_dtype=compute_dtype,
+                )
             n_contrib.append(n_k)
         ctx.save_for_backward(rows, background, state.t, *n_contrib)
         ctx.per_group, ctx.group_slots, ctx.image_shape = per_group, group_slots, image_shape
         ctx.compute_dtype = compute_dtype
-        return state.rgb + state.t[..., None] * background[:, None, None, :]
+        with trace.span("render.composite"):
+            return state.rgb + state.t[..., None] * background[:, None, None, :]
 
     @staticmethod
     def backward(ctx, g_img):
-        rows, background, t_final, *n_contrib = ctx.saved_tensors
-        slots, shape = ctx.group_slots, ctx.image_shape
-        g_img = g_img.contiguous()
-        carry = BwdCarry(
-            t_final.clone(), (g_img * background[:, None, None, :]).sum(-1) * t_final
-        )
-        live = torch.stack([n.amax() for n in n_contrib]).tolist()
-        d_rows = torch.zeros_like(rows)
-        for k in reversed(range(len(n_contrib))):
-            if live[k] == 0:
-                continue
-            inst = group_layout(ctx.per_group[k], k * slots, shape)
-            d_inst, carry = composite_bwd_chained(
-                rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, n_contrib[k],
-                g_img, carry, shape, compute_dtype=ctx.compute_dtype,
+        with trace.span("render.composite_bwd"):
+            rows, background, t_final, *n_contrib = ctx.saved_tensors
+            slots, shape = ctx.group_slots, ctx.image_shape
+            g_img = g_img.contiguous()
+            carry = BwdCarry(
+                t_final.clone(), (g_img * background[:, None, None, :]).sum(-1) * t_final
             )
-            n = inst.offset.shape[0]
-            d_rows[k * slots : k * slots + n] = scatter_reduce(d_inst, inst.offset, inst.per_gaussian)
-        d_bg = torch.einsum("bhwc,bhw->bc", g_img, t_final)
+            live = torch.stack([n.amax() for n in n_contrib]).tolist()
+            d_rows = torch.zeros_like(rows)
+            for k in reversed(range(len(n_contrib))):
+                if live[k] == 0:
+                    continue
+                with trace.span("render.bin"):  # the group's layout, built again
+                    inst = group_layout(ctx.per_group[k], k * slots, shape)
+                d_inst, carry = composite_bwd_chained(
+                    rows, inst.gaussian_id, inst.perm, inst.starts, inst.counts, n_contrib[k],
+                    g_img, carry, shape, compute_dtype=ctx.compute_dtype,
+                )
+                n = inst.offset.shape[0]
+                d_rows[k * slots : k * slots + n] = scatter_reduce(d_inst, inst.offset, inst.per_gaussian)
+            d_bg = torch.einsum("bhwc,bhw->bc", g_img, t_final)
         return d_rows, d_bg, None, None, None, None
 
 
@@ -967,10 +974,10 @@ def _render_grouped(
     sg: ScreenGaussians, background: Tensor, image_shape: tuple[int, int], compute_dtype: str = "float32"
 ) -> Tensor:
     """One view through ``_GroupedComposite`` -> (1, H, W, 3)."""
-    order, per_group = grouped_expand_inputs(sg, image_shape, _CHAIN_GROUP_SLOTS)
-    return _GroupedComposite.apply(
-        screen_rows(sg)[order], background, per_group, _CHAIN_GROUP_SLOTS, image_shape, compute_dtype
-    )
+    with trace.span("render.bin"):
+        order, per_group = grouped_expand_inputs(sg, image_shape, _CHAIN_GROUP_SLOTS)
+        rows = screen_rows(sg)[order]
+    return _GroupedComposite.apply(rows, background, per_group, _CHAIN_GROUP_SLOTS, image_shape, compute_dtype)
 
 
 def render_pallas(
@@ -996,30 +1003,31 @@ def render_pallas(
     is the compute type of the gate's quadratic and of the chunk products on
     either route, forward and backward."""
     compute_dtype_of(composite_dtype)
-    if scale_invariant:
-        extrinsics, near, far, gaussian_means, gaussian_covariances = (
-            scale_invariant_normalization(
-                extrinsics, near, far, gaussian_means, gaussian_covariances
+    with trace.span("render.project"):
+        if scale_invariant:
+            extrinsics, near, far, gaussian_means, gaussian_covariances = (
+                scale_invariant_normalization(
+                    extrinsics, near, far, gaussian_means, gaussian_covariances
+                )
             )
+        fovs = get_fov(intrinsics)
+        tan_x, tan_y = torch.tan(0.5 * fovs[:, 0]), torch.tan(0.5 * fovs[:, 1])
+        scene = (
+            extrinsics, gaussian_means, gaussian_covariances, gaussian_sh_coefficients,
+            gaussian_opacities, tan_x, tan_y,
         )
-    fovs = get_fov(intrinsics)
-    tan_x, tan_y = torch.tan(0.5 * fovs[:, 0]), torch.tan(0.5 * fovs[:, 1])
-    scene = (
-        extrinsics, gaussian_means, gaussian_covariances, gaussian_sh_coefficients,
-        gaussian_opacities, tan_x, tan_y,
-    )
     background_color = background_color.contiguous()
     if gaussian_means.shape[1] >= _CHAIN_MIN_G:
-        return torch.cat(
-            [
-                _render_grouped(
-                    project_gaussians(*(x[i : i + 1] for x in scene), image_shape, use_sh),
-                    background_color[i : i + 1], image_shape, composite_dtype,
-                )
-                for i in range(extrinsics.shape[0])
-            ]
-        )
-    sg = project_gaussians(*scene, image_shape, use_sh)
-    inst = build_tile_instances(sg, image_shape)
-    image, _, _ = composite_tiles(screen_rows(sg), inst, background_color, image_shape, composite_dtype)
+        images = []
+        for i in range(extrinsics.shape[0]):
+            with trace.span("render.project"):
+                sg = project_gaussians(*(x[i : i + 1] for x in scene), image_shape, use_sh)
+            images.append(_render_grouped(sg, background_color[i : i + 1], image_shape, composite_dtype))
+        return torch.cat(images)
+    with trace.span("render.project"):
+        sg = project_gaussians(*scene, image_shape, use_sh)
+    with trace.span("render.bin"):
+        inst = build_tile_instances(sg, image_shape)
+    with trace.span("render.composite"):
+        image, _, _ = composite_tiles(screen_rows(sg), inst, background_color, image_shape, composite_dtype)
     return image

@@ -13,6 +13,7 @@ from typing import Callable
 import torch
 from torch import Tensor
 
+from .. import trace
 from ..utils.shapes import assert_shapes
 
 
@@ -59,7 +60,8 @@ def lpips_loss(
     """LPIPS gated by global step (loss_lpips.py:46-48)."""
     if step < apply_after_step:
         return pred.new_zeros(())
-    return weight * lpips(pred.flatten(0, 1), target.flatten(0, 1)).mean()
+    with trace.span("loss.lpips"):
+        return weight * lpips(pred.flatten(0, 1), target.flatten(0, 1)).mean()
 
 
 def compute_losses(

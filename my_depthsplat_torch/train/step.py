@@ -39,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch import Tensor
 
+from .. import trace
 from ..models import DecoderSplattingCfg, EncoderDepthSplat, EncoderDepthSplatCfg, decode_splatting
 from ..models.precision import apply_with_precision
 from ..parallel import distributed
@@ -146,7 +147,8 @@ def make_train_step(
             )
         target = batch["target"]
         h, w = target["image"].shape[2:4]
-        out = apply_with_precision(state.model, cfg.encoder.compute_dtype, batch["context"], training=True)
+        with trace.span("train.forward"):
+            out = apply_with_precision(state.model, cfg.encoder.compute_dtype, batch["context"], training=True)
         gaussians = out["gaussians"]
         if gaussians is None:  # depth-only pre-training: no render
             total, logs = _depth_only_loss(cfg, out["depths"], batch)
@@ -158,12 +160,14 @@ def make_train_step(
         def rep(x: Tensor) -> Tensor:
             return torch.cat([x] * num, dim=0) if num > 1 else x
 
-        dec = decode_splatting(
-            cfg.decoder, gaussians, rep(target["extrinsics"]), rep(target["intrinsics"]),
-            rep(target["near"]), rep(target["far"]), (h, w), depth_mode=cfg.depth_mode,
-            render_axis=render_axis,
-        )
-        total, logs = compute_losses(cfg.loss, dec.color, target["image"], state.step, state.lpips)
+        with trace.span("train.render"):
+            dec = decode_splatting(
+                cfg.decoder, gaussians, rep(target["extrinsics"]), rep(target["intrinsics"]),
+                rep(target["near"]), rep(target["far"]), (h, w), depth_mode=cfg.depth_mode,
+                render_axis=render_axis,
+            )
+        with trace.span("train.loss"):
+            total, logs = compute_losses(cfg.loss, dec.color, target["image"], state.step, state.lpips)
         logs = {k: v.detach() for k, v in logs.items()}
         if dec.num_dropped is not None:
             # instance-budget overflow (the port allocates dynamically: 0)
@@ -195,7 +199,8 @@ def make_train_step(
         seq = []
         for mb in micro:
             total, mb_logs = loss_fn(state, mb)
-            (total / a).backward()  # .grad accumulates the microbatch mean
+            with trace.span("train.backward"):
+                (total / a).backward()  # .grad accumulates the microbatch mean
             seq.append(mb_logs)
         for p in state.model.parameters():
             if p.grad is None and p.requires_grad:
@@ -210,7 +215,8 @@ def make_train_step(
             values = torch.stack([logs[k].float() for k in logs])
             distributed.all_reduce_mean([p.grad for p in state.model.parameters() if p.grad is not None] + [values])
             logs = dict(zip(logs, values.unbind()))
-        logs["grad_norm"] = apply_gradients(cfg.optimizer, state.optimizer, state.step)
+        with trace.span("train.optimizer"):
+            logs["grad_norm"] = apply_gradients(cfg.optimizer, state.optimizer, state.step)
         logs.update(schedule_values(cfg.optimizer, state.step))
         state.step += 1
         return logs
