@@ -329,10 +329,17 @@ Phases, each fatal on failure (nothing falls back to the CPU):
    with only the bf16 instantiations counted, each bf16 kernel against its
    bf16 plain version at the float32 rows' limits, against float32 and the
    reference's doubling-scan association, and timed beside float32.
+36. the plane sweep (csrc/plane_sweep.cu; plane_sweep_phase): both scales
+   of a served re10k_720p_fast scene (24 pairs, bf16 features) against the
+   plain chunked forward, one launch a call, the kernel timed alone and in
+   its call beside the plain forward, with its bound. Its launches in the
+   kernels line are those of the serving runs: its counter is set to 0
+   and read with the render kernels' in phases 11, 18, 27 and 32, each
+   checked at one launch a scale of each scene served.
 
 Phases 18-28 run first, in that order (28's training-batch part inside
 25), after the build; then 4-8, 31-34, 9-17, with 29 after 11-13,
-then 30 and 35 last. Each
+then 30, 35 and 36 last. Each
 phase prints its step ms, peak GiB and wall s where it trains or serves.
 The figures of phases 29-30 are of 2 ranks sharing 1 card: not a
 multi-card speed. The line before the card line is a JSON object
@@ -1369,7 +1376,8 @@ def serve_re10k(torch, dev, card, reset_counters, read_counters, uncounted):
                 f"launches; expected {want_a}, {want} and {want} (the groups up to and including the first after "
                 "which no pixel is live, and the next group's count pass)",
             )
-        for k, n in (("expand", sum(counts_expected)), ("expand_write", sum(expected)), ("composite_fwd_chained", sum(expected))):
+        for k, n in (("expand", sum(counts_expected)), ("expand_write", sum(expected)), ("composite_fwd_chained", sum(expected)),
+                     ("plane_sweep", SWEEP_LAUNCHES_PER_SCENE * RE10K_REQUESTS)):
             check(launches[k] == n, f"{k}: {launches[k]} launches on the serving path, expected {n}")
         for i, (out, dec, _, _) in enumerate(served):
             img = dec.color
@@ -2094,6 +2102,8 @@ def serve_cli(torch, card, reset_counters, read_counters):
             check(launches["expand"] > 0 and launches["expand_write"] > 0 and launches["composite_fwd_chained"] > 0,
                   f"CLI {name}: kernel A or the chained composite did not launch: {launches}")
             check(launches["composite_fwd"] == 0, f"CLI {name}: the flat composite launched at G >= 2^21: {launches}")
+            check(launches["plane_sweep"] == SWEEP_LAUNCHES_PER_SCENE * CLI_SCENES,
+                  f"CLI {name}: {launches['plane_sweep']} plane sweeps for {CLI_SCENES} scenes")
             # the last scene's encoder again, by part (the module run_test served)
             model, compute_dtype, context = last.pop("call")
             parts = encoder_by_part(torch, *cast_network_inputs(model, context, resolve_dtype(compute_dtype)))
@@ -2270,10 +2280,10 @@ def train_cli_small(torch, card, reset_counters, read_counters):
     fwd = renders + 2 + 2
     want = {"expand": fwd, "expand_write": fwd, "composite_fwd": fwd, "composite_bwd": renders, "scatter_reduce": renders,
             "composite_fwd_chained": 0, "composite_bwd_chained": 0}
-    check(first["launches"] == want, f"CLI re10k_small: launches {first['launches']}, expected {want}")
+    check(render_launches(first["launches"]) == want, f"CLI re10k_small: launches {first['launches']}, expected {want}")
     renders = SMALL_ACCUM * (SMALL_CLI_RESUMED_STEPS - SMALL_CLI_STEPS)
     want = {k: (renders if "chained" not in k else 0) for k in want}
-    check(resumed["launches"] == want, f"CLI re10k_small resumed: launches {resumed['launches']}, expected {want}")
+    check(render_launches(resumed["launches"]) == want, f"CLI re10k_small resumed: launches {resumed['launches']}, expected {want}")
     for name, r in runs.items():
         r["step_ms_median"] = statistics.median(r["step_ms"][1:])
         print(
@@ -2428,7 +2438,7 @@ def train_cli_bf16(torch, dev, card, reset_counters, read_counters, uncounted):
         f"{[[k for k, x in enumerate(m) if x > 0] for m in maxima]}"
     )
     check(composited == expected, "bf16 training: a view's forward composited another number of groups")
-    check(launches == want, f"bf16 training: launches {launches}, expected {want}")
+    check(render_launches(launches) == want, f"bf16 training: launches {launches}, expected {want}")
     check(state.step == steps, f"bf16 training: state.step {state.step}")
     logs = [r for r in metrics if "loss/total" in r]
     check([r["step"] for r in logs] == list(range(1, steps + 1)), f"bf16 training: logged steps {[r['step'] for r in logs]}")
@@ -2798,7 +2808,7 @@ def train_cli_arkit(torch, dev, card, reset_counters, read_counters, uncounted):
         fwd = ARKIT_CLI_STEPS + 1
         want = {"expand": fwd, "expand_write": fwd, "composite_fwd": fwd, "composite_bwd": ARKIT_CLI_STEPS,
                 "scatter_reduce": ARKIT_CLI_STEPS, "composite_fwd_chained": 0, "composite_bwd_chained": 0}
-        check(r["launches"] == want, f"CLI arkit_promptda: launches {r['launches']}, expected {want}")
+        check(render_launches(r["launches"]) == want, f"CLI arkit_promptda: launches {r['launches']}, expected {want}")
         print_cli_train("arkit_promptda", r, card)
         print(f"CLI arkit_promptda: the first batch's loss/total {logs[0]['loss/total']:.8f} -> "
               f"{r['refit'][0]:.8f} over its step; the steps' loss/total "
@@ -2824,7 +2834,7 @@ def train_cli_arkit(torch, dev, card, reset_counters, read_counters, uncounted):
             check(set(result["scores"]) == {"psnr", "ssim", "lpips"} and np.isfinite(list(result["scores"].values())).all(),
                   f"CLI arkit_promptda {name}: scores {result['scores']}")
             want = {k: (ARKIT_VAL_SCENES if k in ("expand", "expand_write", "composite_fwd") else 0) for k in want}
-            check(r["launches"] == want, f"CLI arkit_promptda {name}: launches {r['launches']}, expected {want}")
+            check(render_launches(r["launches"]) == want, f"CLI arkit_promptda {name}: launches {r['launches']}, expected {want}")
             r.update(scores=result["scores"], **serving_figures(root / name / "test"))
             print(
                 f"CLI serving arkit_promptda from {load.name}: encoder {r['encoder']:.1f} ms a scene, decode "
@@ -2860,7 +2870,7 @@ def train_cli_arkit(torch, dev, card, reset_counters, read_counters, uncounted):
                   f"CLI arkit_promptda pretrained_monodepth: {k} is not the expected tensor")
         check_train_logs("CLI arkit_promptda pretrained_monodepth", read_metrics(root / "monodepth" / "metrics.jsonl"), 1)
         want = {k: (1 if "chained" not in k else 0) for k in want}
-        check(runs["monodepth"]["launches"] == want, f"CLI arkit_promptda pretrained_monodepth: {runs['monodepth']['launches']}")
+        check(render_launches(runs["monodepth"]["launches"]) == want, f"CLI arkit_promptda pretrained_monodepth: {runs['monodepth']['launches']}")
         print(f"CLI arkit_promptda pretrained_monodepth: 1 step, the ViT the file's before it, "
               f"step {runs['monodepth']['step_ms'][0]:.1f} ms, launches {runs['monodepth']['launches']}")
     finally:
@@ -2984,7 +2994,7 @@ def train_cli_dl3dv(torch, card, reset_counters, read_counters):
         fwd = DL3DV_CLI_STEPS + 1
         want = {"expand": fwd, "expand_write": fwd, "composite_fwd": fwd, "composite_bwd": DL3DV_CLI_STEPS,
                 "scatter_reduce": DL3DV_CLI_STEPS, "composite_fwd_chained": 0, "composite_bwd_chained": 0}
-        check(r["launches"] == want, f"CLI dl3dv_base: launches {r['launches']}, expected {want}")
+        check(render_launches(r["launches"]) == want, f"CLI dl3dv_base: launches {r['launches']}, expected {want}")
         print_cli_train("dl3dv_base", r, card)
         print(f"CLI dl3dv_base: loss/total {logs[0]['loss/total']:.6f} -> {logs[-1]['loss/total']:.6f}")
 
@@ -2998,7 +3008,7 @@ def train_cli_dl3dv(torch, card, reset_counters, read_counters):
         check(set(result["scores"]) == {"psnr", "ssim", "lpips"} and np.isfinite(list(result["scores"].values())).all(),
               f"CLI dl3dv_base test: scores {result['scores']}")
         want = {k: (DL3DV_TEST_SCENES if k in ("expand", "expand_write", "composite_fwd") else 0) for k in want}
-        check(r["launches"] == want, f"CLI dl3dv_base test: launches {r['launches']}, expected {want}")
+        check(render_launches(r["launches"]) == want, f"CLI dl3dv_base test: launches {r['launches']}, expected {want}")
         n_targets = len(list((root / "test" / "test").glob("*/color/*.png")))
         r.update(scores=result["scores"], targets=n_targets, **serving_figures(root / "test" / "test"))
         print(
@@ -3115,7 +3125,7 @@ def train_cli_large(torch, dev, card, reset_counters, read_counters):
         fwd = LARGE_CLI_STEPS + 1
         want = {"expand": fwd, "expand_write": fwd, "composite_fwd": fwd, "composite_bwd": LARGE_CLI_STEPS,
                 "scatter_reduce": LARGE_CLI_STEPS, "composite_fwd_chained": 0, "composite_bwd_chained": 0}
-        check(r["launches"] == want, f"CLI re10k_large: launches {r['launches']}, expected {want}")
+        check(render_launches(r["launches"]) == want, f"CLI re10k_large: launches {r['launches']}, expected {want}")
         print_cli_train("re10k_large", r, card)
         print(f"CLI re10k_large: loss/total {logs[0]['loss/total']:.6f} -> {logs[-1]['loss/total']:.6f}")
 
@@ -3170,7 +3180,7 @@ def train_cli_large(torch, dev, card, reset_counters, read_counters):
               f"CLI re10k_large test: scores {result['scores']}")
         decodes = LARGE_TEST_SCENES * (1 + -(-VIDEO_FRAMES // VIDEO_CHUNK))
         want = {k: (decodes if k in ("expand", "expand_write", "composite_fwd") else 0) for k in want}
-        check(r["launches"] == want, f"CLI re10k_large test: launches {r['launches']}, expected {want}")
+        check(render_launches(r["launches"]) == want, f"CLI re10k_large test: launches {r['launches']}, expected {want}")
         check(sorted(targets) == sorted(index), f"CLI re10k_large test: served {sorted(targets)}")
         for key in index:
             ply = read_ply(test_dir / key / "gaussians.ply")
@@ -3385,7 +3395,7 @@ def serve_cli_video(torch, dev, card, reset_counters, read_counters, uncounted):
                       f"{n_c} launches; expected {want + (want < n_groups)}, {want} and {want}")
             want = {"expand": sum(n + (n < n_groups) for n in expected), "expand_write": sum(expected),
                     "composite_fwd_chained": sum(expected), "composite_fwd": 0, "composite_bwd": 0,
-                    "scatter_reduce": 0, "composite_bwd_chained": 0}
+                    "scatter_reduce": 0, "composite_bwd_chained": 0, "plane_sweep": SWEEP_LAUNCHES_PER_SCENE * scenes}
             check(launches == want, f"CLI video {name}: launches {launches}, expected {want}")
             figures = serving_figures(test_dir)
             runs[name] = {
@@ -3873,6 +3883,16 @@ def train_cli_torchrun(torch, card):
     return {**figures, "launches": launches}
 
 
+# phase 36: re10k_720p_fast's plane sweeps, one served scene: 12 views x their 2
+# nearest sources = 24 pairs; (C, H, W, D) of scale 0 and scale 1
+SWEEP_PAIRS = 24
+SWEEP_SCALES = ((128, 64, 120, 128), (64, 128, 240, 32))
+SWEEP_LAUNCHES_PER_SCENE = len(SWEEP_SCALES)  # one a scale: all of its pairs in one launch
+# float operations of csrc/plane_sweep.cu's warp, a (pair, pixel, candidate)
+# sample, counted from its source: the point (6), K P (15), the clamp and the
+# two divisions (3), floors, tap coordinates and bilinear weights (12), the
+# taps' weighting and sum (7); the dots add 4 x 2C
+OPS_PER_SWEEP_WARP = 43
 NATIVE_EXAMPLES = 8  # phase 31: examples a reader yields per path (dl3dv: its 4 train scenes)
 WINDOW_SCALE0_GROUPS = 8  # phase 32: scale 0's 128 candidates in 8 bands of 16
 ORACLE_SCENE_G = 20_000  # phase 34: the sparse scene's gaussians per view
@@ -3880,6 +3900,12 @@ ORACLE_TARGETS = 2  # phase 34: the sparse scene's views
 # phase 32: re10k_720p_fast's refinement scale, 12 views x 2 sources: pairs,
 # channels, height, width, candidates
 WINDOW_CHECK = (24, 64, 128, 240, 32)
+
+
+def render_launches(launches: dict) -> dict:
+    """The render kernels' counts of ``launches``, without the plane
+    sweep's (checked on the serving runs alone)."""
+    return {k: n for k, n in launches.items() if k != "plane_sweep"}
 
 
 def same_arrays(a, b) -> bool:
@@ -4109,14 +4135,21 @@ def native_phase(torch, root, card):
 
 def window_sweep_check(torch, dev, card):
     """Phase 32, part 1: plane_sweep_correlation_window against the gather
-    sweep on the card at re10k_720p_fast's refinement scale (12 views x 2
-    sources = 24 pairs, 64 channels at 128x240, 32 banded candidates a
-    pixel), with a camera step small enough that every tap fits the window:
-    float32 within 1e-5 of the largest entry, bf16 gathers within 1e-2, the
-    overflow 0. Returns the times of both."""
+    sweep's plain forward (the same warp, from the same batched matmuls;
+    the gather sweep's kernel rounds the warp otherwise, phase 36) on the
+    card at re10k_720p_fast's refinement scale (12 views x 2 sources = 24
+    pairs, 64 channels at 128x240, 32 banded candidates a pixel), with a
+    camera step small enough that every tap fits the window: float32 within
+    1e-5 of the largest entry, bf16 gathers within 1e-2, the overflow 0.
+    Returns the times of the window sweep and of the gather sweep (its
+    kernel)."""
     import numpy as np
 
-    from my_depthsplat_torch.ops.grid_sample import plane_sweep_correlation, plane_sweep_correlation_window
+    from my_depthsplat_torch.ops.grid_sample import (
+        _sweep_plain,
+        plane_sweep_correlation,
+        plane_sweep_correlation_window,
+    )
 
     n, c, h, w, d = WINDOW_CHECK
     g = torch.Generator(device=dev).manual_seed(32)
@@ -4134,7 +4167,7 @@ def window_sweep_check(torch, dev, card):
     depth = 1.0 / (lo + lin * (hi - lo))
     out = {}
     with torch.no_grad():
-        want = plane_sweep_correlation(src, ref, intr, pose, depth)
+        want = _sweep_plain(src, ref, intr, pose, depth, 1e-3)
         for name, gd in (("float32", None), ("bfloat16", torch.bfloat16)):
             got, ovf = plane_sweep_correlation_window(src, ref, intr, pose, depth, gather_dtype=gd)
             err = float((got - want).abs().max() / want.abs().max())
@@ -4153,6 +4186,139 @@ def window_sweep_check(torch, dev, card):
               f"overflow 0; window {r['ms']:.2f} ms, gather {r['gather_ms']:.2f} ms (CUDA events, mean of 5) on {card}")
     del src, ref, want
     return out
+
+
+def sweep_scale_inputs(torch, dev, c, h, w, d, seed):
+    """One scale of a served scene's plane sweep, as models/unimatch.py feeds
+    it: bf16 features of 12 views (``re10k_cameras``' walk, each view's 2
+    nearest by position as sources), the reference view's intrinsics at
+    (h, w), the relative poses, and depth candidates: at scale 0 (d = 128)
+    uniform in inverse depth over [1/100, 1/0.5], at scale 1 a band of 32
+    around a seeded coarse estimate, as the refinement's."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    extr, intr = (torch.from_numpy(x[0]).to(dev) for x in re10k_cameras(rng, RE10K_CONTEXT))
+    pos = extr[:, :3, 3]
+    src_idx = torch.cdist(pos, pos).argsort(dim=1)[:, 1:3]  # (V, 2)
+    pairs = SWEEP_PAIRS // RE10K_CONTEXT
+    ref_idx = torch.arange(RE10K_CONTEXT, device=dev).repeat_interleave(pairs)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn(RE10K_CONTEXT, c, h, w, device=dev, generator=g).to(torch.bfloat16)
+    src, ref = feats[src_idx.reshape(-1)], feats[ref_idx]
+    k = intr[ref_idx].clone()
+    k[:, 0] *= w
+    k[:, 1] *= h
+    pose = torch.linalg.inv(extr[src_idx.reshape(-1)]) @ extr[ref_idx]
+    inv_far, inv_near = 1 / 100.0, 1 / 0.5
+    lin = torch.linspace(0.0, 1.0, d, device=dev).reshape(1, d, 1, 1)
+    if d == 128:
+        inv = (inv_far + lin * (inv_near - inv_far)).expand(SWEEP_PAIRS, d, h, w)
+    else:
+        centre = inv_far + (inv_near - inv_far) * torch.rand(SWEEP_PAIRS, 1, h, w, device=dev, generator=g)
+        interval = (inv_near - inv_far) / 127 / 2
+        lo = torch.clamp(centre - interval * (d // 2), min=inv_far)
+        hi = torch.clamp(centre + interval * (d // 2 - 1), max=inv_near)
+        inv = lo + lin * (hi - lo)
+    return src, ref, k.contiguous(), pose.contiguous(), (1.0 / inv).contiguous()
+
+
+def sweep_float64(torch, src, ref, intr, pose, depth):
+    """The plain forward's operations in float64, a pair at a time: the
+    reference both float32 sweeps are held to."""
+    from my_depthsplat_torch.ops import grid_sample
+
+    n, d, h, w = depth.shape
+    out = torch.empty(depth.shape, dtype=torch.float64, device=depth.device)
+    for k in range(n):
+        args = [x[k : k + 1].double() for x in (src, ref, intr, pose, depth)]
+        for _, table, ref_rows, taps in grid_sample._chunks(*args, 1e-3):
+            cost = torch.zeros(1, d, h * w, dtype=torch.float64, device=depth.device)
+            for idx, wgt in taps:
+                vals = table[idx.reshape(-1)].reshape(1, d, h * w, -1)
+                cost = cost + torch.einsum("kpc,kdpc->kdp", ref_rows, vals) * wgt
+            out[k] = cost.reshape(d, h, w)
+    return out
+
+
+def plane_sweep_phase(torch, dev, card):
+    """Phase 36: csrc/plane_sweep.cu at the served shapes (both scales of
+    one 12-view 512x960 re10k_720p_fast scene, 24 pairs, bf16 features)
+    against the plain chunked forward. Both float32 costs are held to the
+    same operations in float64 (``sweep_float64``): the kernel's largest
+    error over the largest entry may not exceed the plain forward's (at
+    these coordinates, up to 240 px, one float32 ulp of the warp is
+    1.5e-5 px, and the plain forward's batched matmuls round the warp in
+    another order, so the two differ by more than their sums' order alone
+    gives). The bf16 cost within one bf16 ulp of the plain one beyond the
+    two float32 costs' difference (the rounding to bf16 adds at most an
+    ulp); one launch a call. Times by CUDA events: the kernel alone on
+    prepared rows, the whole call (the inverse, the two layout copies, the
+    kernel, the rounding to bf16) and the plain forward; the bound in
+    portbench/bounds.py's ``bound`` (each input byte read once, the
+    float32 cost written once, 4 x 2C + OPS_PER_SWEEP_WARP operations a
+    sample at the float32 peak). Returns the kernel table's entry, whose
+    launches ``main`` takes from the serving runs."""
+    from my_depthsplat_torch.ops import cuda_lib, grid_sample
+    from my_depthsplat_torch.ops.grid_sample import plane_sweep_correlation
+    from portbench.bounds import bound as yardstick_bound
+
+    print("build: ptxas, csrc/plane_sweep.cu:\n" + cuda_lib.build_report("plane_sweep"))
+    scales = []
+    for i, (c, h, w, d) in enumerate(SWEEP_SCALES):
+        src, ref, intr, pose, depth = sweep_scale_inputs(torch, dev, c, h, w, d, 36 + i)
+        before = plane_sweep_correlation.launches
+        with torch.no_grad():
+            got = plane_sweep_correlation(src, ref, intr, pose, depth)
+            launches = plane_sweep_correlation.launches - before
+            got32 = grid_sample._sweep_cuda(src, ref, intr, pose, depth, 1e-3)
+            want32 = grid_sample._sweep_plain(src, ref, intr, pose, depth, 1e-3)
+            exact = sweep_float64(torch, src, ref, intr, pose, depth)
+            top = exact.abs().max().item()
+            err_kernel = (got32.double() - exact).abs().max().item() / top
+            err_plain = (want32.double() - exact).abs().max().item() / top
+            rel32 = (got32 - want32).abs().max().item() / top
+            want = want32.to(torch.bfloat16)
+            err = (got.float() - want.float()).abs()
+            mag = torch.maximum(got.float().abs(), want.float().abs()).clamp(min=torch.finfo(torch.bfloat16).tiny)
+            ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            beyond = int((err > ulp + (got32 - want32).abs()).sum())
+            within_ulp = float((err <= ulp).float().mean())
+            check(launches == 1, f"plane sweep scale {i}: {launches} launches for one call")
+            check(err_kernel <= err_plain, f"plane sweep scale {i}: the kernel {err_kernel:.3e} of the largest entry "
+                                           f"from float64, the plain forward {err_plain:.3e}")
+            check(beyond == 0, f"plane sweep scale {i}: {beyond} bf16 costs beyond one ulp of the float32 costs' gap")
+            kinv = torch.linalg.inv(intr).contiguous()
+            rows = (grid_sample._pixel_rows(src), grid_sample._pixel_rows(ref), kinv, intr, pose, depth)
+            kernel_ms = cuda_ms(torch, lambda: grid_sample._sweep_launch(*rows, 1e-3), 20, device_only=True)
+            call_ms = cuda_ms(torch, lambda: plane_sweep_correlation(src, ref, intr, pose, depth), 20)
+            plain_ms = cuda_ms(torch, lambda: grid_sample._sweep_plain(src, ref, intr, pose, depth, 1e-3), 3)
+        samples = SWEEP_PAIRS * d * h * w
+        nbytes = 2 * src.numel() * src.element_size() + 2 * depth.numel() * 4 + SWEEP_PAIRS * (9 + 9 + 16) * 4
+        bound_ms, bound_by = yardstick_bound(nbytes, samples * (8 * c + OPS_PER_SWEEP_WARP))
+        scales.append({
+            "scale": i, "pairs": SWEEP_PAIRS, "channels": c, "hw": [h, w], "candidates": d, "launches": launches,
+            "ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / kernel_ms, "bytes": nbytes, "samples": samples, "max_rel_err_f32": rel32,
+            "kernel_err_f64": err_kernel, "plain_err_f64": err_plain, "bf16_within_one_ulp": within_ulp,
+        })
+        print(f"plane sweep scale {i}: {SWEEP_PAIRS} pairs of {c}x{h}x{w} bf16 features, {d} candidates: kernel "
+              f"{kernel_ms:.3f} ms (bound {bound_ms:.3f} ms by {bound_by}, {100 * bound_ms / kernel_ms:.1f} %), "
+              f"whole call {call_ms:.3f} ms, plain forward {plain_ms:.2f} ms; {launches} launch; float32 costs "
+              f"from float64 {err_kernel:.2e} (kernel) and {err_plain:.2e} (plain) of the largest entry, {rel32:.2e} "
+              f"apart; bf16 {100 * within_ulp:.4f} % within one ulp of the plain (CUDA events) on {card}")
+        del src, ref, intr, pose, depth, got, got32, want32, want, exact, err, mag, ulp, rows
+        torch.cuda.empty_cache()
+    total = {k: sum(x[k] for x in scales) for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
+    print(f"plane sweep, both scales of a served scene: kernel {total['ms']:.3f} ms (bound {total['bound_ms']:.3f} ms, "
+          f"{100 * total['bound_ms'] / total['ms']:.1f} %), whole calls {total['call_ms']:.3f} ms, plain "
+          f"{total['plain_ms']:.2f} ms on {card}")
+    return {
+        "name": "plane_sweep", "route": "cuda", "source": "my_depthsplat_torch/csrc/plane_sweep.cu",
+        "replaces": None, "note": "no TPU kernel: my_depthsplat_tpu/ops/grid_sample.py:134 is XLA ops",
+        **total, "share": total["bound_ms"] / total["ms"], "scales": scales, "library_ms": None,
+        "launches_a_call": [x["launches"] for x in scales],
+    }
 
 
 def walk_counts(torch, per_view, gaussians, cameras, shape, n_groups):
@@ -4260,7 +4426,9 @@ def window_serve_phase(torch, root, card, reset_counters, read_counters, uncount
             groups = walk_counts(torch, per_view, gaussians, cameras, shape, n_groups)
         want = {"expand": sum(n + (n < n_groups) for n in groups), "expand_write": sum(groups),
                 "composite_fwd_chained": sum(groups), "composite_fwd": 0, "composite_bwd": 0,
-                "scatter_reduce": 0, "composite_bwd_chained": 0}
+                "scatter_reduce": 0, "composite_bwd_chained": 0,
+                # the kernel sweeps the scales that the window does not
+                "plane_sweep": VIDEO_SCENES * (SWEEP_LAUNCHES_PER_SCENE - {"gather": 0, "window": 1, "window_scale0": 2}[name])}
         check(launches == want, f"window serving {name}: launches {launches}, expected {want}")
         runs[name] = {"encoder_ms": enc_ms, "overflow": overflow, "launches": launches, "groups_per_view": groups,
                       "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "scores": result["scores"]}
@@ -4306,7 +4474,7 @@ def window_train_phase(torch, root, card, reset_counters, read_counters):
     renders = SMALL_ACCUM * steps  # one render a microbatch
     want = {"expand": renders, "expand_write": renders, "composite_fwd": renders, "composite_bwd": renders,
             "scatter_reduce": renders, "composite_fwd_chained": 0, "composite_bwd_chained": 0}
-    check(r["launches"] == want, f"CLI re10k_small window: launches {r['launches']}, expected {want}")
+    check(render_launches(r["launches"]) == want, f"CLI re10k_small window: launches {r['launches']}, expected {want}")
     r["overflow"] = [x["sweep/window_overflow"] for x in logs]
     r["grad_norm"] = [x["grad_norm"] for x in logs]
     print_cli_train("re10k_small, sweep_mode=window", r, card)
@@ -4355,7 +4523,7 @@ def options_phase(torch, root, card, reset_counters, read_counters):
     check(not any("loss/intermediate" in x for x in logs), "CLI dl3dv_base options: an intermediate loss was logged")
     want = {"expand": steps, "expand_write": steps, "composite_fwd": steps, "composite_bwd": steps,
             "scatter_reduce": steps, "composite_fwd_chained": 0, "composite_bwd_chained": 0}
-    check(runs["train"]["launches"] == want, f"CLI dl3dv_base options: launches {runs['train']['launches']}")
+    check(render_launches(runs["train"]["launches"]) == want, f"CLI dl3dv_base options: launches {runs['train']['launches']}")
     print_cli_train("dl3dv_base with " + " ".join(OPTION_OVERRIDES), runs["train"], card)
     result, runs["test"] = run_cli_test(
         torch, cli, DL3DV_YAML,
@@ -4365,7 +4533,7 @@ def options_phase(torch, root, card, reset_counters, read_counters):
     )
     check(np.isfinite(list(result["scores"].values())).all(), f"CLI dl3dv_base options test: scores {result['scores']}")
     want = {k: (DL3DV_TEST_SCENES if k in ("expand", "expand_write", "composite_fwd") else 0) for k in want}
-    check(runs["test"]["launches"] == want, f"CLI dl3dv_base options test: launches {runs['test']['launches']}")
+    check(render_launches(runs["test"]["launches"]) == want, f"CLI dl3dv_base options test: launches {runs['test']['launches']}")
     runs["test"].update(scores=result["scores"], **serving_figures(root / "options_test" / "test"))
     r = runs["test"]
     print(f"CLI dl3dv_base options served from step_{steps}.pt: encoder {r['encoder']:.1f} ms a scene, decode "
@@ -4994,6 +5162,7 @@ def main() -> int:
         EncoderDepthSplatCfg,
         decode_splatting,
     )
+    from my_depthsplat_torch.ops.grid_sample import plane_sweep_correlation
     from my_depthsplat_torch.render import instances as inst_mod
     from my_depthsplat_torch.render import pallas_raster as raster_mod
     from my_depthsplat_torch.render.expand import expand_plain, expand_tiles
@@ -5030,6 +5199,7 @@ def main() -> int:
         "composite_fwd": (composite_tiles, "launches"), "composite_bwd": (composite_bwd, "launches"),
         "scatter_reduce": (scatter_reduce, "launches"), "composite_fwd_chained": (composite_chained, "launches"),
         "composite_bwd_chained": (composite_bwd_chained, "launches"),
+        "plane_sweep": (plane_sweep_correlation, "launches"),
     }
 
     def reset_counters():
@@ -5488,6 +5658,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- phase 36: the plane-sweep kernel at a served scene's two scales
+    sweep_entry = plane_sweep_phase(torch, dev, card)
+
     # A and B: times at the served scene's shapes, launches from the serving
     # run. C and D: times at the training batch's shapes, launches from the
     # training run; "one_element" holds their times at one batch element's.
@@ -5547,6 +5720,11 @@ def main() -> int:
            for k, r in runs.items()},
     }
     kernels += bf16_entries
+    kernels.append({
+        **sweep_entry, "launches": re10k_launches["plane_sweep"],
+        **{f"launches_cli_{k}": cli[k]["launches"]["plane_sweep"] for k in ("bfloat16", "float32")},
+        "launches_cli_video_720p": {k: r["launches"]["plane_sweep"] for k, r in video_cli.items()},
+    })
     kernels[0]["option_phases"] = options
     kernels[0]["multi_rank"] = {
         "note": "2 ranks share 1 card; not a multi-card speed",

@@ -32,7 +32,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNEL_SOURCES = ("expand", "composite_fwd", "composite_bwd", "scatter_reduce")
+KERNEL_SOURCES = ("expand", "composite_fwd", "composite_bwd", "scatter_reduce", "plane_sweep")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -5,12 +5,23 @@ my_depthsplat_tpu/ops/grid_sample.py (reference matching.py:24-90): the
 reference view's integer pixel grid is back-projected at D depth candidates,
 moved into the source camera and re-projected; the source features are
 sampled bilinearly there (``align_corners=True`` pixel coordinates, taps
-outside the image weigh zero) and dotted with the reference features. The
-JAX package computes this outside any Pallas kernel, so here it is PyTorch
-ops. Its TPU shaping (16-bit column gathers, feature-major tables, the pair
-scan) is not carried over: the source features stay pixel-major, so one
-bilinear tap is one row gather, and the (view, source) pairs are processed
-a few at a time to bound the gathered tensor. NCHW.
+outside the image weigh zero) and dotted with the reference features. NCHW.
+The JAX package computes this with XLA ops, outside any Pallas kernel; its
+TPU shaping (16-bit column gathers, feature-major tables, the pair scan) is
+not carried over. Here the forward has two versions:
+
+- CUDA tensors: one launch of csrc/plane_sweep.cu for all pairs
+  (``_sweep_cuda``): the warp, the four bilinear taps and the dot in
+  registers, from pixel-major rows (one transpose copy a side), so no
+  gathered tap reaches device memory; the wrapper checks its arguments
+  (``check_sweep_args``) and raises on what the kernel does not take, with
+  no fallback. ``plane_sweep_correlation.launches`` counts its runs.
+- CPU tensors: the plain version (``_sweep_plain``), PyTorch ops on
+  pixel-major rows: one bilinear tap is one row gather, and the pairs are
+  taken a chunk at a time to bound the gathered tensor
+  (``SWEEP_CHUNK_BYTES``). On the card it is the kernel's yardstick.
+
+The backward is the plain version's on either device.
 
 ``plane_sweep_correlation_window`` is the JAX package's window mode for
 banded candidates: one gather of a k x k lattice per pixel, the per-cell
@@ -44,8 +55,13 @@ four taps' bf16 cotangents add in bf16, the last tap's first.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch import Tensor
+
+from . import cuda_lib
+from .cuda_lib import ptr
 
 # Most bytes the gathered source features of one chunk of pairs may take.
 SWEEP_CHUNK_BYTES = 1 << 30
@@ -103,6 +119,103 @@ def _chunks(src, ref, intrinsics, pose, depth, clamp_min_depth):
         yield sl, table, ref_rows, taps
 
 
+def _sweep_plain(src, ref, intrinsics, pose, depth, clamp_min_depth) -> Tensor:
+    """The forward in PyTorch ops -> (N, D, H, W) float32: each tap's
+    gathered rows widened to float32 and dotted with the reference rows, a
+    chunk of pairs at a time."""
+    d, h, w = depth.shape[1:]
+    c = src.shape[1]
+    out = []
+    for _, table, ref_rows, taps in _chunks(src, ref, intrinsics, pose, depth, clamp_min_depth):
+        k = ref_rows.shape[0]
+        ref_rows = ref_rows.float()
+        cost = ref_rows.new_zeros(k, d, h * w)
+        for idx, wgt in taps:
+            vals = table[idx.reshape(-1)].reshape(k, d, h * w, c).float()
+            cost = cost + torch.einsum("kpc,kdpc->kdp", ref_rows, vals) * wgt
+        out.append(cost.reshape(k, d, h, w))
+    return torch.cat(out)
+
+
+def check_sweep_args(src, ref, intrinsics, pose, depth) -> None:
+    """Raise ValueError where csrc/plane_sweep.cu does not take these
+    arguments: features (N, C, H, W) of one shape, both float32 or both
+    bf16, C a multiple of 8 (16-byte vectors of a row); intrinsics (N, 3,
+    3), pose (N, 4, 4) and depth (N, D, H, W), float32; one device; N up to
+    65535 (the grid's second axis) and H * W under 2**31. Whether that
+    device is the card is checked at the launch, so this runs on CPU tensors
+    too."""
+    if src.dim() != 4 or ref.shape != src.shape or depth.dim() != 4:
+        raise ValueError(
+            f"plane_sweep_correlation: src {tuple(src.shape)}, ref {tuple(ref.shape)} and depth "
+            f"{tuple(depth.shape)}: (N, C, H, W) twice and (N, D, H, W)"
+        )
+    n, c, h, w = src.shape
+    if src.dtype not in (torch.float32, torch.bfloat16) or ref.dtype != src.dtype:
+        raise ValueError(
+            f"plane_sweep_correlation: features in {src.dtype} and {ref.dtype}; the kernel takes float32 or bf16, "
+            "both alike"
+        )
+    if c % 8:
+        raise ValueError(f"plane_sweep_correlation: C = {c}; the kernel takes a multiple of 8 channels")
+    for name, t, shape in (("intrinsics", intrinsics, (n, 3, 3)), ("pose", pose, (n, 4, 4)),
+                           ("depth", depth, (n, depth.shape[1], h, w))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(
+                f"plane_sweep_correlation: {name} must be float32 {shape}, got {t.dtype} {tuple(t.shape)}"
+            )
+    if any(t.device != src.device for t in (ref, intrinsics, pose, depth)):
+        raise ValueError("plane_sweep_correlation: the arguments must lie on one device")
+    if n > 65535 or h * w >= 2**31:
+        raise ValueError(
+            f"plane_sweep_correlation: {n} pairs of {h}x{w}; the kernel takes up to 65535 pairs and 2**31 pixels"
+        )
+
+
+def _pixel_rows(x: Tensor) -> Tensor:
+    """(N, C, H, W) -> (N, H*W, C) contiguous, 16-byte aligned."""
+    rows = x.flatten(2).transpose(1, 2).contiguous()
+    return rows if rows.data_ptr() % 16 == 0 else rows.clone()
+
+
+def _sweep_launch(src_rows, ref_rows, kinv, intrinsics, pose, depth, clamp_min_depth) -> Tensor:
+    """One launch of csrc/plane_sweep.cu on its prepared arguments:
+    pixel-major rows (N, H*W, C), the inverse intrinsics -> (N, D, H, W)
+    float32. Counted in ``plane_sweep_correlation.launches``."""
+    n, _, c = src_rows.shape
+    d, h, w = depth.shape[1:]
+    for name, t, dtype, shape in (
+        ("src_rows", src_rows, src_rows.dtype, (n, h * w, c)), ("ref_rows", ref_rows, src_rows.dtype, (n, h * w, c)),
+        ("kinv", kinv, torch.float32, (n, 3, 3)), ("intrinsics", intrinsics, torch.float32, (n, 3, 3)),
+        ("pose", pose, torch.float32, (n, 4, 4)), ("depth", depth, torch.float32, (n, d, h, w)),
+    ):
+        cuda_lib.check_tensor(name, t, dtype, shape)
+    if src_rows.data_ptr() % 16 or ref_rows.data_ptr() % 16:
+        raise ValueError("plane_sweep_correlation: the rows must be 16-byte aligned (vector loads)")
+    out = torch.empty((n, d, h, w), dtype=torch.float32, device=depth.device)
+    if out.numel() == 0:
+        return out
+    fn = cuda_lib.load("plane_sweep").plane_sweep
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_void_p] * 2
+    cuda_lib.check(
+        fn(*(ptr(t) for t in (src_rows, ref_rows, kinv, intrinsics, pose, depth)),
+           int(src_rows.dtype == torch.bfloat16), n, d, h, w, c, clamp_min_depth, ptr(out), cuda_lib.stream(out)),
+        "plane_sweep",
+    )
+    plane_sweep_correlation.launches += 1
+    return out
+
+
+def _sweep_cuda(src, ref, intrinsics, pose, depth, clamp_min_depth) -> Tensor:
+    """The forward on the card: csrc/plane_sweep.cu on every pair in one
+    launch -> (N, D, H, W) float32."""
+    check_sweep_args(src, ref, intrinsics, pose, depth)
+    kinv = torch.linalg.inv(intrinsics)  # host sync: its error check, once a call
+    return _sweep_launch(_pixel_rows(src), _pixel_rows(ref), kinv.contiguous(), intrinsics.contiguous(),
+                         pose.contiguous(), depth.contiguous(), clamp_min_depth)
+
+
 class _PlaneSweep(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src, ref, intrinsics, pose, depth, clamp_min_depth):
@@ -113,18 +226,8 @@ class _PlaneSweep(torch.autograd.Function):
             )
         ctx.save_for_backward(src, ref, intrinsics, pose, depth)
         ctx.clamp_min_depth = clamp_min_depth
-        n, d, h, w = depth.shape
-        c = src.shape[1]
-        out = []
-        for _, table, ref_rows, taps in _chunks(src, ref, intrinsics, pose, depth, clamp_min_depth):
-            k = ref_rows.shape[0]
-            ref_rows = ref_rows.float()
-            cost = ref_rows.new_zeros(k, d, h * w)
-            for idx, wgt in taps:
-                vals = table[idx.reshape(-1)].reshape(k, d, h * w, c).float()
-                cost = cost + torch.einsum("kpc,kdpc->kdp", ref_rows, vals) * wgt
-            out.append(cost.reshape(k, d, h, w))
-        return torch.cat(out)
+        sweep = _sweep_cuda if src.is_cuda else _sweep_plain
+        return sweep(src, ref, intrinsics, pose, depth, clamp_min_depth)
 
     @staticmethod
     def backward(ctx, g_cost):
@@ -244,11 +347,17 @@ def plane_sweep_correlation(
     gather_dtype: torch.dtype | None = None,
 ) -> Tensor:
     """sum_c ref[p, c] * bilinear(src)[warp_d(p), c] -> (N, D, H, W) in
-    src's dtype; not divided by sqrt(C). The (N, D, H, W, C) warped tensor
-    exists only for a chunk of the N pairs at a time, one bilinear tap at a
-    time, in the forward and again in the backward. ``gather_dtype=
-    torch.bfloat16`` gathers bf16 features (module docstring)."""
+    src's dtype; not divided by sqrt(C). On the card the forward is one
+    kernel launch and no warped tensor is made; the plain forward on the CPU
+    and the backward on either device make the (N, D, H, W, C) warped tensor
+    for a chunk of the N pairs at a time, one bilinear tap at a time.
+    ``gather_dtype=torch.bfloat16`` gathers bf16 features (module
+    docstring). ``plane_sweep_correlation.launches`` counts the kernel's
+    runs."""
     out_dtype = src.dtype
     if gather_dtype == torch.bfloat16 or src.dtype == torch.bfloat16:
         src, ref = src.to(torch.bfloat16), ref.to(torch.bfloat16)
     return _PlaneSweep.apply(src, ref, intrinsics, pose, depth, clamp_min_depth).to(out_dtype)
+
+
+plane_sweep_correlation.launches = 0

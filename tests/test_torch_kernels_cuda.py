@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from my_depthsplat_torch.ops import grid_sample
+from my_depthsplat_torch.ops.grid_sample import plane_sweep_correlation
 from my_depthsplat_torch.render import instances as inst_mod
 from my_depthsplat_torch.render import pallas_raster as raster_mod
 from my_depthsplat_torch.render.expand import expand_plain, expand_tiles
@@ -48,7 +50,7 @@ from my_depthsplat_torch.render.pallas_raster import (
 )
 from my_depthsplat_torch.render.projection import project_gaussians
 
-from test_torch_scenes import expansion_fields, late_stop_scene, long_runs_scene, occluded_scene
+from test_torch_scenes import expansion_fields, late_stop_scene, long_runs_scene, occluded_scene, sweep_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -1074,3 +1076,76 @@ def test_bf16_render_gradients_through_kernels_match_plain_versions(card, groupe
         assert torch.isfinite(gg).all() and gw.abs().max() > 0
         assert (gg - gw).abs().max().item() <= 1e-4 * gw.abs().max().item()
 
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 numbers at each entry of a bf16 tensor, as float32."""
+    e = torch.floor(torch.log2(x.float().abs().clamp(min=torch.finfo(torch.bfloat16).tiny)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.parametrize("d", [1, 33])
+@pytest.mark.parametrize("c", [24, 64, 128, 264])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plane_sweep_kernel_matches_plain_forward(card, dtype, c, d, monkeypatch):
+    """csrc/plane_sweep.cu against the plain chunked forward on the card: 3
+    pairs of 13x21 features (taps inside, off and behind the image; the
+    plain forward one pair a chunk), C = 64 and 128 (the served widths), 24
+    (idle lanes) and 264 (a float32 row in slices), D = 1 and 33 (a batch's
+    tail). The float32 costs within 1e-5 of the largest entry (float32 sums
+    in another order). With bf16 features the bf16 cost within one bf16
+    ulp of the plain one, or, where that ulp is finer than float32's
+    summation-order error (a cost near zero from cancelling terms), within
+    the float32 tolerance."""
+    src, ref, intr, pose, depth = sweep_pairs(c + d, c=c, d=d, dtype=dtype, device=card)
+    monkeypatch.setattr(grid_sample, "SWEEP_CHUNK_BYTES", src.element_size() * d * 13 * 21 * c)
+    before = plane_sweep_correlation.launches
+    with torch.no_grad():
+        got32 = grid_sample._sweep_cuda(src, ref, intr, pose, depth, 1e-3)
+        want32 = grid_sample._sweep_plain(src, ref, intr, pose, depth, 1e-3)
+        got = plane_sweep_correlation(src, ref, intr, pose, depth)
+    torch.cuda.synchronize()
+    assert plane_sweep_correlation.launches == before + 2
+    assert got32.dtype == torch.float32 and got.dtype == dtype and got.shape == (3, d, 13, 21)
+    scale = want32.abs().max().item()
+    assert want32[1].abs().max() > 0 and want32[2].abs().max() == 0 and got32[2].abs().max() == 0
+    assert (got32 - want32).abs().max().item() <= 1e-5 * scale
+    want = want32.to(dtype)
+    if dtype == torch.bfloat16:
+        err = (got.float() - want.float()).abs()
+        assert (err <= torch.maximum(_bf16_ulp(want), torch.full_like(err, 1e-5 * scale))).all()
+    else:
+        assert torch.equal(got, got32)
+
+
+def test_plane_sweep_counts_one_launch_a_forward_and_the_same_gradients(card):
+    """One launch a forward call and none in the backward; the gradients
+    through a kernel forward equal the plain forward's for the same
+    cotangent, bit for bit: the backward is the same code on the same saved
+    inputs."""
+    src, ref, intr, pose, depth = sweep_pairs(7, c=64, d=9, dtype=torch.bfloat16, device=card)
+    wts = torch.randn(3, 9, 13, 21, device=card, generator=torch.Generator(card).manual_seed(7))
+
+    def grads():
+        s, r = src.clone().requires_grad_(True), ref.clone().requires_grad_(True)
+        (plane_sweep_correlation(s, r, intr, pose, depth).float() * wts).sum().backward()
+        return s.grad, r.grad
+
+    before = plane_sweep_correlation.launches
+    got = grads()
+    torch.cuda.synchronize()
+    assert plane_sweep_correlation.launches == before + 1
+    with mock.patch.object(grid_sample, "_sweep_cuda", grid_sample._sweep_plain):
+        want = grads()
+    assert plane_sweep_correlation.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.abs().max() > 0 and torch.equal(g, w)
+
+
+def test_plane_sweep_refuses_before_any_launch(card):
+    """A C that is not a multiple of 8 raises on the card, with nothing launched."""
+    src, ref, intr, pose, depth = sweep_pairs(8, c=12, d=3, device=card)
+    before = plane_sweep_correlation.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        plane_sweep_correlation(src, ref, intr, pose, depth)
+    assert plane_sweep_correlation.launches == before

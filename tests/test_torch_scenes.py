@@ -131,6 +131,26 @@ def expansion_fields(seed, n, grid_hw=(20, 30), kind="mixed"):
     )
 
 
+def sweep_pairs(seed, n=3, c=64, h=13, w=21, d=33, dtype=torch.float32, device="cpu"):
+    """Seeded plane-sweep arguments (src, ref, intrinsics, pose, depth) of
+    ``n`` pairs of (c, h, w) features in ``dtype``: pair 0 a small sideways
+    step (the taps inside the image), pair 1 a large translation (most taps
+    off the image), pair 2 a camera turned about (points behind it: z is
+    clamped and the taps fall far outside); further pairs small random
+    steps. Depth candidates 0.5-20 per pixel."""
+    rng = np.random.default_rng(seed)
+    intr = np.tile(np.array([[0.8 * w, 0, 0.5 * w], [0, 0.8 * w, 0.5 * h], [0, 0, 1]], np.float32), (n, 1, 1))
+    pose = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    pose[:, :3, 3] = rng.uniform(-0.1, 0.1, (n, 3))
+    pose[1 % n, :3, 3] = (3.0, -0.5, 0.2)
+    if n > 2:
+        pose[2, :3, :3] = np.diag([-1.0, 1.0, -1.0])
+    depth = 1.0 / rng.uniform(1 / 20.0, 1 / 0.5, (n, d, h, w))
+    t = lambda x, dt=torch.float32: torch.from_numpy(np.asarray(x, np.float32)).to(device, dt)  # noqa: E731
+    feats = rng.normal(size=(2, n, c, h, w))
+    return t(feats[0], dtype), t(feats[1], dtype), t(intr), t(pose), t(depth)
+
+
 def test_occluded_scene_is_opaque():
     """The near layer alone covers the view: rendered through the port on the
     CPU over a white and over a black background, every pixel's images differ
