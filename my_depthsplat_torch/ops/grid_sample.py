@@ -21,7 +21,11 @@ not carried over. Here the forward has two versions:
   taken a chunk at a time to bound the gathered tensor
   (``SWEEP_CHUNK_BYTES``). On the card it is the kernel's yardstick.
 
-The backward is the plain version's on either device.
+The backward is the plain version's on either device. It runs under the
+span ``unimatch.sweep_bwd`` (on autograd's thread, apart from the forward's
+``unimatch.sweep``), and ``plane_sweep_correlation.backward_chunks`` counts
+the chunks it recomputes: each warps again, with one ``inv`` of the chunk's
+intrinsics, a host sync on the card.
 
 ``plane_sweep_correlation_window`` is the JAX package's window mode for
 banded candidates: one gather of a k x k lattice per pixel, the per-cell
@@ -60,6 +64,7 @@ import ctypes
 import torch
 from torch import Tensor
 
+from .. import trace
 from . import cuda_lib
 from .cuda_lib import ptr
 
@@ -231,28 +236,31 @@ class _PlaneSweep(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_cost):
-        src, ref, intrinsics, pose, depth = ctx.saved_tensors
-        n, d, h, w = depth.shape
-        c = src.shape[1]
-        bf16 = src.dtype == torch.bfloat16
-        g_cost = g_cost.reshape(n, d, h * w)
-        d_src, d_ref = torch.empty_like(src), torch.empty_like(ref)
-        for sl, table, ref_rows, taps in _chunks(src, ref, intrinsics, pose, depth, ctx.clamp_min_depth):
-            k = ref_rows.shape[0]
-            d_table, d_ref_rows = torch.zeros_like(table), torch.zeros_like(ref_rows)
-            ref32 = ref_rows.float()
-            for idx, wgt in reversed(taps) if bf16 else taps:
-                g = g_cost[sl] * wgt  # (k, D, HW) float32
-                vals = table[idx.reshape(-1)].reshape(k, d, h * w, c).float()
-                d_ref_rows += torch.einsum("kdp,kdpc->kpc", g, vals).to(ref.dtype)
-                d_vals = torch.einsum("kdp,kpc->kdpc", g, ref32).reshape(-1, c)
-                if bf16:
-                    tap = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
-                    d_table += tap.index_add_(0, idx.reshape(-1), d_vals.to(torch.bfloat16).float()).to(torch.bfloat16)
-                else:
-                    d_table.index_add_(0, idx.reshape(-1), d_vals)
-            d_src[sl] = d_table.reshape(k, h * w, c).transpose(1, 2).reshape(k, c, h, w)
-            d_ref[sl] = d_ref_rows.transpose(1, 2).reshape(k, c, h, w)
+        with trace.span("unimatch.sweep_bwd"):
+            src, ref, intrinsics, pose, depth = ctx.saved_tensors
+            n, d, h, w = depth.shape
+            c = src.shape[1]
+            bf16 = src.dtype == torch.bfloat16
+            g_cost = g_cost.reshape(n, d, h * w)
+            d_src, d_ref = torch.empty_like(src), torch.empty_like(ref)
+            for sl, table, ref_rows, taps in _chunks(src, ref, intrinsics, pose, depth, ctx.clamp_min_depth):
+                k = ref_rows.shape[0]
+                plane_sweep_correlation.backward_chunks += 1
+                d_table, d_ref_rows = torch.zeros_like(table), torch.zeros_like(ref_rows)
+                ref32 = ref_rows.float()
+                for idx, wgt in reversed(taps) if bf16 else taps:
+                    g = g_cost[sl] * wgt  # (k, D, HW) float32
+                    vals = table[idx.reshape(-1)].reshape(k, d, h * w, c).float()
+                    d_ref_rows += torch.einsum("kdp,kdpc->kpc", g, vals).to(ref.dtype)
+                    d_vals = torch.einsum("kdp,kpc->kdpc", g, ref32).reshape(-1, c)
+                    if bf16:
+                        tap = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+                        tap.index_add_(0, idx.reshape(-1), d_vals.to(torch.bfloat16).float())
+                        d_table += tap.to(torch.bfloat16)
+                    else:
+                        d_table.index_add_(0, idx.reshape(-1), d_vals)
+                d_src[sl] = d_table.reshape(k, h * w, c).transpose(1, 2).reshape(k, c, h, w)
+                d_ref[sl] = d_ref_rows.transpose(1, 2).reshape(k, c, h, w)
         return d_src, d_ref, None, None, None, None
 
 
@@ -353,7 +361,8 @@ def plane_sweep_correlation(
     for a chunk of the N pairs at a time, one bilinear tap at a time.
     ``gather_dtype=torch.bfloat16`` gathers bf16 features (module
     docstring). ``plane_sweep_correlation.launches`` counts the kernel's
-    runs."""
+    runs, ``plane_sweep_correlation.backward_chunks`` the backward's
+    chunks."""
     out_dtype = src.dtype
     if gather_dtype == torch.bfloat16 or src.dtype == torch.bfloat16:
         src, ref = src.to(torch.bfloat16), ref.to(torch.bfloat16)
@@ -361,3 +370,4 @@ def plane_sweep_correlation(
 
 
 plane_sweep_correlation.launches = 0
+plane_sweep_correlation.backward_chunks = 0

@@ -1118,6 +1118,27 @@ def test_plane_sweep_kernel_matches_plain_forward(card, dtype, c, d, monkeypatch
         assert torch.equal(got, got32)
 
 
+@pytest.mark.parametrize("c, h, w, d", [(128, 64, 64, 128), (64, 128, 128, 32)], ids=["quarter", "half"])
+def test_plane_sweep_kernel_matches_plain_forward_at_training_shapes(card, c, h, w, d):
+    """csrc/plane_sweep.cu in float32 against the plain chunked forward at
+    the two scales of a ``re10k_large`` training step (B = 4, 2 views, one
+    source each: 8 pairs): features at 1/4 of 256x256 (64x64, C = 128, 128
+    candidates) and at 1/2 (128x128, C = 64, 32 candidates). The costs
+    within 1e-5 of the largest entry, as at the other shapes (float32 sums
+    and the warp rounded in another order); one launch a call."""
+    src, ref, intr, pose, depth = sweep_pairs(c + d, n=8, c=c, h=h, w=w, d=d, device=card)
+    before = plane_sweep_correlation.launches
+    with torch.no_grad():
+        got = plane_sweep_correlation(src, ref, intr, pose, depth)
+        want = grid_sample._sweep_plain(src, ref, intr, pose, depth, 1e-3)
+    torch.cuda.synchronize()
+    assert plane_sweep_correlation.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (8, d, h, w)
+    scale = want.abs().max().item()
+    assert want[0].abs().max() > 0 and want[1].abs().max() > 0
+    assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
 def test_plane_sweep_counts_one_launch_a_forward_and_the_same_gradients(card):
     """One launch a forward call and none in the backward; the gradients
     through a kernel forward equal the plain forward's for the same
